@@ -1,0 +1,579 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. build   - compile every CUDA kernel of the serving path from
+               ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
+               parallel) and print the build seconds;
+  2. kernels - hold each kernel against its plain PyTorch version on the
+               card, at the main path's shapes and at ragged ones, and time
+               kernel, plain version and (where one exists) one PyTorch
+               library call with CUDA events;
+  3. main    - serve gpt2-small at full width (random weights from a seed)
+               through ``ElasticEngine``: 8 requests at budgets 0.4 and 1.0,
+               half greedy, half temperature 0.8 / top-k 40; the launch
+               counts of every kernel must be > 0;
+  4. cross   - one greedy request through the same state on the card and on
+               the CPU (plain versions): the tokens must be identical.
+
+The last line is ``{"ok": true, "device": {...}}``; before it come the
+card's name and power limit and a JSON line of per-kernel numbers. Exits
+non-zero, printing no result, without CUDA or without the repository.
+``--profile`` serves the main path's requests twice more, under
+``torch.profiler`` (device time by kernel) and under ``cProfile`` (host
+time by function).
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+L2_BYTES = 50 * 2**20
+TOL_ATTN = 2e-5                # float32 attention, absolute
+TOL_GAR = 2e-4                 # GAR, relative to the output's max
+TOL_PROBS = 1e-5               # warped probs, absolute; tokens identical
+
+
+def fail(msg: str) -> None:
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ------------------------------------------------------------- timing
+
+def _sleep_cycles(host_s: float, n: int) -> int:
+    # keep the card busy while the host enqueues n calls, so the events
+    # time the device work back to back and not the host's launch gaps
+    return int(min(2e9 * host_s * (n + 2) * 2 + 2e6, 4e9))
+
+
+def device_ms(calls, reps: int = 25) -> float:
+    """Median device milliseconds of one call. ``calls`` is a list of
+    zero-argument callables over distinct input copies, cycled so that the
+    inputs of consecutive calls together exceed the L2 cache (the serving
+    path reads each layer's weights and pools cold)."""
+    for c in calls[:2]:
+        c()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls[0]()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(_sleep_cycles(host_s, reps))
+    events[0].record()
+    for i in range(reps):
+        calls[i % len(calls)]()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(events[i].elapsed_time(events[i + 1])
+                             for i in range(reps))
+
+
+def copies_for(nbytes: int) -> int:
+    return min(64, max(2, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ------------------------------------------------------------- kernels
+
+def check_gar(dev, shapes, rng, report):
+    """shapes: (label, t, v_tilde, u_hat, perm_inv): the deployed GAR
+    leaves where the shape comes from the main path, else random factors.
+    Ragged shapes are checked, not timed."""
+    from repro_torch.kernels import gar_matmul as gk
+    from repro_torch.kernels import ref
+    worst = 0.0
+    for label, t, v_tilde, u_hat, perm_inv in shapes:
+        n, r = v_tilde.shape
+        m = r + u_hat.shape[0]
+        x = torch.as_tensor(rng.standard_normal((t, n)).astype(np.float32),
+                            device=dev)
+        y = gk.gar_matmul(x, v_tilde, u_hat, perm_inv)
+        z, tail = ref.gar_matmul_ref(x, v_tilde, u_hat)
+        y_plain = torch.cat([z, tail], dim=-1)[:, perm_inv]
+        torch.cuda.synchronize()
+        err = float((y - y_plain).abs().max())
+        scale = float(y_plain.abs().max()) + 1e-6
+        if not err / scale < TOL_GAR:
+            fail(f"gar_matmul {label}: rel err {err / scale:.3e}")
+        worst = max(worst, err)
+        if label.startswith("ragged"):
+            continue
+        work = nbytes(x, v_tilde, u_hat, perm_inv) + t * m * 4
+        k = copies_for(nbytes(v_tilde, u_hat, perm_inv))
+        sets = [(x, v_tilde.clone(), u_hat.clone(), perm_inv)
+                for _ in range(k)]
+        # yardstick: one dense product y = x @ W_r, W_r (n, m) rebuilt as
+        # (v_tilde @ [I; u_hat]^T) with its columns put back in place
+        u_tilde = torch.cat([torch.eye(r, device=dev), u_hat])
+        w_r = (v_tilde @ u_tilde.T)[:, perm_inv].contiguous()
+        if not float((x @ w_r - y_plain).abs().max()) / scale < 1e-3:
+            fail(f"gar_matmul {label}: dense yardstick disagrees")
+        dense = [w_r.clone() for _ in range(copies_for(nbytes(w_r)))]
+        ms = device_ms([lambda s=s: gk.gar_matmul(*s) for s in sets])
+        plain_ms = device_ms([lambda s=s: torch.cat(
+            ref.gar_matmul_ref(*s[:3]), dim=-1)[:, s[3]] for s in sets])
+        lib_ms = device_ms([lambda w=w: torch.matmul(x, w) for w in dense])
+        b, by = bound_ms(work, 2 * t * (n * r + (m - r) * r))
+        report.append(dict(kernel="gar_matmul", shape=label, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                           bound_by=by, max_abs_err=err))
+    return worst
+
+
+def _attn_case(dev, rng, t, hq, hkv, d, bs, b, mb, decode, chunk):
+    """A mixed batch like the engine's: ``decode`` tokens of distinct
+    slots, one prefill chunk of ``chunk`` tokens in another slot, pads on
+    the null row. Returns the operands and the distinct K/V bytes read."""
+    nb = b * mb + 1
+    kp = torch.as_tensor(rng.standard_normal((nb, bs, hkv, d))
+                         .astype(np.float32), device=dev)
+    vp = torch.as_tensor(rng.standard_normal((nb, bs, hkv, d))
+                         .astype(np.float32), device=dev)
+    tables = np.zeros((b + 1, mb), np.int32)
+    tables[:b] = 1 + rng.permutation(b * mb).reshape(b, mb)
+    sid = np.full(t, b, np.int32)
+    lens = np.ones(t, np.int32)
+    cap = mb * bs
+    for i in range(decode):
+        sid[i] = i
+        lens[i] = rng.integers(cap // 4, cap + 1)
+    start = int(rng.integers(0, cap - chunk + 1)) if chunk else 0
+    for j in range(chunk):
+        sid[decode + j] = decode
+        lens[decode + j] = start + j + 1
+    q = torch.as_tensor(rng.standard_normal((t, hq, d)).astype(np.float32),
+                        device=dev)
+    ops_ = [torch.as_tensor(a, device=dev) for a in (tables, sid, lens)]
+    need = {}
+    for s, c in zip(sid, lens):
+        need[int(s)] = max(need.get(int(s), 0), int(c))
+    kv_bytes = sum(math.ceil(c / bs) for c in need.values()) * bs * hkv * d * 8
+    flops = int(4 * hq * d * lens.sum())
+    return (q, kp, vp, *ops_), kv_bytes, flops
+
+
+def check_attention(dev, cases, rng, report):
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as ak
+    from repro_torch.kernels import ref
+    worst = 0.0
+    for label, geom, softcaps in cases:
+        args, kv_bytes, flops = _attn_case(dev, rng, *geom)
+        q, kp, vp, tables, sid, lens = args
+        for softcap in softcaps:
+            y = ak.paged_prefill_attention(*args, softcap=softcap)
+            y_plain = ref.paged_prefill_attention_ref(*args, softcap=softcap)
+            torch.cuda.synchronize()
+            err = float((y - y_plain).abs().max())
+            if not err < TOL_ATTN:
+                fail(f"paged_prefill_attention {label} softcap={softcap}: "
+                     f"abs err {err:.3e}")
+            worst = max(worst, err)
+        if label.startswith("ragged"):
+            continue
+        k = copies_for(nbytes(kp, vp))
+        sets = [(q, kp.clone(), vp.clone(), tables, sid, lens)
+                for _ in range(k)]
+        # yardstick: SDPA over K/V gathered per token beforehand
+        t, hq, d = q.shape
+        hkv = kp.shape[2]
+        mb, bs = tables.shape[1], kp.shape[1]
+        per_tok = tables[sid.long()].long()
+        kg = kp[per_tok].reshape(t, mb * bs, hkv, d).transpose(1, 2)
+        vg = vp[per_tok].reshape(t, mb * bs, hkv, d).transpose(1, 2)
+        kg = kg.repeat_interleave(hq // hkv, 1).contiguous()
+        vg = vg.repeat_interleave(hq // hkv, 1).contiguous()
+        mask = (torch.arange(mb * bs, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        yl = F.scaled_dot_product_attention(q[:, :, None, :], kg, vg,
+                                            attn_mask=mask)[:, :, 0]
+        # a timing yardstick only: at some shapes its float32 path runs on
+        # TF32 tensor cores, so it is held to computing the same function
+        # (a gross-error guard), not to TOL_ATTN
+        lib_err = float((yl - y_plain).abs().max())
+        log(f"# yardstick SDPA [{label}]: max abs diff {lib_err:.2e}")
+        if not lib_err < 0.1:
+            fail(f"paged_prefill_attention {label}: SDPA yardstick "
+                 f"computes something else ({lib_err:.3e})")
+        lib_sets = [(kg.clone(), vg.clone())
+                    for _ in range(copies_for(nbytes(kg, vg)))]
+        ms = device_ms([lambda s=s: ak.paged_prefill_attention(*s)
+                        for s in sets])
+        plain_ms = device_ms([lambda s=s: ref.paged_prefill_attention_ref(*s)
+                              for s in sets])
+        lib_ms = device_ms([lambda s=s: F.scaled_dot_product_attention(
+            q[:, :, None, :], s[0], s[1], attn_mask=mask) for s in lib_sets])
+        # q read and the output written once, the distinct K/V blocks the
+        # tokens' contexts cover, the routing tables
+        work = 2 * nbytes(q) + kv_bytes + nbytes(tables, sid, lens)
+        b, by = bound_ms(work, flops)
+        report.append(dict(kernel="paged_prefill_attention", shape=label,
+                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b, bound_by=by, max_abs_err=err))
+    return worst
+
+
+def check_sampling(dev, cases, rng, report):
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sampling as sk
+    worst = 0.0
+    for label, s, v in cases:
+        logits = torch.as_tensor((rng.standard_normal((s, v)) * 3)
+                                 .astype(np.float32), device=dev)
+        temp = torch.as_tensor(np.where(np.arange(s) % 2, 0.8, 0.0)
+                               .astype(np.float32), device=dev)
+        top_k = torch.as_tensor(np.where(np.arange(s) % 2, 40, 0)
+                                .astype(np.int32), device=dev)
+        u = torch.as_tensor(rng.random(s).astype(np.float32), device=dev)
+        z = logits / torch.clamp(temp, min=1e-30)[:, None]
+        for thr in (ref.topk_threshold_ref(z, top_k),
+                    torch.full((s,), -math.inf, device=dev)):
+            tok, probs = sk.topk_mask_sample(logits, temp, thr, u,
+                                             return_probs=True)
+            tok_only = sk.topk_mask_sample(logits, temp, thr, u)
+            t_ref, p_ref = ref.topk_mask_sample_ref(logits, temp, thr, u)
+            torch.cuda.synchronize()
+            if not (torch.equal(tok, t_ref) and torch.equal(tok_only, t_ref)):
+                fail(f"topk_mask_sample {label}: tokens differ "
+                     f"{tok.tolist()} vs {t_ref.tolist()}")
+            err = float((probs - p_ref).abs().max())
+            if not err < TOL_PROBS:
+                fail(f"topk_mask_sample {label}: probs err {err:.3e}")
+            worst = max(worst, err)
+        # the serving call: ops dispatch, sort for top-k included
+        tok_ops = ops.topk_mask_sample_forward(logits, temp, top_k, u)
+        if not torch.equal(tok_ops, ref.topk_mask_sample_ref(
+                logits, temp, ref.topk_threshold_ref(z, top_k), u)[0]):
+            fail(f"topk_mask_sample {label}: ops dispatch differs")
+        if label.startswith("ragged"):
+            continue
+        thr = ref.topk_threshold_ref(z, top_k)
+        sets = [(logits.clone(), temp, thr, u)
+                for _ in range(copies_for(nbytes(logits)))]
+        ms = device_ms([lambda a=a: sk.topk_mask_sample(*a) for a in sets])
+        plain_ms = device_ms([lambda a=a: ref.topk_mask_sample_ref(
+            *a, return_probs=False) for a in sets])
+        work = nbytes(logits, temp, thr, u) + s * 4
+        b, by = bound_ms(work, 12 * s * v)
+        report.append(dict(kernel="topk_mask_sample", shape=label, ms=ms,
+                           plain_ms=plain_ms, library_ms=None, bound_ms=b,
+                           bound_by=by, max_abs_err=err))
+    return worst
+
+
+# ------------------------------------------------------------ main path
+
+def greedy_loop(params, cfg, prompt, new_tokens, device):
+    """Greedy decode of one prompt through ``paged_mixed_step`` with full
+    logits rows; returns (tokens, per-step top-2 margins)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.kv_cache import PagedKVCache
+    cache = PagedKVCache(cfg, max_batch=1, max_len=64, block_size=16,
+                         device=device)
+    cache.open_slot(0)
+    cache.extend_slot(0, len(prompt))
+    feed = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
+    positions = torch.arange(len(prompt), dtype=torch.int32, device=device)
+    toks, margins = [], []
+    for _ in range(new_tokens):
+        caches = {"slot_ids": torch.zeros_like(positions),
+                  "positions": positions,
+                  "block_tables": cache.device_tables(null_rows=1),
+                  "segments": cache.pools}
+        logits, _ = tfm.paged_mixed_step(params, cfg, caches, feed)
+        last = logits[0, -1].float().cpu()
+        top = torch.topk(last, 2)
+        toks.append(int(top.indices[0]))
+        margins.append(float(top.values[0] - top.values[1]))
+        n = cache.slots[0].num_tokens
+        cache.append_token(0)
+        feed = torch.tensor([[toks[-1]]], dtype=torch.int32, device=device)
+        positions = torch.tensor([n], dtype=torch.int32, device=device)
+    return toks, margins
+
+
+def profile_main_path(engine, reqs) -> None:
+    """Serve ``reqs`` again under ``torch.profiler`` and print the device
+    time by kernel and the kernels' busy share of the window; then once
+    more under ``cProfile`` and print the host time by function."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(reqs, mode="continuous")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        # kernels only: operators and annotations carry their kernels' time
+        if ev.key in ("paged_sample_step", "paged_mixed_step") \
+                or ev.key.startswith("aten::") \
+                or "cuda" not in str(getattr(ev, "device_type", "")).lower():
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    # the host's share: the same requests once more under cProfile
+    import cProfile
+    import pstats
+    host = cProfile.Profile()
+    host.enable()
+    engine.generate(reqs, mode="continuous")
+    torch.cuda.synchronize()
+    host.disable()
+    stats = pstats.Stats(host)
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:15]
+    log(f"# profile: wall {wall:.3f} s (profiler on), kernels busy "
+        f"{busy:.3f} s = {100 * busy / wall:.1f}% of the wall, "
+        f"{sum(r[1] for r in rows)} kernel launches")
+    for dev_us, count, key in rows[:15]:
+        log(f"#   {dev_us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+    log(f"# host profile: {stats.total_tt:.3f} s of Python under cProfile, "
+        "top functions by own time:")
+    for (path, line, func), (_, ncalls, tottime, cumtime, _) in top:
+        log(f"#   {tottime * 1e3:9.2f} ms own {cumtime * 1e3:9.2f} ms cum "
+            f"{ncalls:7d}x  {Path(path).name}:{line} {func}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke runs on an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core import flexrank as FR
+    from repro_torch.kernels import build, gar_matmul, paged_attention, \
+        sampling
+    from repro_torch.launch.serve import dense_init
+    from repro_torch.models import common as cm
+    from repro_torch.serving import ElasticEngine, Request, SamplingParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"# device: {name}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; {smi}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    secs = build.build()
+    log(f"# build: {time.perf_counter() - t0:.2f} s wall "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    for k, (s, ptx) in build.build_log.items():
+        for line in ptx.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"#   {k}: {line.strip()}")
+
+    # main-path state (its deployed GAR leaves feed the kernel checks)
+    cfg = get_config("gpt2-small")
+    t0 = time.perf_counter()
+    dense = dense_init(cfg, 0, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params_fact, curves = FR.decompose(dense, cfg)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    del dense
+    t0 = time.perf_counter()
+    table, infos = FR.build_table(cfg, curves)
+    t_dp = time.perf_counter() - t0
+    engine = ElasticEngine(cfg, params_fact, table, infos, device="cuda",
+                           prefill_chunk=64, max_batch=8, max_len=256)
+    budgets = (0.4, 1.0)
+    rows = [engine._budget_row(b) for b in budgets]
+    deployed = {r: engine._realize(r) for r in rows}
+    log(f"# setup: dense init {t_init:.2f} s, decompose {t_dec:.2f} s, "
+        f"DP {t_dp:.2f} s ({table.table.shape[0]} rows x "
+        f"{table.table.shape[1]} groups), deploy "
+        + ", ".join(f"row {r} (budget {b}) {engine.deploy_seconds[r]:.2f} s"
+                    for b, r in zip(budgets, rows)))
+
+    # 2. kernels
+    rng = np.random.default_rng(0)
+    report: list = []
+    gar_shapes = []
+    for b, r in zip(budgets, rows):
+        layer = deployed[r]["segments"][0]
+        for proj in ("attn/q", "attn/k", "attn/v", "attn/o", "mlp/gate",
+                     "mlp/up", "mlp/down"):
+            leaf = cm.tree_get(layer, proj)
+            vt, uh, pi = (leaf["v_tilde"][0], leaf["u_hat"][0],
+                          leaf["perm_inv"][0])
+            for t in (8, 72):
+                n, rr = vt.shape
+                gar_shapes.append((f"{proj} budget {b} T={t} n={n} r={rr} "
+                                   f"m={rr + uh.shape[0]}", t, vt, uh, pi))
+
+    def rand_gar(n, m, r):
+        return (torch.as_tensor(rng.standard_normal((n, r)).astype(
+                    np.float32) / math.sqrt(n), device=dev),
+                torch.as_tensor(rng.standard_normal((m - r, r)).astype(
+                    np.float32) / math.sqrt(r), device=dev),
+                torch.as_tensor(rng.permutation(m), device=dev))
+    for t, n, m, r in ((33, 17, 29, 7), (100, 96, 80, 40), (5, 64, 64, 64),
+                       (19, 3072, 768, 301)):
+        gar_shapes.append((f"ragged T={t} n={n} r={r} m={m}", t,
+                           *rand_gar(n, m, r)))
+    gar_err = check_gar(dev, gar_shapes, rng, report)
+    attn_err = check_attention(dev, [
+        ("T=8 decode Hq=Hkv=12 D=64 BS=16", (8, 12, 12, 64, 16, 8, 16, 8, 0),
+         (0.0,)),
+        ("T=72 decode7+chunk64 Hq=Hkv=12 D=64 BS=16",
+         (72, 12, 12, 64, 16, 8, 16, 7, 64), (0.0, 30.0)),
+        ("ragged GQA 12/4 D=40 BS=7", (10, 12, 4, 40, 7, 3, 3, 2, 5),
+         (0.0, 30.0)),
+        ("ragged GQA 8/2 D=32 BS=8", (10, 8, 2, 32, 8, 3, 4, 2, 4), (0.0,)),
+    ], rng, report)
+    samp_err = check_sampling(dev, [("S=8 V=50257", 8, 50257),
+                                    ("S=4 V=50257", 4, 50257),
+                                    ("ragged S=9 V=515", 9, 515),
+                                    ("ragged S=3 V=64", 3, 64)], rng, report)
+    for e in report:
+        lib = ("-" if e["library_ms"] is None
+               else f"{e['library_ms']:.4f}")
+        log(f"# kernel {e['kernel']} [{e['shape']}]: {e['ms']:.4f} ms, "
+            f"plain {e['plain_ms']:.4f} ms, library {lib} ms, bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']}), max abs err "
+            f"{e['max_abs_err']:.2e}")
+
+    # 3. main path
+    prng = np.random.default_rng(1)
+    reqs = []
+    for i in range(8):
+        plen = int(prng.integers(48, 161))
+        samp = (SamplingParams(temperature=0.8, top_k=40, seed=100 + i)
+                if i % 2 else None)
+        reqs.append(Request(
+            prompt=prng.integers(0, cfg.vocab_size, plen).astype(np.int32),
+            max_new_tokens=32, budget=budgets[i % 2], sampling=samp))
+    kernels = (gar_matmul, paged_attention, sampling)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    results = engine.generate(reqs, mode="continuous")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    for rq, rs in zip(reqs, results):
+        if len(rs.tokens) != len(rq.prompt) + 32:
+            fail(f"request of {len(rq.prompt)} tokens returned "
+                 f"{len(rs.tokens)}")
+        gen = rs.tokens[len(rq.prompt):]
+        if gen.min() < 0 or gen.max() >= cfg.vocab_size:
+            fail("generated token out of the vocabulary")
+    s = engine.last_metrics.summary()
+    log(f"# main path: gpt2-small full width, 8 requests (prompts "
+        f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}"
+        f", 32 new each, budgets 0.4/1.0 -> rows {rows}), wall {wall:.2f} s")
+    log(f"# serving: {s['tokens_per_s']:.1f} tok/s, ttft mean "
+        f"{s['ttft_mean_s'] * 1e3:.1f} ms, {s['mixed_iterations']:.0f} "
+        f"mixed iterations, dispatch {s['dispatch_ms_mean']:.2f} ms / host "
+        f"{s['host_ms_mean']:.2f} ms per iteration, preemptions "
+        f"{s['preemptions']}")
+    log(f"# kernels: launches on the main path {json.dumps(counts)}")
+    if min(counts.values()) <= 0:
+        fail(f"a kernel of the main path never launched: {counts}")
+
+    if "--profile" in sys.argv[1:]:
+        profile_main_path(engine, reqs)
+
+    # 4. card vs CPU, one greedy request at the 0.4 row
+    prompt = prng.integers(0, cfg.vocab_size, 32).astype(np.int32)
+    row = rows[0]
+    res = engine.generate([Request(prompt=prompt, max_new_tokens=8,
+                                   budget=budgets[0])])[0]
+    eng_toks = res.tokens[32:].tolist()
+    p_gpu = deployed[row]
+    p_cpu = cm.tree_map(lambda t: t.cpu(), p_gpu)
+    with torch.no_grad():
+        toks_gpu, marg_gpu = greedy_loop(p_gpu, cfg, prompt, 8, dev)
+        t0 = time.perf_counter()
+        toks_cpu, marg_cpu = greedy_loop(p_cpu, cfg, prompt, 8,
+                                         torch.device("cpu"))
+        t_cpu = time.perf_counter() - t0
+    log(f"# cross-check: card engine {eng_toks}, card loop {toks_gpu}, CPU "
+        f"loop {toks_cpu} ({t_cpu:.1f} s on the CPU)")
+    if not (eng_toks == toks_gpu == toks_cpu):
+        for i, (a, b, c) in enumerate(zip(eng_toks, toks_gpu, toks_cpu)):
+            if not a == b == c:
+                fail(f"card and CPU part at step {i}: top-2 margin "
+                     f"{marg_gpu[i]:.3e} on the card, {marg_cpu[i]:.3e} on "
+                     "the CPU")
+
+    # numbers, one entry per kernel, at its largest main-path shape
+    replaces = {
+        "gar_matmul": ("src/repro_torch/kernels/csrc/gar_matmul.cu",
+                       "src/repro/kernels/gar_matmul.py:52", gar_err,
+                       "mlp/gate budget 0.4 T=72"),
+        "paged_prefill_attention": (
+            "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:164", attn_err, "T=72"),
+        "topk_mask_sample": ("src/repro_torch/kernels/csrc/sampling.cu",
+                             "src/repro/kernels/sampling.py:110", samp_err,
+                             "S=8"),
+    }
+    module_of = {"gar_matmul": "gar_matmul",
+                 "paged_prefill_attention": "paged_attention",
+                 "topk_mask_sample": "sampling"}
+    line = []
+    for kname, (src, rep, err, key) in replaces.items():
+        e = next(x for x in report
+                 if x["kernel"] == kname and x["shape"].startswith(key))
+        line.append({"name": kname, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": counts[module_of[kname]],
+                     "max_abs_err": err, "ms": e["ms"],
+                     "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                     "bound_by": e["bound_by"],
+                     "library_ms": e["library_ms"], "shape": e["shape"]})
+    log(smi)
+    log(json.dumps({"kernels": line}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

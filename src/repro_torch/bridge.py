@@ -1,0 +1,71 @@
+"""Conversion between the JAX package's parameter trees and the port's.
+
+Parameter trees are nested dicts and lists in both packages, with the same
+keys and the same layouts, so a conversion is a leaf-by-leaf copy:
+numpy arrays (or anything ``np.asarray`` accepts) become torch tensors and
+back. The one change of type is GAR's ``perm_inv``: int32 in the JAX
+package, int64 index tensors here. A numpy -> torch -> numpy round trip is
+exact. ``ProfileTable`` and ``GroupInfo`` are carried field by field into
+the port's own dataclasses. Nothing here imports JAX: the caller hands over
+the trees, and the bridge reads them by duck typing.
+"""
+from __future__ import annotations
+
+from typing import Any, List
+
+import numpy as np
+import torch
+
+from repro_torch.core.flexrank import GroupInfo
+from repro_torch.core.profiles import ProfileTable
+
+PyTree = Any
+
+_INDEX_KEYS = ("perm_inv",)
+
+
+def _walk(tree: PyTree, fn, key: str = "") -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_walk(v, fn, key) for v in tree]
+        return type(tree)(out) if isinstance(tree, tuple) else out
+    if tree is None:
+        return None
+    return fn(tree, key)
+
+
+def params_to_torch(tree: PyTree, device=None) -> PyTree:
+    """Numpy (or JAX) parameter tree -> torch tensors on ``device`` (CPU by
+    default); ``perm_inv`` leaves become int64."""
+    def conv(leaf, key):
+        a = np.asarray(leaf)
+        if key in _INDEX_KEYS:
+            a = a.astype(np.int64)
+        return torch.from_numpy(np.array(a, copy=True)).to(device or "cpu")
+    return _walk(tree, conv)
+
+
+def params_to_numpy(tree: PyTree) -> PyTree:
+    """Torch parameter tree -> numpy arrays; ``perm_inv`` back to int32, as
+    the JAX package keeps it."""
+    def conv(leaf, key):
+        a = leaf.detach().cpu().numpy()
+        return a.astype(np.int32) if key in _INDEX_KEYS else a
+    return _walk(tree, conv)
+
+
+def profile_table(table) -> ProfileTable:
+    """The JAX package's ``ProfileTable`` -> the port's."""
+    return ProfileTable(layer_names=tuple(table.layer_names),
+                        table=np.asarray(table.table, np.int32).copy(),
+                        budgets=tuple(float(b) for b in table.budgets),
+                        max_ranks=tuple(int(r) for r in table.max_ranks))
+
+
+def group_infos(infos) -> List[GroupInfo]:
+    """The JAX package's ``GroupInfo`` list -> the port's."""
+    return [GroupInfo(path=i.path, scan_dims=tuple(i.scan_dims),
+                      lead_dims=tuple(i.lead_dims), m=int(i.m), n=int(i.n),
+                      full_rank=int(i.full_rank), col=int(i.col))
+            for i in infos]

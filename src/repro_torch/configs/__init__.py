@@ -1,0 +1,24 @@
+"""Architecture registry over the configs ported so far."""
+from typing import List
+
+from repro_torch.configs.base import (FlexRankConfig, ModelConfig, Segment)
+from repro_torch.configs import gpt2_small
+
+_MODULES = {
+    "gpt2-small": gpt2_small,
+}
+
+
+def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; ported so far: "
+                       f"{sorted(_MODULES)}")
+    return _MODULES[name].SMOKE if smoke else _MODULES[name].CONFIG
+
+
+def list_archs() -> List[str]:
+    return sorted(_MODULES)
+
+
+__all__ = ["FlexRankConfig", "ModelConfig", "Segment", "get_config",
+           "list_archs"]

@@ -1,0 +1,221 @@
+"""FlexRank orchestrator for serving: factorize, decompose, DP-select and
+GAR-deploy (paper Algorithm 1, stages 1, 3, 4 and 6).
+
+Ported so far: the plain-SVD ``decompose`` (the reference's per-leaf
+fallback when no activation moment was recorded), the DP profile table,
+and the deploy-time GAR transform. Calibration taps (DataSVD) and the
+consolidation loss wait for later slices (ROADMAP).
+
+Rank granularity: a factorized *group* covers all the layers of a stacked
+leaf with one rank; gpt2-small gives every layer its own segment, so every
+linear is its own group.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import datasvd, dp_select
+from repro_torch.core.gar import gar_transform
+from repro_torch.core.profiles import ProfileTable, table_from_profiles
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tfm
+
+PyTree = Any
+
+_SCAN_AXIS = cm.LAYERS
+
+
+def _eligible(cfg: ModelConfig):
+    excl = cfg.flexrank.exclude
+
+    def predicate(path: str, spec) -> bool:
+        return not any(tok in path for tok in excl)
+
+    return predicate
+
+
+def factorized_spec(cfg: ModelConfig) -> PyTree:
+    fr = cfg.flexrank
+    return cm.factorize_spec(tfm.model_spec(cfg), predicate=_eligible(cfg),
+                             max_rank_fn=lambda p, s: fr.max_rank)
+
+
+@dataclasses.dataclass
+class GroupInfo:
+    path: str
+    scan_dims: Tuple[int, ...]   # leading LAYERS-axis dims (rank leaf shape)
+    lead_dims: Tuple[int, ...]   # all leading dims of the dense leaf
+    m: int                       # d_out
+    n: int                       # d_in
+    full_rank: int
+    col: int                     # DP column index
+
+
+def group_infos(cfg: ModelConfig) -> List[GroupInfo]:
+    infos: List[GroupInfo] = []
+
+    def walk(tree, prefix=""):
+        if isinstance(tree, dict):
+            if {"u", "v"} <= set(tree.keys()) and cm.is_spec(tree.get("u")):
+                u, v = tree["u"], tree["v"]
+                scan_dims = []
+                for dim, ax in zip(u.shape, u.axes):
+                    if ax != _SCAN_AXIS:
+                        break
+                    scan_dims.append(dim)
+                infos.append(GroupInfo(
+                    path=prefix, scan_dims=tuple(scan_dims),
+                    lead_dims=tuple(u.shape[:-2]), m=u.shape[-2],
+                    n=v.shape[-2], full_rank=u.shape[-1], col=len(infos)))
+                return
+            for k, v_ in tree.items():
+                walk(v_, f"{prefix}/{k}" if prefix else k)
+        elif isinstance(tree, (list, tuple)):
+            for i, v_ in enumerate(tree):
+                walk(v_, f"{prefix}/{i}" if prefix else str(i))
+
+    walk(factorized_spec(cfg))
+    return infos
+
+
+def _lead_indices(lead: Tuple[int, ...]):
+    return np.ndindex(*lead) if lead else [()]
+
+
+def decompose(dense_params: PyTree,
+              cfg: ModelConfig) -> Tuple[PyTree, Dict[str, np.ndarray]]:
+    """Plain-SVD factorized params from dense params, on the device of the
+    dense leaves. Returns (factorized params, error curves):
+    ``curves[group_path][r-1]`` is the tail energy of keeping rank r,
+    summed over the group's layers (the DP's input). The arithmetic of the
+    curve is the reference's, in numpy on the host."""
+    params = cm.tree_map(lambda x: x, dense_params)
+    curves: Dict[str, np.ndarray] = {}
+    for info in group_infos(cfg):
+        w = cm.tree_get(dense_params, info.path)["w"].to(torch.float32)
+        lead = info.lead_dims
+        r_full = info.full_rank
+        u_out = torch.zeros(lead + (info.m, r_full), dtype=torch.float32,
+                            device=w.device)
+        v_out = torch.zeros(lead + (info.n, r_full), dtype=torch.float32,
+                            device=w.device)
+        curve = np.zeros(r_full, np.float64)
+        for idx in _lead_indices(lead):
+            f = datasvd.plain_svd_factors(w[idx].T, max_rank=r_full)
+            rr = f.u.shape[1]
+            u_out[idx][:, :rr] = f.u
+            v_out[idx][:, :rr] = f.v
+            u_np = f.u.cpu().numpy()
+            # |u_j|^2 = lambda_j (sqrt(lambda) absorbed symmetrically)
+            lam2 = ((u_np * u_np).sum(0)) ** 2
+            tail = lam2[::-1].cumsum()[::-1]
+            c = np.zeros(r_full)
+            c[:rr] = np.concatenate([tail[1:], [0.0]])
+            curve += c
+        cm.tree_set(params, info.path, {"u": u_out, "v": v_out})
+        curves[info.path] = curve
+    return params, curves
+
+
+def build_table(cfg: ModelConfig, curves: Dict[str, np.ndarray]
+                ) -> Tuple[ProfileTable, List[GroupInfo]]:
+    """DP nested rank selection over the curves -> profile table."""
+    infos = group_infos(cfg)
+    cands, names, max_ranks, costs = [], [], [], []
+    for info in infos:
+        n_lead = int(np.prod(info.lead_dims)) if info.lead_dims else 1
+        cost_per_rank = float((info.m + info.n) * n_lead)
+        cands.append(dp_select.make_layer_candidates(
+            curves[info.path], cost_per_rank,
+            num_levels=cfg.flexrank.rank_levels))
+        names.append(info.path)
+        max_ranks.append(info.full_rank)
+        costs.append(cost_per_rank)
+    chain = dp_select.dp_rank_selection(cands)
+    total = float(np.dot(costs, max_ranks))
+    picked = dp_select.select_profiles(chain, cfg.flexrank.budgets, total)
+    seen, rows = set(), []
+    for p in picked:                  # dedupe, keeping nestedness and order
+        if p.ranks not in seen:
+            rows.append(p)
+            seen.add(p.ranks)
+    table = table_from_profiles(names, rows,
+                                cfg.flexrank.budgets[: len(rows)], max_ranks)
+    return table, infos
+
+
+def gar_deploy(params_fact: PyTree, cfg: ModelConfig,
+               infos: List[GroupInfo], table: ProfileTable, k: int) -> PyTree:
+    """Deployable params at budget row ``k``: every factorized leaf becomes
+    ``{u_hat, v_tilde, perm_inv}`` (stacked over its layers; ``perm_inv``
+    int64), computed on the device of the factors. ``common.linear``
+    dispatches on ``u_hat``."""
+    params = cm.tree_map(lambda x: x, params_fact)
+    row = table.table[k]
+    for info in infos:
+        leaf = cm.tree_get(params_fact, info.path)
+        u, v = leaf["u"], leaf["v"]
+        r = int(row[info.col])
+        lead = info.lead_dims
+        dev = u.device
+        u_hats = torch.zeros(lead + (info.m - r, r), dtype=torch.float32,
+                             device=dev)
+        v_tildes = torch.zeros(lead + (info.n, r), dtype=torch.float32,
+                               device=dev)
+        perms = torch.zeros(lead + (info.m,), dtype=torch.int64, device=dev)
+        for idx in _lead_indices(lead):
+            g = gar_transform(u[idx], v[idx], r)
+            u_hats[idx] = g.u_hat
+            v_tildes[idx] = g.v_tilde
+            perms[idx] = torch.argsort(g.perm)
+        cm.tree_set(params, info.path, {"u_hat": u_hats, "v_tilde": v_tildes,
+                                        "perm_inv": perms})
+    return params
+
+
+def is_nested_prefix(table: ProfileTable, draft_row: int,
+                     target_row: int) -> bool:
+    """True iff ``draft_row``'s ranks are a componentwise prefix of
+    ``target_row``'s."""
+    t = table.table
+    return bool(np.all(t[draft_row] <= t[target_row]))
+
+
+def nested_prefix_row(table: ProfileTable, target_row: int, budget: float,
+                      cost_table: Optional[np.ndarray] = None
+                      ) -> Optional[int]:
+    """Largest row strictly below ``target_row`` whose deployed cost stays
+    within ``budget`` (fraction of the top row) and whose ranks are a nested
+    prefix of the target row's; ``None`` when none fits."""
+    if target_row <= 0:
+        return None
+    if cost_table is None:
+        cost_table = table.table.sum(axis=1)
+    cost_table = np.asarray(cost_table, np.float64)
+    full = float(cost_table[-1])
+    for row in range(target_row - 1, -1, -1):
+        if not is_nested_prefix(table, row, target_row):
+            continue
+        if cost_table[row] <= budget * full + 1e-9:
+            return row
+    return None
+
+
+def deployed_param_count(cfg: ModelConfig, infos: List[GroupInfo],
+                         table: ProfileTable, k: int) -> int:
+    """Parameters of the budget-k realization (GAR form, identity not
+    stored)."""
+    dense_total = cm.param_count(tfm.model_spec(cfg))
+    fact_full = 0
+    fact_at_k = 0
+    for info in infos:
+        n_lead = int(np.prod(info.lead_dims)) if info.lead_dims else 1
+        r = int(table.table[k][info.col])
+        fact_full += n_lead * info.m * info.n
+        fact_at_k += n_lead * (info.m + info.n - r) * r
+    return dense_total - fact_full + fact_at_k

@@ -1,0 +1,85 @@
+"""Public wrappers around the kernels, dispatching on where the tensors lie.
+
+A CPU tensor takes the plain PyTorch version (``ref``); a CUDA tensor
+launches the hand-written kernel, or the kernel's wrapper raises. There is
+no knob and no fallback from a failed launch to the plain version.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import gar_matmul as _gar
+from repro_torch.kernels import paged_attention as _attn
+from repro_torch.kernels import sampling as _samp
+
+
+def gar_forward(x: torch.Tensor, v_tilde: torch.Tensor, u_hat: torch.Tensor,
+                perm_inv: torch.Tensor) -> torch.Tensor:
+    """Full GAR linear: y = P^{-1} [z ; z @ u_hat^T], x: (..., n). At full
+    rank ``u_hat`` is (0, r) and ``z`` is the whole output."""
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        y = _gar.gar_matmul(xf.contiguous(), v_tilde.to(x.dtype).contiguous(),
+                            u_hat.to(x.dtype).contiguous(),
+                            perm_inv.contiguous())
+        return y.reshape(*lead, -1)
+    z, tail = ref.gar_matmul_ref(xf, v_tilde.to(x.dtype), u_hat.to(x.dtype))
+    y = torch.cat([z, tail], dim=-1)[:, perm_inv]
+    return y.reshape(*lead, -1)
+
+
+def paged_prefill_attention_forward(q, k_pool, v_pool, block_tables,
+                                    slot_ids, context_lens, *,
+                                    softcap: float = 0.0,
+                                    window: Optional[int] = None):
+    """Flat-token paged attention. q: (T, Hq, D); pools: (NB, BS, Hkv, D);
+    block_tables: (B, MB); slot_ids/context_lens: (T,). Returns (T, Hq, D).
+
+    ``window`` (sliding-window lookback) has no kernel yet: on a CUDA tensor
+    it raises, on the CPU the plain version applies it."""
+    if q.is_cuda:
+        if window is not None:
+            raise NotImplementedError(
+                "windowed paged attention has no CUDA kernel yet "
+                "(ROADMAP: windowed/softcap paged configs on the card)")
+        i32 = torch.int32
+        return _attn.paged_prefill_attention(
+            q.contiguous(), k_pool, v_pool, block_tables.to(i32).contiguous(),
+            slot_ids.to(i32).contiguous(), context_lens.to(i32).contiguous(),
+            softcap=softcap)
+    return ref.paged_prefill_attention_ref(q, k_pool, v_pool, block_tables,
+                                           slot_ids, context_lens,
+                                           softcap=softcap, window=window)
+
+
+def topk_mask_sample_forward(logits, temperature, top_k, u, *,
+                             return_probs: bool = False):
+    """Temperature/top-k warp + one categorical draw per logits row.
+
+    logits: (S, V); temperature: (S,) (``<= 0`` = greedy argmax); top_k:
+    (S,) int (0 = no truncation) or ``None`` when no row truncates, which
+    skips the threshold sort; u: (S,) uniforms in [0, 1). Returns tokens
+    (S,) int32, plus the warped probs (S, V) when ``return_probs``."""
+    temperature = temperature.float()
+    u = u.float()
+    if top_k is None:
+        threshold = None
+    else:
+        z = logits.float() / torch.clamp(temperature, min=1e-30)[:, None]
+        threshold = ref.topk_threshold_ref(z, top_k)
+    if logits.is_cuda:
+        thr = (threshold if threshold is not None
+               else torch.full(logits.shape[:1], -math.inf,
+                               dtype=torch.float32, device=logits.device))
+        return _samp.topk_mask_sample(logits.float().contiguous(),
+                                      temperature.contiguous(),
+                                      thr.contiguous(), u.contiguous(),
+                                      return_probs=return_probs)
+    tokens, probs = ref.topk_mask_sample_ref(logits, temperature, threshold,
+                                             u, return_probs=return_probs)
+    return (tokens, probs) if return_probs else tokens

@@ -1,0 +1,153 @@
+"""Serving launcher on the card: build an elastic model from a seeded dense
+init, then serve a stream of requests at mixed budgets through the
+GAR-deployed submodels with the continuous-batching engine (paged KV
+cache, chunked prefill fused into decode iterations with
+``--prefill-chunk``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
+      --requests 6 --budgets 0.4,1.0 --engine continuous --prefill-chunk 64
+
+Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions of the
+kernels instead (use ``--smoke`` there). The flags are those of
+``repro.launch.serve`` that this port supports so far.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.core import flexrank as FR
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tfm
+from repro_torch.obs import make_tracer
+from repro_torch.serving import ElasticEngine, Request, SamplingParams
+
+
+def build_flexrank_state(cfg, dense_params):
+    """Paper Algorithm 1 stages 1-2 without calibration: plain-SVD
+    decompose, then DP-select the nested profile table. This is the JAX
+    package's ``build_flexrank_state`` with ``calib_batches=0`` (no moments
+    recorded, so every leaf takes the plain-SVD fallback)."""
+    fact_params, curves = FR.decompose(dense_params, cfg)
+    table, infos = FR.build_table(cfg, curves)
+    return fact_params, table, infos
+
+
+def dense_init(cfg, seed: int, device) -> dict:
+    """Seeded dense parameters: drawn on the CPU from a ``torch.Generator``
+    (the same values whatever the device), then moved."""
+    gen = torch.Generator().manual_seed(seed)
+    return cm.tree_map(lambda t: t.to(device),
+                       cm.instantiate(tfm.model_spec(cfg), gen))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gpt2-small")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, an error without "
+                         "it); cpu runs the kernels' plain versions")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--budgets", default="0.4,0.7,1.0")
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", default="auto",
+                    choices=["auto", "continuous", "drain"],
+                    help="continuous = paged cache + mid-decode joins; "
+                         "drain is not ported yet")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prompt tokens per chunk for mixed prefill/decode "
+                         "iterations (0 = full-prompt chunks)")
+    ap.add_argument("--token-budget", type=int, default=0,
+                    help="total tokens per mixed iteration "
+                         "(0 = max_batch + prefill_chunk)")
+    ap.add_argument("--prefill-order", default="fifo",
+                    choices=["fifo", "srpf"])
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature for all requests "
+                         "(0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k truncation when sampling (0 = off)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="automatic prefix caching of full prompt blocks")
+    ap.add_argument("--host-sampling", action="store_true",
+                    help="sample on the host (the oracle path) instead of "
+                         "the default device-resident fused sampling")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace-event JSON of the run here "
+                         "(a .jsonl suffix writes one event per line)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    rng = np.random.default_rng(args.seed)
+    print("# decomposition: plain SVD per leaf; DataSVD calibration waits "
+          "for the decomposition slice of the port", flush=True)
+    dense = dense_init(cfg, args.seed, device)
+    params_fact, table, infos = build_flexrank_state(cfg, dense)
+    del dense
+    engine = ElasticEngine(cfg, params_fact, table, infos,
+                           max_batch=args.max_batch, max_len=args.max_len,
+                           block_size=args.block_size,
+                           prefill_chunk=args.prefill_chunk or None,
+                           token_budget=args.token_budget or None,
+                           prefill_order=args.prefill_order,
+                           device_sampling=not args.host_sampling,
+                           prefix_cache=True if args.prefix_cache else None,
+                           tracer=make_tracer(True) if args.trace_out else None,
+                           device=device)
+    budgets = [float(b) for b in args.budgets.split(",")]
+    sampling = (SamplingParams(temperature=args.temperature,
+                               top_k=args.top_k, seed=args.seed)
+                if args.temperature > 0 else None)
+    reqs = []
+    for i in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab_size,
+                              size=args.prompt_len).astype(np.int32)
+        reqs.append(Request(prompt=prompt, max_new_tokens=args.max_new,
+                            budget=budgets[i % len(budgets)],
+                            sampling=sampling))
+    results = engine.generate(reqs, mode=args.engine)
+    if args.trace_out:
+        if args.trace_out.endswith(".jsonl"):
+            engine.tracer.export_jsonl(args.trace_out)
+        else:
+            engine.tracer.export_chrome(args.trace_out)
+        print(f"# trace: {len(engine.tracer)} events -> {args.trace_out}")
+    for i, (rq, rs) in enumerate(zip(reqs, results)):
+        print(f"req {i}: budget={rq.budget:.2f} -> row {rs.budget_row} "
+              f"({rs.deployed_params:,} params) "
+              f"tokens={rs.tokens[:12].tolist()}...")
+    s = engine.last_metrics.summary()
+    print(f"# serving: {s['tokens_per_s']:.1f} tok/s, "
+          f"ttft mean {s['ttft_mean_s']*1e3:.1f} ms "
+          f"(queue {s['ttft_queue_mean_s']*1e3:.1f} + "
+          f"prefill {s['ttft_prefill_mean_s']*1e3:.1f} + "
+          f"first-decode {s['ttft_first_decode_mean_s']*1e3:.1f}), "
+          f"cache occupancy peak {s['cache_occupancy_peak']:.2f}, "
+          f"preemptions {s['preemptions']}")
+    print(f"# iteration split: dispatch {s['dispatch_ms_mean']:.2f} ms "
+          f"/ host {s['host_ms_mean']:.2f} ms "
+          f"({'host' if args.host_sampling else 'device'} sampling, "
+          f"{device})")
+    if args.prefill_chunk:
+        print(f"# chunked prefill: chunk={args.prefill_chunk}, "
+              f"budget={engine.token_budget}, "
+              f"{s['mixed_iterations']:.0f} mixed iterations")
+    if engine.prefix_cache:
+        print(f"# prefix cache: {s['prefix_hits']:.0f} hits, "
+              f"{s['prefix_hit_tokens']:.0f} prompt tokens reused")
+    return results
+
+
+if __name__ == "__main__":
+    main()

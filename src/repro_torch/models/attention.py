@@ -1,0 +1,107 @@
+"""GQA self-attention (+RoPE, logit softcap) and FFN blocks for the paged
+serving forward: spec/apply pairs driven by ``transformer``."""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import common as cm
+from repro_torch.models.common import ParamSpec, linear
+
+
+def attn_spec(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    return {
+        "q": {"w": ParamSpec((d, cfg.num_heads * hd), (cm.EMBED, cm.HEADS))},
+        "k": {"w": ParamSpec((d, cfg.num_kv_heads * hd),
+                             (cm.EMBED, cm.KV_HEADS))},
+        "v": {"w": ParamSpec((d, cfg.num_kv_heads * hd),
+                             (cm.EMBED, cm.KV_HEADS))},
+        "o": {"w": ParamSpec((cfg.num_heads * hd, d), (cm.HEADS, cm.EMBED))},
+        "q_norm": ParamSpec((hd,), (None,), "zeros"),
+        "k_norm": ParamSpec((hd,), (None,), "zeros"),
+    }
+
+
+def ffn_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "gate": {"w": ParamSpec((d, f), (cm.EMBED, cm.MLP))},
+        "up": {"w": ParamSpec((d, f), (cm.EMBED, cm.MLP))},
+        "down": {"w": ParamSpec((f, d), (cm.MLP, cm.EMBED))},
+    }
+
+
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1)
+
+
+def project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                ranks: Dict, positions: torch.Tensor,
+                rope: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q/k/v projection + head norms + RoPE, in the reference's order:
+    q -> q_norm, then k and v, then k_norm, then RoPE."""
+    q = _split_heads(linear(p["q"], x, rank=ranks.get("q")), cfg.num_heads)
+    q = cm.rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
+    k = _split_heads(linear(p["k"], x, rank=ranks.get("k")),
+                     cfg.num_kv_heads)
+    v = _split_heads(linear(p["v"], x, rank=ranks.get("v")),
+                     cfg.num_kv_heads)
+    k = cm.rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+    if rope:
+        q = cm.rope(q, positions, base=cfg.rope_base)
+        k = cm.rope(k, positions, base=cfg.rope_base)
+    return q, k, v
+
+
+def paged_prefill_attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                             slot_ids: torch.Tensor, positions: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             k_pool: torch.Tensor, v_pool: torch.Tensor,
+                             window: Optional[int] = None,
+                             ranks: Optional[Dict] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Mixed chunked-prefill/decode self-attention over a block-paged cache.
+
+    x: (1, T, d), a flat token batch; token t belongs to table row
+    ``slot_ids[t]`` at ``positions[t]``. Every token's K/V is scattered into
+    (block_tables[slot, pos // BS], pos % BS) before attention, so
+    intra-chunk causality reduces to the per-token context ``pos + 1``.
+    The scatter updates ``k_pool``/``v_pool`` IN PLACE (the JAX reference
+    donates them); pad tokens point at a row of null blocks and all write
+    identical values there, so duplicate targets are harmless. Returns
+    (y, k_pool, v_pool).
+    """
+    r = ranks or {}
+    hd = cfg.resolved_head_dim
+    t = x.shape[1]
+    bs = k_pool.shape[1]
+
+    q, k, v = project_qkv(p, x, cfg, ranks=r, positions=positions[None, :])
+
+    blk = block_tables[slot_ids, positions // bs].long()
+    off = positions % bs
+    k_pool[blk, off] = k[0].to(k_pool.dtype)
+    v_pool[blk, off] = v[0].to(v_pool.dtype)
+
+    out = ops.paged_prefill_attention_forward(
+        q[0], k_pool, v_pool, block_tables, slot_ids, positions + 1,
+        softcap=cfg.attn_logit_softcap, window=window)
+    out = out.reshape(1, t, cfg.num_heads * hd)
+    y = linear(p["o"], out, rank=r.get("o"))
+    return y, k_pool, v_pool
+
+
+def ffn_apply(p: Dict, x: torch.Tensor, *,
+              ranks: Optional[Dict] = None) -> torch.Tensor:
+    r = ranks or {}
+    gate = linear(p["gate"], x, rank=r.get("gate"))
+    up = linear(p["up"], x, rank=r.get("up"))
+    return linear(p["down"], cm.swiglu(gate, up), rank=r.get("down"))

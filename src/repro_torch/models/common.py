@@ -1,0 +1,217 @@
+"""Parameter specs and shared primitives for the model forward.
+
+A module is (spec_fn(cfg) -> ParamSpec tree, apply_fn(params, ...) -> out),
+with parameters held as nested dicts and lists of tensors. ``factorize_spec``
+rewrites eligible dense leaves ``{'w': (.., d_in, d_out)}`` into
+``{'u': (.., d_out, r), 'v': (.., d_in, r)}``, and ``linear`` consumes the
+dense, factorized (optionally rank-masked) and GAR forms. The GAR form goes
+through ``kernels.ops.gar_forward``: the fused CUDA kernel on the card, its
+plain version on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+PyTree = Any
+
+EMBED, MLP, HEADS, KV_HEADS, QKV, VOCAB, LAYERS, EXPERTS, RANK, CONV, STATE = (
+    "embed", "mlp", "heads", "kv_heads", "qkv", "vocab", "layers", "experts",
+    "rank", "conv", "state",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Declarative parameter: shape + logical axes + initializer id."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"          # normal | zeros | ones
+    dtype: Any = torch.float32
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_map(fn: Callable, tree: PyTree, is_leaf=None) -> PyTree:
+    """Map ``fn`` over the leaves of nested dicts/lists/tuples. Rebuilt
+    dicts have sorted keys, as ``jax.tree.map`` rebuilds them, so a walk
+    over a mapped tree (``stack_spec``, ``group_infos``) visits the layer
+    groups in the JAX package's order."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], is_leaf) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, is_leaf) for v in tree]
+        return type(tree)(out) if isinstance(tree, tuple) else out
+    if tree is None:
+        return None
+    return fn(tree)
+
+
+def tree_leaves(tree: PyTree, is_leaf=None) -> list:
+    out: list = []
+    tree_map(lambda x: out.append(x), tree, is_leaf)
+    return out
+
+
+def instantiate(specs: PyTree, generator: torch.Generator, *,
+                device=None, dtype=None) -> PyTree:
+    """Materialize tensors from specs; normal leaves draw from
+    ``generator`` scaled by ``1/sqrt(fan_in)``, in leaf order."""
+    def make(s: ParamSpec):
+        dt = dtype or s.dtype
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=dt, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=dt, device=device)
+        fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+        x = torch.randn(s.shape, generator=generator, dtype=dt,
+                        device=generator.device)
+        return (scale * x).to(device or generator.device)
+    return tree_map(make, specs, is_leaf=is_spec)
+
+
+def param_count(specs: PyTree) -> int:
+    return sum(int(np.prod(s.shape)) for s in tree_leaves(specs, is_spec))
+
+
+def stack_spec(spec: PyTree, num_layers: int) -> PyTree:
+    """Add a leading ``layers`` axis to every leaf."""
+    return tree_map(
+        lambda s: ParamSpec((num_layers,) + s.shape, (LAYERS,) + s.axes,
+                            s.init, s.dtype), spec, is_leaf=is_spec)
+
+
+def factorize_leaf(spec: ParamSpec,
+                   max_rank: Optional[int] = None) -> Dict[str, ParamSpec]:
+    """Dense (.., d_in, d_out) -> {'v': (.., d_in, r), 'u': (.., d_out, r)}:
+    z = x @ v; y = z @ u^T."""
+    *lead, d_in, d_out = spec.shape
+    r = min(d_in, d_out) if max_rank is None else min(max_rank, d_in, d_out)
+    lead_axes = spec.axes[:-2]
+    in_axis, out_axis = spec.axes[-2], spec.axes[-1]
+    return {
+        "v": ParamSpec(tuple(lead) + (d_in, r), lead_axes + (in_axis, RANK),
+                       spec.init, spec.dtype),
+        "u": ParamSpec(tuple(lead) + (d_out, r), lead_axes + (out_axis, RANK),
+                       spec.init, spec.dtype),
+    }
+
+
+def factorize_spec(specs: PyTree, *,
+                   predicate: Callable[[str, ParamSpec], bool],
+                   max_rank_fn: Callable[[str, ParamSpec], Optional[int]]
+                   = lambda p, s: None,
+                   prefix: str = "") -> PyTree:
+    """Rewrite eligible ``{'w': spec}`` sub-dicts into factorized form;
+    paths are '/'-joined key chains ending at the dict that holds 'w'."""
+    if isinstance(specs, dict):
+        if set(specs.keys()) == {"w"} and is_spec(specs["w"]):
+            if predicate(prefix, specs["w"]):
+                return factorize_leaf(specs["w"],
+                                      max_rank_fn(prefix, specs["w"]))
+            return specs
+        return {k: factorize_spec(v, predicate=predicate,
+                                  max_rank_fn=max_rank_fn,
+                                  prefix=f"{prefix}/{k}" if prefix else k)
+                for k, v in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        out = [factorize_spec(v, predicate=predicate, max_rank_fn=max_rank_fn,
+                              prefix=f"{prefix}/{i}" if prefix else str(i))
+               for i, v in enumerate(specs)]
+        return type(specs)(out) if isinstance(specs, tuple) else out
+    return specs
+
+
+def tree_get(tree: PyTree, path: str):
+    cur = tree
+    for tok in path.split("/"):
+        cur = cur[int(tok)] if isinstance(cur, (list, tuple)) else cur[tok]
+    return cur
+
+
+def tree_set(tree: PyTree, path: str, value) -> None:
+    toks = path.split("/")
+    cur = tree
+    for tok in toks[:-1]:
+        cur = cur[int(tok)] if isinstance(cur, (list, tuple)) else cur[tok]
+    last = toks[-1]
+    if isinstance(cur, list):
+        cur[int(last)] = value
+    else:
+        cur[last] = value
+
+
+# ---------------------------------------------------------------------------
+# math primitives
+# ---------------------------------------------------------------------------
+
+def linear(p: Dict[str, torch.Tensor], x: torch.Tensor, *,
+           rank: Optional[int] = None) -> torch.Tensor:
+    """y = x @ W with W dense, factorized (optionally rank-masked), or GAR.
+
+    dense:      p = {'w': (d_in, d_out)}
+    factorized: p = {'v': (d_in, r), 'u': (d_out, r)}; columns >= ``rank``
+                are masked out (the nested-mask training path)
+    gar:        p = {'v_tilde': (d_in, r), 'u_hat': (d_out - r, r),
+                 'perm_inv': (d_out,) int64}; the deploy path
+    """
+    if "w" in p:
+        return x @ p["w"].to(x.dtype)
+    if "u_hat" in p:
+        return ops.gar_forward(x, p["v_tilde"], p["u_hat"], p["perm_inv"])
+    z = x @ p["v"].to(x.dtype)
+    if rank is not None:
+        mask = (torch.arange(z.shape[-1], device=z.device) < rank).to(z.dtype)
+        z = z * mask
+    return z @ p["u"].T.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
+             eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0,
+         dims: Optional[int] = None) -> torch.Tensor:
+    """Rotary embedding, half-split layout. x: (B, S, H, D); positions:
+    (B, S) or (S,)."""
+    d = x.shape[-1] if dims is None else dims
+    half = d // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(base, dtype=torch.float32,
+                                  device=x.device), exps)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angle = positions[..., None].float() * freq
+    sin = torch.sin(angle)[:, :, None, :]
+    cos = torch.cos(angle)[:, :, None, :]
+    x_rot, x_pass = x[..., :d], x[..., d:]
+    x1, x2 = x_rot[..., :half], x_rot[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if x_pass.shape[-1]:
+        out = torch.cat([out, x_pass], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up

@@ -1,0 +1,165 @@
+"""Model assembly for the paged serving forward.
+
+A model is a sequence of segments, each a stack of ``count`` identical
+blocks with stacked parameters (a leading layers axis). The JAX package
+scans a segment with ``lax.scan``; here a Python loop walks its layers.
+Only self-attention stacks ('attn' segments with dense FFNs) are ported;
+other segment kinds and MoE FFNs raise.
+
+Public API:
+  model_spec(cfg)                                 -> ParamSpec tree
+  paged_mixed_step(params, cfg, caches, tokens)   -> (logits, caches)
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, Segment
+from repro_torch.models import attention as attn
+from repro_torch.models import common as cm
+from repro_torch.models.common import ParamSpec
+
+GLOBAL_WINDOW = 1 << 30
+
+
+def _attn_block_spec(cfg: ModelConfig) -> Dict:
+    return {
+        "ln_attn": ParamSpec((cfg.d_model,), (None,), "zeros"),
+        "ln_mlp": ParamSpec((cfg.d_model,), (None,), "zeros"),
+        "attn": attn.attn_spec(cfg),
+        "mlp": attn.ffn_spec(cfg),
+    }
+
+
+def segment_spec(cfg: ModelConfig, seg: Segment) -> Dict:
+    if seg.kind == "attn" and cfg.moe is None and cfg.mla is None:
+        return cm.stack_spec(_attn_block_spec(cfg), seg.count)
+    raise NotImplementedError(
+        f"segment kind {seg.kind!r} (moe={cfg.moe is not None}, "
+        f"mla={cfg.mla is not None}) is not ported yet (ROADMAP queue A)")
+
+
+def model_spec(cfg: ModelConfig) -> Dict:
+    spec: Dict[str, Any] = {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), (cm.VOCAB, cm.EMBED)),
+        "final_norm": ParamSpec((cfg.d_model,), (None,), "zeros"),
+        "segments": [segment_spec(cfg, s) for s in cfg.segments],
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.vocab_size),
+                                          (cm.EMBED, cm.VOCAB))}
+    if cfg.frontend_dim:
+        raise NotImplementedError("frontend projections are not ported yet")
+    return spec
+
+
+def window_schedule(cfg: ModelConfig, count: int,
+                    offset: int = 0) -> List[int]:
+    """Per-layer attention window (GLOBAL_WINDOW = full lookback)."""
+    if not cfg.local_window or not cfg.global_every:
+        return [GLOBAL_WINDOW] * count
+    return [GLOBAL_WINDOW if (i + 1) % cfg.global_every == 0
+            else cfg.local_window for i in range(offset, offset + count)]
+
+
+def embed_tokens(params: Dict, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"][tokens]
+
+
+def lm_logits(params: Dict, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Final norm + tied LM head (a plain large product, as in the
+    reference, which leaves it to XLA)."""
+    x = cm.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(x.dtype).T
+    return cm.linear(params["lm_head"], x)
+
+
+def paged_compatible(cfg: ModelConfig) -> bool:
+    """The paged path covers pure self-attention stacks."""
+    return (cfg.mla is None and cfg.frontend_dim == 0
+            and all(s.kind in ("attn", "attn_dense") for s in cfg.segments))
+
+
+def _seg_ranks(ranks, i):
+    if not isinstance(ranks, dict) or "segments" not in ranks:
+        return None
+    segs = ranks["segments"]
+    return segs[i] if i < len(segs) else None
+
+
+def _layer(tree, l: int):
+    return cm.tree_map(lambda a: a[l], tree)
+
+
+def _run_paged_segments(params, cfg, x, caches, ranks, attn_fn):
+    """rms_norm -> paged attention (``attn_fn``) -> residual -> rms_norm ->
+    ffn -> residual, layer by layer. ``attn_fn(p_attn, h, window, k_pool,
+    v_pool, ranks)`` -> (y, k_pool, v_pool) with the pools of one layer,
+    updated in place. Returns (x, segment pools)."""
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE FFNs in the paged forward are not "
+                                  "ported yet (ROADMAP: MoE in "
+                                  "_run_paged_segments)")
+    windowed = bool(cfg.local_window and cfg.global_every)
+    offset = 0
+    for i, seg in enumerate(cfg.segments):
+        seg_ranks = _seg_ranks(ranks, i)
+        pool = caches["segments"][i]
+        windows = window_schedule(cfg, seg.count, offset)
+        for l in range(seg.count):
+            p_l = _layer(params["segments"][i], l)
+            ranks_l = None if seg_ranks is None else _layer(seg_ranks, l)
+            h = cm.rms_norm(x, p_l["ln_attn"], eps=cfg.norm_eps)
+            y, _, _ = attn_fn(p_l["attn"], h,
+                              windows[l] if windowed else None,
+                              pool["k"][l], pool["v"][l],
+                              (ranks_l or {}).get("attn"))
+            x = x + y
+            h = cm.rms_norm(x, p_l["ln_mlp"], eps=cfg.norm_eps)
+            x = x + attn.ffn_apply(p_l["mlp"], h,
+                                   ranks=(ranks_l or {}).get("mlp"))
+        offset += seg.count
+    return x, caches["segments"]
+
+
+def paged_mixed_step(params: Dict, cfg: ModelConfig, caches: Dict,
+                     tokens: torch.Tensor, *,
+                     ranks: Optional[Dict] = None):
+    """One mixed chunked-prefill/decode iteration over the paged KV cache.
+
+    tokens: (1, T), a flat token batch. ``caches``:
+
+      {'slot_ids':  (T,) block-table row per token (pads -> a null row),
+       'positions': (T,) 0-based position of each token in its sequence,
+       'block_tables': (B + null rows, MB),
+       'segments': [{'k': (count, NB, BS, Hkv, D), 'v': ...} per segment],
+       'sample_ids': optional (S,) flat-token indices to score}
+
+    The pools are updated in place. With ``sample_ids`` the final norm and
+    LM head run only over the gathered rows. Returns (logits (1, S, V) or
+    (1, T, V), caches).
+    """
+    assert paged_compatible(cfg), cfg.name
+    slot_ids = caches["slot_ids"]
+    positions = caches["positions"]
+    block_tables = caches["block_tables"]
+    x = embed_tokens(params, tokens, cfg)
+
+    def attn_fn(p, h, window, kp, vp, attn_ranks):
+        return attn.paged_prefill_attn_apply(
+            p, h, cfg, slot_ids=slot_ids, positions=positions,
+            block_tables=block_tables, k_pool=kp, v_pool=vp, window=window,
+            ranks=attn_ranks)
+
+    x, segments = _run_paged_segments(params, cfg, x, caches, ranks, attn_fn)
+    new_caches = {"slot_ids": slot_ids, "positions": positions,
+                  "block_tables": block_tables, "segments": segments}
+    if "sample_ids" in caches:
+        x = x[:, caches["sample_ids"]]
+        new_caches["sample_ids"] = caches["sample_ids"]
+    return lm_logits(params, x, cfg), new_caches

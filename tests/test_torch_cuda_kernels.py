@@ -1,0 +1,136 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: every test skips without a GPU (the check runs inside the
+test, so every worker collects the same tests). On a machine with an H100:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(a, dev):
+    return torch.as_tensor(a, device=dev)
+
+
+@pytest.mark.parametrize("t,n,m,r", [(8, 768, 768, 768), (72, 768, 3072, 500),
+                                     (72, 3072, 768, 300), (33, 17, 29, 7),
+                                     (100, 96, 80, 40), (5, 64, 64, 64)])
+def test_gar_kernel_matches_plain(dev, t, n, m, r):
+    rng = np.random.default_rng(t * 7 + r)
+    x = rng.standard_normal((t, n)).astype(np.float32)
+    v = rng.standard_normal((n, r)).astype(np.float32) / math.sqrt(n)
+    u = rng.standard_normal((m - r, r)).astype(np.float32) / math.sqrt(r)
+    perm_inv = rng.permutation(m).astype(np.int64)
+    args = [_t(a, dev) for a in (x, v, u, perm_inv)]
+    y_k = ops.gar_forward(*args)
+    y_p = ops.gar_forward(*[a.cpu() for a in args])
+    scale = float(y_p.abs().max()) + 1e-6
+    assert float((y_k.cpu() - y_p).abs().max()) / scale < 2e-4
+
+
+def _attn_inputs(hq, hkv, d, bs, mb, t):
+    """Three slots' block tables plus a null row; pads read the null row."""
+    rng = np.random.default_rng(hq * 100 + d)
+    b = 3
+    nb = b * mb + 1
+    kp = rng.standard_normal((nb, bs, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((nb, bs, hkv, d)).astype(np.float32)
+    tables = np.concatenate([1 + rng.permutation(b * mb).reshape(b, mb),
+                             np.zeros((1, mb))]).astype(np.int32)
+    q = rng.standard_normal((t, hq, d)).astype(np.float32)
+    sid = rng.integers(0, b + 1, size=t).astype(np.int32)
+    lens = rng.integers(1, mb * bs + 1, size=t).astype(np.int32)
+    lens[sid == b] = 1
+    return q, kp, vp, tables, sid, lens
+
+
+@pytest.mark.parametrize("hq,hkv,d,bs,mb,t", [(12, 12, 64, 16, 10, 72),
+                                              (12, 12, 64, 16, 16, 8),
+                                              (8, 2, 32, 8, 4, 10),
+                                              (12, 4, 40, 7, 3, 10),
+                                              (5, 5, 24, 3, 4, 10)])
+def test_paged_attention_kernel_matches_plain(dev, hq, hkv, d, bs, mb, t):
+    args = [_t(a, dev) for a in _attn_inputs(hq, hkv, d, bs, mb, t)]
+    for softcap in (0.0, 30.0):
+        y_k = ops.paged_prefill_attention_forward(*args, softcap=softcap)
+        y_p = ops.paged_prefill_attention_forward(*[a.cpu() for a in args],
+                                                  softcap=softcap)
+        assert float((y_k.cpu() - y_p).abs().max()) < 2e-5
+
+
+def test_paged_attention_kernel_repeatable(dev):
+    """Fresh uploads of the same inputs give the same bits launch after
+    launch, and the plain version on the CPU gives the same bits run after
+    run; a failure names the side that moved and where."""
+    inputs = _attn_inputs(12, 12, 64, 16, 10, 72)
+    first_k = first_p = None
+    for i in range(100):
+        args = [_t(a, dev) for a in inputs]
+        y_k = ops.paged_prefill_attention_forward(*args).cpu()
+        y_p = ops.paged_prefill_attention_forward(
+            *[torch.as_tensor(a) for a in inputs])
+        if first_k is None:
+            first_k, first_p = y_k, y_p
+        for side, y, y0 in (("kernel", y_k, first_k), ("plain", y_p, first_p)):
+            moved = (y != y0).any(-1).nonzero().tolist()
+            assert not moved, (
+                f"{side} output moved at launch {i}: (token, head) {moved[:8]}"
+                f", contexts {[int(inputs[5][tok]) for tok, _ in moved[:8]]}"
+                f", max diff {float((y - y0).abs().max()):.3e}")
+        assert float((y_k - y_p).abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("s,v", [(8, 50257), (9, 515), (3, 64), (1, 1000)])
+def test_sampling_kernel_matches_plain(dev, s, v):
+    rng = np.random.default_rng(s * 1000 + v)
+    logits = rng.standard_normal((s, v)).astype(np.float32) * 3
+    temps = np.where(rng.random(s) < 0.3, 0.0,
+                     rng.uniform(0.2, 2.5, s)).astype(np.float32)
+    topk = np.where(rng.random(s) < 0.5, 0,
+                    rng.integers(1, min(v, 64) + 1, s)).astype(np.int64)
+    u = rng.random(s).astype(np.float32)
+    for k in (None, topk):
+        args = [_t(a, dev) for a in (logits, temps)]
+        kk = None if k is None else _t(k, dev)
+        t_k, p_k = ops.topk_mask_sample_forward(*args, kk, _t(u, dev),
+                                                return_probs=True)
+        t_p, p_p = ops.topk_mask_sample_forward(
+            *[a.cpu() for a in args], None if k is None else kk.cpu(),
+            torch.as_tensor(u), return_probs=True)
+        np.testing.assert_array_equal(t_k.cpu().numpy(), t_p.numpy())
+        assert float((p_k.cpu() - p_p).abs().max()) < 1e-5
+        t_only = ops.topk_mask_sample_forward(*args, kk, _t(u, dev))
+        np.testing.assert_array_equal(t_only.cpu().numpy(), t_p.numpy())
+
+
+def test_wrappers_raise_on_cpu_mixed_devices(dev):
+    x = torch.zeros(4, 8, device=dev)
+    with pytest.raises(ValueError):
+        from repro_torch.kernels.gar_matmul import gar_matmul
+        gar_matmul(x, torch.zeros(8, 8), torch.zeros(0, 8),
+                   torch.arange(8))
+    with pytest.raises(NotImplementedError):
+        ops.paged_prefill_attention_forward(
+            torch.zeros(1, 1, 4, device=dev), torch.zeros(2, 2, 1, 4,
+                                                          device=dev),
+            torch.zeros(2, 2, 1, 4, device=dev),
+            torch.zeros(1, 1, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.ones(1, dtype=torch.int32, device=dev), window=4)
