@@ -3,26 +3,36 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   - compile every CUDA kernel of the serving path from
+  1. build   - compile every CUDA kernel from
                ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
                parallel) and print the build seconds;
   2. kernels - hold each kernel against its plain PyTorch version on the
-               card, at the main path's shapes and at ragged ones, and time
+               card, at the main paths' shapes and at ragged ones, and time
                kernel, plain version and (where one exists) one PyTorch
                library call with CUDA events;
-  3. main    - serve gpt2-small at full width (random weights from a seed)
-               through ``ElasticEngine``: 8 requests at budgets 0.4 and 1.0,
-               half greedy, half temperature 0.8 / top-k 40; the launch
-               counts of every kernel must be > 0;
+  3. serve   - serve gpt2-small at full width (random weights from a seed,
+               the serving launcher's calibrated DataSVD state) through
+               ``ElasticEngine``: 8 requests at budgets 0.4 and 1.0, half
+               greedy, half temperature 0.8 / top-k 40; the launch counts
+               of the three serving kernels must be > 0;
   4. cross   - one greedy request through the same state on the card and on
-               the CPU (plain versions): the tokens must be identical.
+               the CPU (plain versions): the tokens must be identical;
+  5. train   - FlexRank consolidation of gpt2-small at full width through
+               ``repro_torch.launch.train.run``: calibration (8 batches of
+               8 x 129 tokens), DataSVD and DP, 20 AdamW steps of
+               stochastic-budget distillation, per-row CE before and after;
+               losses finite and ``lowrank_matmul`` launched;
+  6. cross   - one training step (batch 2 x 32 tokens, budget row 0) from
+               the trained factors on the card and on the CPU: the loss and
+               every gradient leaf must agree.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
 non-zero, printing no result, without CUDA or without the repository.
-``--profile`` serves the main path's requests twice more, under
+``--profile`` serves the serving path's requests twice more, under
 ``torch.profiler`` (device time by kernel) and under ``cProfile`` (host
-time by function).
+time by function), and takes 3 more training steps under
+``torch.profiler``.
 """
 from __future__ import annotations
 
@@ -45,6 +55,13 @@ L2_BYTES = 50 * 2**20
 TOL_ATTN = 2e-5                # float32 attention, absolute
 TOL_GAR = 2e-4                 # GAR, relative to the output's max
 TOL_PROBS = 1e-5               # warped probs, absolute; tokens identical
+TOL_LOWRANK = 2e-4             # low-rank linear, relative to the output's max
+# one training step card vs CPU: float32 sums in other orders through 12
+# layers and back; the KL gradient is a difference of two softmaxes
+TOL_TRAIN_LOSS = 1e-4          # relative
+TOL_TRAIN_GRAD = 1e-3          # relative to each gradient leaf's max
+PROJECTIONS = ("attn/q", "attn/k", "attn/v", "attn/o", "mlp/gate", "mlp/up",
+               "mlp/down")
 
 
 def fail(msg: str) -> None:
@@ -143,6 +160,49 @@ def check_gar(dev, shapes, rng, report):
         lib_ms = device_ms([lambda w=w: torch.matmul(x, w) for w in dense])
         b, by = bound_ms(work, 2 * t * (n * r + (m - r) * r))
         report.append(dict(kernel="gar_matmul", shape=label, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                           bound_by=by, max_abs_err=err))
+    return worst
+
+
+def check_lowrank(dev, cases, rng, report):
+    """cases: (label, t, v, u, rank): factors of the training path's state
+    where the shape comes from the main path, else random ones."""
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.kernels import ref
+    worst = 0.0
+    for label, t, v, u, rank in cases:
+        n, r = v.shape
+        m = u.shape[0]
+        kr = lk.kept_rank(r, rank)
+        x = torch.as_tensor(rng.standard_normal((t, n)).astype(np.float32),
+                            device=dev)
+        y = lk.lowrank_matmul(x, v, u, rank)
+        y_plain = ref.lowrank_matmul_ref(x, v, u, rank)
+        torch.cuda.synchronize()
+        err = float((y - y_plain).abs().max())
+        scale = float(y_plain.abs().max()) + 1e-6
+        if not err / scale < TOL_LOWRANK:
+            fail(f"lowrank_matmul {label}: rel err {err / scale:.3e}")
+        if kr == 0 and bool(y.any()):
+            fail(f"lowrank_matmul {label}: rank 0 left non-zeros")
+        worst = max(worst, err)
+        sets = [(x, v.clone(), u.clone(), rank)
+                for _ in range(copies_for(nbytes(v, u)))]
+        # yardstick: one dense product y = x @ W_r, W_r = (v * mask) @ u^T
+        w_r = (v[:, :kr] @ u[:, :kr].T).contiguous()
+        if not float((x @ w_r - y_plain).abs().max()) / scale < 1e-3:
+            fail(f"lowrank_matmul {label}: dense yardstick disagrees")
+        dense = [w_r.clone() for _ in range(copies_for(nbytes(w_r)))]
+        ms = device_ms([lambda s=s: lk.lowrank_matmul(*s) for s in sets])
+        plain_ms = device_ms([lambda s=s: ref.lowrank_matmul_ref(*s)
+                              for s in sets])
+        lib_ms = device_ms([lambda w=w: torch.matmul(x, w) for w in dense])
+        # x read, y written, and the kr kept columns of v and u (the masked
+        # ones add exact zeros and are skipped)
+        work = 4 * (t * n + (n + m) * kr + t * m)
+        b, by = bound_ms(work, 2 * t * kr * (n + m))
+        report.append(dict(kernel="lowrank_matmul", shape=label, ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
                            bound_by=by, max_abs_err=err))
     return worst
@@ -320,6 +380,24 @@ def greedy_loop(params, cfg, prompt, new_tokens, device):
     return toks, margins
 
 
+def kernel_rows(prof) -> list:
+    """(device us, launches, name) per kernel of a profiler run, largest
+    first; operators and annotations carry their kernels' time and are
+    left out."""
+    rows = []
+    for ev in prof.key_averages():
+        if ev.key in ("paged_sample_step", "paged_mixed_step") \
+                or ev.key.startswith("aten::") \
+                or "cuda" not in str(getattr(ev, "device_type", "")).lower():
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def profile_main_path(engine, reqs) -> None:
     """Serve ``reqs`` again under ``torch.profiler`` and print the device
     time by kernel and the kernels' busy share of the window; then once
@@ -332,18 +410,7 @@ def profile_main_path(engine, reqs) -> None:
         engine.generate(reqs, mode="continuous")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        # kernels only: operators and annotations carry their kernels' time
-        if ev.key in ("paged_sample_step", "paged_mixed_step") \
-                or ev.key.startswith("aten::") \
-                or "cuda" not in str(getattr(ev, "device_type", "")).lower():
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
     # the host's share: the same requests once more under cProfile
     import cProfile
@@ -367,6 +434,130 @@ def profile_main_path(engine, reqs) -> None:
             f"{ncalls:7d}x  {Path(path).name}:{line} {func}")
 
 
+def train_phase(cfg, dense, steps: int):
+    """Phase 5: ``launch.train.run`` at full width from ``dense`` (the
+    teacher) on the launcher's default source (8 x 129 tokens a batch)."""
+    from repro_torch.data import make_source
+    from repro_torch.kernels import lowrank_matmul
+    from repro_torch.launch import train
+    source = make_source(cfg.vocab_size, 128, 8, seed=0)
+    lowrank_matmul.launches = 0
+    t0 = time.perf_counter()
+    res = train.run(cfg, dense, source, steps=steps, lr=1e-3, seed=0,
+                    log=lambda msg: log(f"#   {msg}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lowrank_matmul.launches
+    if not all(math.isfinite(x) for x in res.losses) or len(res.losses) \
+            != steps:
+        fail(f"training losses not finite: {res.losses}")
+    if not all(math.isfinite(x) for x in res.eval_before + res.eval_after):
+        fail("elastic eval CE not finite")
+    if launches <= 0:
+        fail("lowrank_matmul never launched on the training path")
+    tokens = 8 * 128
+    med = statistics.median(res.step_seconds[1:] or res.step_seconds)
+    su = res.setup_seconds
+    log(f"# train: gpt2-small full width, {steps} steps of flexrank_kd "
+        f"(batch 8 x 128 = {tokens} tokens, AdamW lr 1e-3), wall "
+        f"{wall:.2f} s; setup: calibrate {su['calibrate']:.2f} s, "
+        f"decompose {su['decompose']:.2f} s (DataSVD on the card), DP "
+        f"{su['dp']:.2f} s ({res.table.table.shape[0]} rows)")
+    log(f"# train: step ms {[round(x * 1e3, 1) for x in res.step_seconds]}")
+    log(f"# train: median {med * 1e3:.2f} ms/step after the first, "
+        f"{tokens / med:.0f} training tokens/s; first step "
+        f"{res.step_seconds[0] * 1e3:.1f} ms")
+    log(f"# train: losses {[round(x, 5) for x in res.losses]}")
+    log(f"# train: budget rows {res.budget_rows}")
+    log(f"# train: CE per row before {[round(x, 4) for x in res.eval_before]}"
+        f" after {[round(x, 4) for x in res.eval_after]}")
+    log(f"# train: lowrank_matmul launches {launches} "
+        f"({launches // max(steps, 1)} per step incl. eval)")
+    return res, launches, med
+
+
+def profile_train(cfg, res, dense, steps: int = 3) -> None:
+    """``steps`` more training steps from ``res`` under ``torch.profiler``:
+    device time by kernel and the kernels' busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import threefry
+    from repro_torch.core import flexrank as FR
+    from repro_torch.data import make_source
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    source = make_source(cfg.vocab_size, 128, 8, seed=0)
+    loss_fn = FR.make_consolidation_loss(cfg, res.infos,
+                                         FR.table_host(res.table), dense)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+    params, state = res.params, res.opt_state
+    batches = [{"tokens": torch.as_tensor(source.batch_at(100 + i)["tokens"],
+                                          device="cuda")}
+               for i in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, batch in enumerate(batches):
+            params, state, _ = train.train_step(
+                params, state, loss_fn, opt_cfg, batch,
+                threefry.fold_in(threefry.prng_key(1), 100 + i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = kernel_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"# train profile: {steps} steps, wall {wall:.3f} s (profiler on), "
+        f"kernels busy {busy:.3f} s = {100 * busy / wall:.1f}% of the wall,"
+        f" {sum(r[1] for r in rows)} kernel launches")
+    for dev_us, count, key in rows[:15]:
+        log(f"#   {dev_us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+
+
+def cross_train_phase(cfg, res, dense, dev):
+    """Phase 6: one consolidation step's loss and gradients from the trained
+    factors at budget row 0, on the card and on the CPU."""
+    from repro_torch import threefry
+    from repro_torch.core import flexrank as FR
+    from repro_torch.data import make_source
+    from repro_torch.models import common as cm
+    table_rows = FR.table_host(res.table)
+    seed = next(i for i in range(1000) if FR.budget_draw(
+        threefry.prng_key(i), table_rows.shape[0]) == 0)
+    tokens = make_source(cfg.vocab_size, 32, 2, seed=1).batch_at(0)["tokens"]
+    out = []
+    for device in (dev, torch.device("cpu")):
+        params = cm.tree_map(
+            lambda t: t.detach().to(device).clone().requires_grad_(True),
+            res.params)
+        teacher = cm.tree_map(lambda t: t.to(device), dense)
+        loss_fn = FR.make_consolidation_loss(cfg, res.infos, table_rows,
+                                             teacher)
+        t0 = time.perf_counter()
+        loss, metrics = loss_fn(
+            params, {"tokens": torch.as_tensor(tokens, device=device)},
+            threefry.prng_key(seed))
+        loss.backward()
+        grads = [(name, p.grad.cpu()) for name, p in cm.tree_items(params)]
+        out.append((float(loss.detach()), metrics["budget_k"], grads,
+                    time.perf_counter() - t0))
+    (l_gpu, k_gpu, g_gpu, t_gpu), (l_cpu, k_cpu, g_cpu, t_cpu) = out
+    if not k_gpu == k_cpu == 0:
+        fail(f"budget rows differ: card {k_gpu}, CPU {k_cpu}")
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst_name, worst = "", 0.0
+    for (name, a), (_, b) in zip(g_gpu, g_cpu):
+        e = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+        if e > worst:
+            worst_name, worst = name, e
+    log(f"# cross-train: row 0, loss card {l_gpu:.7f} CPU {l_cpu:.7f} (rel "
+        f"{loss_err:.2e}), {len(g_gpu)} gradient leaves, worst {worst:.2e} "
+        f"of its max at {worst_name}; step {t_gpu:.2f} s card, {t_cpu:.2f} s"
+        " CPU")
+    if not loss_err < TOL_TRAIN_LOSS:
+        fail(f"training loss card vs CPU: rel {loss_err:.3e}")
+    if not worst < TOL_TRAIN_GRAD:
+        fail(f"gradient {worst_name} card vs CPU: {worst:.3e} of its max")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs on an "
@@ -378,10 +569,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.core import flexrank as FR
-    from repro_torch.kernels import build, gar_matmul, paged_attention, \
-        sampling
-    from repro_torch.launch.serve import dense_init
+    from repro_torch.kernels import build, gar_matmul, lowrank_matmul, \
+        paged_attention, sampling
+    from repro_torch.launch.serve import serving_state
+    from repro_torch.launch.train import dense_init
     from repro_torch.models import common as cm
     from repro_torch.serving import ElasticEngine, Request, SamplingParams
 
@@ -411,21 +602,16 @@ def main() -> int:
     dense = dense_init(cfg, 0, dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    params_fact, curves = FR.decompose(dense, cfg)
-    torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0
-    del dense
-    t0 = time.perf_counter()
-    table, infos = FR.build_table(cfg, curves)
-    t_dp = time.perf_counter() - t0
+    setup = {}
+    params_fact, table, infos = serving_state(cfg, dense, 0, timings=setup)
     engine = ElasticEngine(cfg, params_fact, table, infos, device="cuda",
                            prefill_chunk=64, max_batch=8, max_len=256)
     budgets = (0.4, 1.0)
     rows = [engine._budget_row(b) for b in budgets]
     deployed = {r: engine._realize(r) for r in rows}
-    log(f"# setup: dense init {t_init:.2f} s, decompose {t_dec:.2f} s, "
-        f"DP {t_dp:.2f} s ({table.table.shape[0]} rows x "
+    log(f"# setup: dense init {t_init:.2f} s, calibrate "
+        f"{setup['calibrate']:.2f} s, decompose {setup['decompose']:.2f} s "
+        f"(DataSVD), DP {setup['dp']:.2f} s ({table.table.shape[0]} rows x "
         f"{table.table.shape[1]} groups), deploy "
         + ", ".join(f"row {r} (budget {b}) {engine.deploy_seconds[r]:.2f} s"
                     for b, r in zip(budgets, rows)))
@@ -470,6 +656,31 @@ def main() -> int:
                                     ("S=4 V=50257", 4, 50257),
                                     ("ragged S=9 V=515", 9, 515),
                                     ("ragged S=3 V=64", 3, 64)], rng, report)
+    last = table.table.shape[0] - 1
+    lr_cases = []
+    for k in (0, last):
+        layer = params_fact["segments"][0]
+        for proj in PROJECTIONS:
+            leaf = cm.tree_get(layer, proj)
+            v, u = leaf["v"][0], leaf["u"][0]
+            kr = int(table.table[k][[i.path for i in infos].index(
+                f"segments/0/{proj}")])
+            lr_cases.append((f"{proj} row {k} T=1024 n={v.shape[0]} "
+                             f"r={v.shape[1]} rank={kr} m={u.shape[0]}",
+                             1024, v, u, kr))
+
+    def rand_lowrank(n, m, r):
+        return (torch.as_tensor(rng.standard_normal((n, r)).astype(
+                    np.float32) / math.sqrt(n), device=dev),
+                torch.as_tensor(rng.standard_normal((m, r)).astype(
+                    np.float32) / math.sqrt(r), device=dev))
+    v, u = rand_lowrank(17, 29, 7)
+    for rank in (3, 0, 7, None):
+        lr_cases.append((f"ragged T=33 n=17 r=7 m=29 rank={rank}", 33, v, u,
+                         rank))
+    lr_cases.append(("ragged T=70 n=300 r=257 m=130 rank=129", 70,
+                     *rand_lowrank(300, 130, 257), 129))
+    lr_err = check_lowrank(dev, lr_cases, rng, report)
     for e in report:
         lib = ("-" if e["library_ms"] is None
                else f"{e['library_ms']:.4f}")
@@ -478,7 +689,7 @@ def main() -> int:
             f"{e['bound_ms']:.4f} ms ({e['bound_by']}), max abs err "
             f"{e['max_abs_err']:.2e}")
 
-    # 3. main path
+    # 3. serving path
     prng = np.random.default_rng(1)
     reqs = []
     for i in range(8):
@@ -489,7 +700,7 @@ def main() -> int:
             prompt=prng.integers(0, cfg.vocab_size, plen).astype(np.int32),
             max_new_tokens=32, budget=budgets[i % 2], sampling=samp))
     kernels = (gar_matmul, paged_attention, sampling)
-    for k in kernels:
+    for k in (*kernels, lowrank_matmul):
         k.launches = 0
     t0 = time.perf_counter()
     results = engine.generate(reqs, mode="continuous")
@@ -514,7 +725,7 @@ def main() -> int:
         f"{s['preemptions']}")
     log(f"# kernels: launches on the main path {json.dumps(counts)}")
     if min(counts.values()) <= 0:
-        fail(f"a kernel of the main path never launched: {counts}")
+        fail(f"a kernel of the serving path never launched: {counts}")
 
     if "--profile" in sys.argv[1:]:
         profile_main_path(engine, reqs)
@@ -542,11 +753,21 @@ def main() -> int:
                      f"{marg_gpu[i]:.3e} on the card, {marg_cpu[i]:.3e} on "
                      "the CPU")
 
+    # 5. training path, 6. one training step card vs CPU
+    del engine, deployed, params_fact
+    res, counts["lowrank_matmul"], _ = train_phase(cfg, dense, steps=20)
+    if "--profile" in sys.argv[1:]:
+        profile_train(cfg, res, dense)
+    cross_train_phase(cfg, res, dense, dev)
+
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {
         "gar_matmul": ("src/repro_torch/kernels/csrc/gar_matmul.cu",
                        "src/repro/kernels/gar_matmul.py:52", gar_err,
                        "mlp/gate budget 0.4 T=72"),
+        "lowrank_matmul": ("src/repro_torch/kernels/csrc/lowrank_matmul.cu",
+                           "src/repro/kernels/lowrank_matmul.py:46", lr_err,
+                           f"mlp/gate row {last} T=1024"),
         "paged_prefill_attention": (
             "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention.py:164", attn_err, "T=72"),
@@ -555,6 +776,7 @@ def main() -> int:
                              "S=8"),
     }
     module_of = {"gar_matmul": "gar_matmul",
+                 "lowrank_matmul": "lowrank_matmul",
                  "paged_prefill_attention": "paged_attention",
                  "topk_mask_sample": "sampling"}
     line = []

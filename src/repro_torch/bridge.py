@@ -6,8 +6,10 @@ numpy arrays (or anything ``np.asarray`` accepts) become torch tensors and
 back. The one change of type is GAR's ``perm_inv``: int32 in the JAX
 package, int64 index tensors here. A numpy -> torch -> numpy round trip is
 exact. ``ProfileTable`` and ``GroupInfo`` are carried field by field into
-the port's own dataclasses. Nothing here imports JAX: the caller hands over
-the trees, and the bridge reads them by duck typing.
+the port's own dataclasses; AdamW states (``step``, ``mu``, ``nu``) and
+calibration moment stores (``{tap_key: [moment, count]}``) go both ways,
+exactly. Nothing here imports JAX: the caller hands over the trees, and
+the bridge reads them by duck typing.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.core.flexrank import GroupInfo
 from repro_torch.core.profiles import ProfileTable
+from repro_torch.optim.adamw import AdamWState
 
 PyTree = Any
 
@@ -69,3 +72,33 @@ def group_infos(infos) -> List[GroupInfo]:
                       lead_dims=tuple(i.lead_dims), m=int(i.m), n=int(i.n),
                       full_rank=int(i.full_rank), col=int(i.col))
             for i in infos]
+
+
+def adamw_state_to_torch(state, device=None) -> AdamWState:
+    """The JAX package's ``AdamWState`` (any object with ``step``, ``mu``
+    and ``nu``) -> the port's, with ``step`` a Python int."""
+    return AdamWState(step=int(np.asarray(state.step)),
+                      mu=params_to_torch(state.mu, device),
+                      nu=params_to_torch(state.nu, device))
+
+
+def adamw_state_to_numpy(state: AdamWState):
+    """The port's ``AdamWState`` -> ``(step, mu, nu)`` with ``step`` an
+    int32 scalar array and numpy trees, the fields of the JAX package's
+    ``AdamWState`` in order."""
+    return (np.asarray(state.step, np.int32), params_to_numpy(state.mu),
+            params_to_numpy(state.nu))
+
+
+def moments_to_torch(store, device=None) -> dict:
+    """``{tap_key: [moment, count]}`` with numpy moments -> torch moments
+    on ``device``, counts as floats."""
+    return {k: [torch.from_numpy(np.array(m, np.float32, copy=True)).to(
+        device or "cpu"), float(c)] for k, (m, c) in store.items()}
+
+
+def moments_to_numpy(store) -> dict:
+    """The port's moment store -> numpy float32 moments, float counts, the
+    JAX package's layout."""
+    return {k: [m.detach().cpu().numpy(), float(c)]
+            for k, (m, c) in store.items()}

@@ -1,15 +1,20 @@
-"""Low-rank factorization of one weight (paper §3.1).
+"""DataSVD: activation-aware low-rank factorization (paper §3.1 + App. C.1).
 
-Only the weight-only SVD baseline (``plain_svd_factors``) is ported: it is
-what the reference's ``decompose`` falls back to per leaf when no
-activation moment was recorded. The activation-aware DataSVD waits for the
-calibration slice (ROADMAP).
+Given a layer weight ``W in R^{m x n}`` (acting as ``y = W x``) and the
+activation second moment ``Sigma = X X^T``, SVD the whitened weight
+``W Sigma^{1/2} = P Lambda Q^T`` and set ``U = P Lambda^{1/2}``,
+``V = Sigma^{-1/2} Q Lambda^{1/2}`` (Eq. 61): truncating to the first r
+columns is optimal in the data-weighted metric, and the columns are
+importance-ordered. ``plain_svd_factors`` (Sigma = I) is the SVD baseline
+the reference's ``decompose`` falls back to where no moment was recorded.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.core.covariance import sqrt_and_inv_sqrt
 
 
 class Factors(NamedTuple):
@@ -21,6 +26,21 @@ class Factors(NamedTuple):
     @property
     def rank(self) -> int:
         return self.u.shape[-1]
+
+
+def datasvd_factors(w: torch.Tensor, moment: torch.Tensor, count: float, *,
+                    max_rank: Optional[int] = None,
+                    damping: float = 1e-6) -> Factors:
+    """Whitened SVD factorization of ``w`` (m, n) against the activation
+    moment (n, n), float32 on the device of ``w``."""
+    w = w.to(torch.float32)
+    s, s_inv = sqrt_and_inv_sqrt(moment.to(w.device), count, damping=damping)
+    p, lam, qt = torch.linalg.svd(w @ s, full_matrices=False)
+    q = qt.T
+    if max_rank is not None:
+        p, lam, q = p[:, :max_rank], lam[:max_rank], q[:, :max_rank]
+    sqrt_lam = torch.sqrt(lam)
+    return Factors(u=p * sqrt_lam[None, :], v=(s_inv @ q) * sqrt_lam[None, :])
 
 
 def plain_svd_factors(w: torch.Tensor, *,

@@ -1,10 +1,12 @@
-"""FlexRank orchestrator for serving: factorize, decompose, DP-select and
-GAR-deploy (paper Algorithm 1, stages 1, 3, 4 and 6).
+"""FlexRank orchestrator: paper Algorithm 1 end to end.
 
-Ported so far: the plain-SVD ``decompose`` (the reference's per-leaf
-fallback when no activation moment was recorded), the DP profile table,
-and the deploy-time GAR transform. Calibration taps (DataSVD) and the
-consolidation loss wait for later slices (ROADMAP).
+  1. ``factorized_spec``     - rewrite eligible dense leaves to (u, v) pairs
+  2. ``collect_moments``     - calibration pass with activation taps
+  3. ``decompose``           - DataSVD init of every factor pair (plain SVD
+                               where no moment was recorded)
+  4. ``build_table``         - DP nested rank selection over the curves
+  5. ``make_consolidation_loss`` - stochastic nested-mask distillation
+  6. ``gar_deploy``          - gauge-aligned deploy params at one budget
 
 Rank granularity: a factorized *group* covers all the layers of a stacked
 leaf with one rank; gpt2-small gives every layer its own segment, so every
@@ -13,13 +15,15 @@ linear is its own group.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import re
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import datasvd, dp_select
+from repro_torch import threefry
+from repro_torch.core import datasvd, distill, dp_select
 from repro_torch.core.gar import gar_transform
 from repro_torch.core.profiles import ProfileTable, table_from_profiles
 from repro_torch.models import common as cm
@@ -87,14 +91,53 @@ def _lead_indices(lead: Tuple[int, ...]):
     return np.ndindex(*lead) if lead else [()]
 
 
-def decompose(dense_params: PyTree,
-              cfg: ModelConfig) -> Tuple[PyTree, Dict[str, np.ndarray]]:
-    """Plain-SVD factorized params from dense params, on the device of the
-    dense leaves. Returns (factorized params, error curves):
-    ``curves[group_path][r-1]`` is the tail energy of keeping rank r,
-    summed over the group's layers (the DP's input). The arithmetic of the
-    curve is the reference's, in numpy on the host."""
+def collect_moments(params: PyTree, cfg: ModelConfig,
+                    batches: Sequence[Dict]) -> Dict[str, list]:
+    """Calibration pass: the forward over each batch's inputs with the taps
+    on; returns ``{tap_key: [moment, count]}``, the moments float32 on the
+    parameters' device. Tap keys are parameter paths with the layer index
+    inside a segment marked "@l" ("segments/0/@3/attn/q")."""
+    store: Dict[str, list] = {}
+    device = cm.tree_leaves(params)[0].device
+    with torch.no_grad(), cm.tap_recording(store):
+        for batch in batches:
+            tokens = torch.as_tensor(np.asarray(batch["tokens"])[:, :-1],
+                                     device=device)
+            tfm.forward(params, cfg, tokens)
+    return store
+
+
+_AT = re.compile(r"^@(\d+)$")
+
+
+def _index_moments(store: Dict[str, list]
+                   ) -> Dict[str, Dict[Tuple[int, ...], list]]:
+    """tap key -> (group path, layer index tuple) inverted index."""
+    out: Dict[str, Dict[Tuple[int, ...], list]] = {}
+    for key, ent in store.items():
+        toks, idx = [], []
+        for t in key.split("/"):
+            m = _AT.match(t)
+            if m:
+                idx.append(int(m.group(1)))
+            else:
+                toks.append(t)
+        out.setdefault("/".join(toks), {})[tuple(idx)] = ent
+    return out
+
+
+def decompose(dense_params: PyTree, cfg: ModelConfig,
+              moments: Optional[Dict[str, list]] = None, *,
+              damping: float = 1e-6
+              ) -> Tuple[PyTree, Dict[str, np.ndarray]]:
+    """DataSVD-initialized factorized params from dense params, on the
+    device of the dense leaves; plain SVD per leaf where no moment was
+    recorded. Returns (factorized params, error curves):
+    ``curves[group_path][r-1]`` is the whitened tail energy of keeping rank
+    r, summed over the group's layers (the DP's input). The arithmetic of
+    the curve is the reference's, in numpy on the host."""
     params = cm.tree_map(lambda x: x, dense_params)
+    midx = _index_moments(moments or {})
     curves: Dict[str, np.ndarray] = {}
     for info in group_infos(cfg):
         w = cm.tree_get(dense_params, info.path)["w"].to(torch.float32)
@@ -105,13 +148,21 @@ def decompose(dense_params: PyTree,
         v_out = torch.zeros(lead + (info.n, r_full), dtype=torch.float32,
                             device=w.device)
         curve = np.zeros(r_full, np.float64)
+        group_moments = midx.get(info.path, {})
         for idx in _lead_indices(lead):
-            f = datasvd.plain_svd_factors(w[idx].T, max_rank=r_full)
+            ent = group_moments.get(tuple(idx[: len(info.scan_dims)]))
+            w_paper = w[idx].T                     # (m, n): y = W x
+            if ent is not None:
+                f = datasvd.datasvd_factors(w_paper, ent[0], ent[1],
+                                            max_rank=r_full, damping=damping)
+            else:
+                f = datasvd.plain_svd_factors(w_paper, max_rank=r_full)
             rr = f.u.shape[1]
             u_out[idx][:, :rr] = f.u
             v_out[idx][:, :rr] = f.v
             u_np = f.u.cpu().numpy()
-            # |u_j|^2 = lambda_j (sqrt(lambda) absorbed symmetrically)
+            # |u_j|^2 = lambda_j (sqrt(lambda) absorbed symmetrically; the v
+            # columns carry Sigma^{-1/2} and are not orthonormal)
             lam2 = ((u_np * u_np).sum(0)) ** 2
             tail = lam2[::-1].cumsum()[::-1]
             c = np.zeros(r_full)
@@ -147,6 +198,90 @@ def build_table(cfg: ModelConfig, curves: Dict[str, np.ndarray]
     table = table_from_profiles(names, rows,
                                 cfg.flexrank.budgets[: len(rows)], max_ranks)
     return table, infos
+
+
+def table_host(table: ProfileTable) -> np.ndarray:
+    """The profile table as the training loop reads it: a host int array,
+    so a row's ranks are Python ints and no projection syncs with the
+    card (the reference's ``table_device`` keeps it on the device for
+    ``jit``)."""
+    return np.asarray(table.table, np.int32)
+
+
+def ranks_tree(cfg: ModelConfig, infos: List[GroupInfo],
+               table_rows: np.ndarray, k: int) -> Dict:
+    """Nested ranks tree (mirrors the params) for budget row ``k``: one
+    Python int per factorized group, shared by the group's layers."""
+    row = table_rows[int(k)]
+    tree: Dict = {}
+    for info in infos:
+        _nested_set(tree, info.path, int(row[info.col]))
+    return tree
+
+
+def _nested_set(tree: Dict, path: str, value) -> None:
+    toks = path.split("/")
+    cur = tree
+    for a, b in zip(toks[:-1], toks[1:]):
+        child = [] if b.isdigit() else {}
+        if isinstance(cur, list):
+            i = int(a)
+            while len(cur) <= i:
+                cur.append(None)
+            if cur[i] is None:
+                cur[i] = child
+            cur = cur[i]
+        else:
+            cur = cur.setdefault(a, child)
+    last = toks[-1]
+    if isinstance(cur, list):
+        while len(cur) <= int(last):
+            cur.append(None)
+        cur[int(last)] = value
+    else:
+        cur[last] = value
+
+
+def budget_draw(rng: threefry.Key, num_k: int) -> int:
+    """The budget row of one consolidation step:
+    ``jax.random.randint(rng, (), 0, num_k)``, bit for bit, on the host."""
+    return threefry.randint(rng, 0, num_k)
+
+
+def make_consolidation_loss(cfg: ModelConfig, infos: List[GroupInfo],
+                            table_rows: np.ndarray, teacher_params: PyTree
+                            ) -> Callable:
+    """Returns ``loss_fn(params, batch, rng) -> (loss, metrics)``: draw a
+    budget row k from the host key ``rng``, run the student at row k's
+    ranks and the teacher (under ``no_grad``), and distill (Eq. 5/6).
+    ``batch['tokens']``: (B, S + 1) on the params' device."""
+    num_k = table_rows.shape[0]
+
+    def loss_fn(params, batch, rng):
+        tokens = batch["tokens"][:, :-1]
+        labels = batch["tokens"][:, 1:]
+        k = budget_draw(rng, num_k)
+        ranks = ranks_tree(cfg, infos, table_rows, k)
+        student_logits, aux = tfm.forward(params, cfg, tokens, ranks=ranks)
+        with torch.no_grad():
+            teacher_logits, _ = tfm.forward(teacher_params, cfg, tokens)
+        loss = distill.consolidation_loss(
+            student_logits, teacher_logits, labels,
+            kd_weight=cfg.flexrank.kd_weight,
+            temperature=cfg.flexrank.kd_temperature)
+        return loss + aux, {"loss": loss.detach(), "budget_k": k}
+
+    return loss_fn
+
+
+def eval_budget_loss(params, cfg, infos, table_rows, batch, k: int) -> float:
+    """Cross-entropy of budget row ``k`` on one batch (no gradients)."""
+    tokens = batch["tokens"][:, :-1]
+    labels = batch["tokens"][:, 1:]
+    ranks = ranks_tree(cfg, infos, table_rows, k)
+    with torch.no_grad():
+        logits, _ = tfm.forward(params, cfg, tokens, ranks=ranks)
+        return float(distill.cross_entropy(logits, labels))
 
 
 def gar_deploy(params_fact: PyTree, cfg: ModelConfig,

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import gar_matmul as _gar
+from repro_torch.kernels import lowrank_matmul as _lr
 from repro_torch.kernels import paged_attention as _attn
 from repro_torch.kernels import sampling as _samp
 
@@ -30,6 +31,56 @@ def gar_forward(x: torch.Tensor, v_tilde: torch.Tensor, u_hat: torch.Tensor,
         return y.reshape(*lead, -1)
     z, tail = ref.gar_matmul_ref(xf, v_tilde.to(x.dtype), u_hat.to(x.dtype))
     y = torch.cat([z, tail], dim=-1)[:, perm_inv]
+    return y.reshape(*lead, -1)
+
+
+class _LowRank(torch.autograd.Function):
+    """Masked low-rank linear on 2-d ``x``. The forward is the kernel (the
+    plain version on CPU tensors); the backward is the masked products in
+    plain PyTorch, as the reference has no backward kernel and leaves its
+    gradients to XLA's products of the plain branch. The masked columns of
+    ``z`` are zero, so the products run over the kept columns only and the
+    gradients of the masked factor columns are zero:
+    ``dz = dy @ u_k``, ``dx = dz @ v_k^T``, ``dv_k = x^T @ dz``,
+    ``du_k = dy^T @ (x @ v_k)`` with ``_k`` the first kr columns."""
+
+    @staticmethod
+    def forward(ctx, x, v, u, rank):
+        ctx.save_for_backward(x, v, u)
+        ctx.kr = _lr.kept_rank(v.shape[1], rank)
+        if x.is_cuda:
+            return _lr.lowrank_matmul(x.contiguous(), v.contiguous(),
+                                      u.contiguous(), rank)
+        return ref.lowrank_matmul_ref(x, v, u, rank)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, v, u = ctx.saved_tensors
+        kr = ctx.kr
+        v_k, u_k = v[:, :kr], u[:, :kr]
+        dx = dv = du = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            dz = dy @ u_k
+        if ctx.needs_input_grad[0]:
+            dx = dz @ v_k.T
+        if ctx.needs_input_grad[1]:
+            dv = torch.zeros_like(v)
+            dv[:, :kr] = x.T @ dz
+        if ctx.needs_input_grad[2]:
+            du = torch.zeros_like(u)
+            du[:, :kr] = dy.T @ (x @ v_k)
+        return dx, dv, du, None
+
+
+def lowrank_forward(x: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
+                    rank: Optional[int] = None) -> torch.Tensor:
+    """Masked low-rank linear (the training path): ``y = ((x @ v) * [col <
+    rank]) @ u^T`` over the last axis, x: (..., n) -> (..., m). ``rank`` is
+    a Python int (``None`` keeps all r columns). Differentiable in x, v
+    and u."""
+    lead = x.shape[:-1]
+    y = _LowRank.apply(x.reshape(-1, x.shape[-1]), v.to(x.dtype),
+                       u.to(x.dtype), rank)
     return y.reshape(*lead, -1)
 
 

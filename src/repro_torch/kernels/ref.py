@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function repeats the arithmetic of its counterpart in the JAX
 package's ``kernels/ref.py``: q pre-scaled by ``1/sqrt(d)`` before the dot,
@@ -22,6 +22,17 @@ def gar_matmul_ref(x: torch.Tensor, v_tilde: torch.Tensor,
     """(z, tail) for z = x @ v_tilde, tail = z @ u_hat^T."""
     z = x @ v_tilde
     return z, z @ u_hat.T
+
+
+def lowrank_matmul_ref(x: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
+                       rank: Optional[int] = None) -> torch.Tensor:
+    """y = ((x @ v) * [col < rank]) @ u^T; ``rank`` None keeps every
+    column."""
+    z = x @ v
+    if rank is not None:
+        mask = (torch.arange(z.shape[-1], device=z.device) < rank).to(z.dtype)
+        z = z * mask
+    return z @ u.T
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_tables, context_lens, *,

@@ -1,8 +1,9 @@
 """Serving launcher on the card: build an elastic model from a seeded dense
-init, then serve a stream of requests at mixed budgets through the
-GAR-deployed submodels with the continuous-batching engine (paged KV
-cache, chunked prefill fused into decode iterations with
-``--prefill-chunk``).
+init (calibration on the synthetic source, DataSVD and DP through
+``launch.train.build_flexrank_state``, as the JAX package's launcher does),
+then serve a stream of requests at mixed budgets through the GAR-deployed
+submodels with the continuous-batching engine (paged KV cache, chunked
+prefill fused into decode iterations with ``--prefill-chunk``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
       --requests 6 --budgets 0.4,1.0 --engine continuous --prefill-chunk 64
@@ -16,33 +17,22 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.core import flexrank as FR
-from repro_torch.models import common as cm
-from repro_torch.models import transformer as tfm
+from repro_torch.data import make_source
+from repro_torch.launch.train import build_flexrank_state, dense_init
 from repro_torch.obs import make_tracer
 from repro_torch.serving import ElasticEngine, Request, SamplingParams
 
 
-def build_flexrank_state(cfg, dense_params):
-    """Paper Algorithm 1 stages 1-2 without calibration: plain-SVD
-    decompose, then DP-select the nested profile table. This is the JAX
-    package's ``build_flexrank_state`` with ``calib_batches=0`` (no moments
-    recorded, so every leaf takes the plain-SVD fallback)."""
-    fact_params, curves = FR.decompose(dense_params, cfg)
-    table, infos = FR.build_table(cfg, curves)
-    return fact_params, table, infos
-
-
-def dense_init(cfg, seed: int, device) -> dict:
-    """Seeded dense parameters: drawn on the CPU from a ``torch.Generator``
-    (the same values whatever the device), then moved."""
-    gen = torch.Generator().manual_seed(seed)
-    return cm.tree_map(lambda t: t.to(device),
-                       cm.instantiate(tfm.model_spec(cfg), gen))
+def serving_state(cfg, dense_params, seed: int, *, timings=None):
+    """The launcher's FlexRank state: calibrate on the first batches of a
+    synthetic source of 4 x 65 tokens, DataSVD-decompose and DP-select, as
+    the JAX package's serving launcher does. Returns (factorized params,
+    table, infos); ``timings`` as for ``build_flexrank_state``."""
+    source = make_source(cfg.vocab_size, 64, 4, seed=seed)
+    return build_flexrank_state(cfg, dense_params, source, timings=timings)
 
 
 def main(argv=None):
@@ -90,10 +80,13 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     rng = np.random.default_rng(args.seed)
-    print("# decomposition: plain SVD per leaf; DataSVD calibration waits "
-          "for the decomposition slice of the port", flush=True)
     dense = dense_init(cfg, args.seed, device)
-    params_fact, table, infos = build_flexrank_state(cfg, dense)
+    setup = {}
+    params_fact, table, infos = serving_state(cfg, dense, args.seed,
+                                              timings=setup)
+    print(f"# flexrank state: calibrate {setup['calibrate']:.2f} s, DataSVD "
+          f"decompose {setup['decompose']:.2f} s, DP {setup['dp']:.2f} s "
+          f"({table.table.shape[0]} rows)", flush=True)
     del dense
     engine = ElasticEngine(cfg, params_fact, table, infos,
                            max_batch=args.max_batch, max_len=args.max_len,

@@ -1,7 +1,12 @@
-"""GQA self-attention (+RoPE, logit softcap) and FFN blocks for the paged
-serving forward: spec/apply pairs driven by ``transformer``."""
+"""GQA self-attention (+RoPE, logit softcap) and FFN blocks: the paged
+serving forward and the contiguous train/prefill forward (exact
+query-chunked attention), spec/apply pairs driven by ``transformer``.
+
+Each projection names its activation tap ("q", "k", "v", "o", "gate",
+"up", "down") for the calibration pass."""
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -10,6 +15,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamSpec, linear
+
+Q_CHUNK = 1024  # query chunk for exact chunked attention
+NEG_INF = -1e30
 
 
 def attn_spec(cfg: ModelConfig) -> Dict:
@@ -36,6 +44,46 @@ def ffn_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
     }
 
 
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0.0:
+        return cap * torch.tanh(logits / cap)
+    return logits
+
+
+def chunked_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   q_positions: torch.Tensor, k_positions: torch.Tensor,
+                   window: int, softcap: float = 0.0,
+                   causal: bool = True) -> torch.Tensor:
+    """Exact attention, one query chunk of at most ``Q_CHUNK`` at a time:
+    q pre-scaled by ``1/sqrt(D)``, float32 logits, a ``-1e30`` mask, softmax
+    in float32. q: (B, S, Hq, D); k/v: (B, T, Hkv, D); positions: (S,) /
+    (T,). ``window``: lookback horizon (T or more for global)."""
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qc = min(Q_CHUNK, s)
+    n_chunks = max(s // qc, 1)
+    if not (s % qc == 0 or n_chunks == 1):
+        raise ValueError(f"sequence {s} is not a multiple of the query "
+                         f"chunk {qc}")
+    qc = s // n_chunks
+    q = (q * (1.0 / math.sqrt(dh))).reshape(b, n_chunks, qc, hkv, g, dh)
+    q_pos = q_positions.reshape(n_chunks, qc)
+    outs = []
+    for c in range(n_chunks):
+        logits = torch.einsum("bqhgd,bthd->bhgqt", q[:, c], k).float()
+        logits = _softcap(logits, softcap)
+        delta = q_pos[c][:, None] - k_positions[None, :]
+        valid = delta < window
+        if causal:
+            valid &= delta >= 0
+        logits = torch.where(valid[None, None, None], logits,
+                             torch.full_like(logits, NEG_INF))
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bhgqt,bthd->bqhgd", probs, v))
+    return torch.stack(outs, dim=1).reshape(b, s, hq, dh)
+
+
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     b, s, _ = x.shape
     return x.reshape(b, s, n, -1)
@@ -47,17 +95,45 @@ def project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q/k/v projection + head norms + RoPE, in the reference's order:
     q -> q_norm, then k and v, then k_norm, then RoPE."""
-    q = _split_heads(linear(p["q"], x, rank=ranks.get("q")), cfg.num_heads)
+    q = _split_heads(linear(p["q"], x, rank=ranks.get("q"), tap="q"),
+                     cfg.num_heads)
     q = cm.rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
-    k = _split_heads(linear(p["k"], x, rank=ranks.get("k")),
+    k = _split_heads(linear(p["k"], x, rank=ranks.get("k"), tap="k"),
                      cfg.num_kv_heads)
-    v = _split_heads(linear(p["v"], x, rank=ranks.get("v")),
+    v = _split_heads(linear(p["v"], x, rank=ranks.get("v"), tap="v"),
                      cfg.num_kv_heads)
     k = cm.rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
     if rope:
         q = cm.rope(q, positions, base=cfg.rope_base)
         k = cm.rope(k, positions, base=cfg.rope_base)
     return q, k, v
+
+
+def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+               positions: torch.Tensor, window: int,
+               ranks: Optional[Dict] = None, cache: Optional[Dict] = None,
+               kv_source: Optional[torch.Tensor] = None,
+               static_kv=None, causal: bool = True,
+               use_rope: bool = True) -> Tuple[torch.Tensor, None]:
+    """Self-attention with no cache (train/prefill): project, attend over
+    the sequence itself, project out. x: (B, S, d). Returns (y, None).
+    The decode cache, cross-attention and ``static_kv`` branches of the
+    reference raise until the contiguous decode and the other families are
+    ported (ROADMAP A.10)."""
+    if cache is not None or kv_source is not None or static_kv is not None:
+        raise NotImplementedError(
+            "attn_apply ports the cache-free self-attention branch only; "
+            "the decode cache, cross-attention and static_kv wait for "
+            "ROADMAP A.10")
+    r = ranks or {}
+    q, k, v = project_qkv(p, x, cfg, ranks=r, positions=positions,
+                          rope=use_rope)
+    out = chunked_attend(q, k, v, q_positions=positions,
+                         k_positions=positions, window=window,
+                         softcap=cfg.attn_logit_softcap, causal=causal)
+    b, s = x.shape[:2]
+    out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    return linear(p["o"], out, rank=r.get("o"), tap="o"), None
 
 
 def paged_prefill_attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -95,13 +171,14 @@ def paged_prefill_attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         q[0], k_pool, v_pool, block_tables, slot_ids, positions + 1,
         softcap=cfg.attn_logit_softcap, window=window)
     out = out.reshape(1, t, cfg.num_heads * hd)
-    y = linear(p["o"], out, rank=r.get("o"))
+    y = linear(p["o"], out, rank=r.get("o"), tap="o")
     return y, k_pool, v_pool
 
 
 def ffn_apply(p: Dict, x: torch.Tensor, *,
               ranks: Optional[Dict] = None) -> torch.Tensor:
     r = ranks or {}
-    gate = linear(p["gate"], x, rank=r.get("gate"))
-    up = linear(p["up"], x, rank=r.get("up"))
-    return linear(p["down"], cm.swiglu(gate, up), rank=r.get("down"))
+    gate = linear(p["gate"], x, rank=r.get("gate"), tap="gate")
+    up = linear(p["up"], x, rank=r.get("up"), tap="up")
+    return linear(p["down"], cm.swiglu(gate, up), rank=r.get("down"),
+                  tap="down")

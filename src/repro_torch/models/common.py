@@ -4,14 +4,18 @@ A module is (spec_fn(cfg) -> ParamSpec tree, apply_fn(params, ...) -> out),
 with parameters held as nested dicts and lists of tensors. ``factorize_spec``
 rewrites eligible dense leaves ``{'w': (.., d_in, d_out)}`` into
 ``{'u': (.., d_out, r), 'v': (.., d_in, r)}``, and ``linear`` consumes the
-dense, factorized (optionally rank-masked) and GAR forms. The GAR form goes
-through ``kernels.ops.gar_forward``: the fused CUDA kernel on the card, its
-plain version on the CPU.
+dense, factorized (optionally rank-masked) and GAR forms. The factorized
+form goes through ``kernels.ops.lowrank_forward`` and the GAR form through
+``kernels.ops.gar_forward``: the CUDA kernels on the card, their plain
+versions on the CPU. Activation taps record the second moment of every
+linear's input during the calibration pass (DataSVD).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -62,10 +66,25 @@ def tree_map(fn: Callable, tree: PyTree, is_leaf=None) -> PyTree:
     return fn(tree)
 
 
+def tree_items(tree: PyTree, is_leaf=None, prefix: str = ""):
+    """(path, leaf) pairs in ``tree_map``'s order; a path joins dict keys
+    and list indices with ``/`` (``"segments/0/attn/q"``)."""
+    if is_leaf is not None and is_leaf(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], is_leaf,
+                                  f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, is_leaf,
+                                  f"{prefix}/{i}" if prefix else str(i))
+    elif tree is not None:
+        yield prefix, tree
+
+
 def tree_leaves(tree: PyTree, is_leaf=None) -> list:
-    out: list = []
-    tree_map(lambda x: out.append(x), tree, is_leaf)
-    return out
+    return [leaf for _, leaf in tree_items(tree, is_leaf)]
 
 
 def instantiate(specs: PyTree, generator: torch.Generator, *,
@@ -158,28 +177,87 @@ def tree_set(tree: PyTree, path: str, value) -> None:
 
 
 # ---------------------------------------------------------------------------
+# activation taps (DataSVD moment collection, core/flexrank.py)
+# ---------------------------------------------------------------------------
+# While a tap store is active (the calibration pass only), ``linear``
+# accumulates the unnormalized second moment of its input under a key that
+# mirrors the parameter path ("segments/0/@3/attn/q", "@l" the layer index
+# inside a segment). The moment stays on the input's device, in float32.
+# Otherwise the cost is one ``is None`` check.
+
+_TAPS = threading.local()
+
+
+def _tap_state():
+    if not hasattr(_TAPS, "store"):
+        _TAPS.store = None
+        _TAPS.prefix = []
+    return _TAPS
+
+
+@contextlib.contextmanager
+def tap_recording(store: dict):
+    st = _tap_state()
+    prev = st.store
+    st.store = store
+    try:
+        yield store
+    finally:
+        st.store = prev
+
+
+@contextlib.contextmanager
+def tap_scope(name: str, *, absolute: bool = False):
+    st = _tap_state()
+    saved = st.prefix
+    st.prefix = [name] if absolute else saved + [name]
+    try:
+        yield
+    finally:
+        st.prefix = saved
+
+
+def record_tap(name: Optional[str], x: torch.Tensor) -> None:
+    """Fold ``x`` (..., n) into the store's ``[moment (n, n), count]``
+    entry under the current scope; the moment is ``flat^T flat`` in float32
+    on ``x``'s device, the count a float."""
+    st = _tap_state()
+    if st.store is None or name is None:
+        return
+    key = "/".join(st.prefix + [name])
+    flat = x.detach().reshape(-1, x.shape[-1]).float()
+    ent = st.store.get(key)
+    if ent is None:
+        st.store[key] = [flat.T @ flat, float(flat.shape[0])]
+    else:
+        ent[0] += flat.T @ flat
+        ent[1] += float(flat.shape[0])
+
+
+
+# ---------------------------------------------------------------------------
 # math primitives
 # ---------------------------------------------------------------------------
 
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor, *,
-           rank: Optional[int] = None) -> torch.Tensor:
+           rank: Optional[int] = None,
+           tap: Optional[str] = None) -> torch.Tensor:
     """y = x @ W with W dense, factorized (optionally rank-masked), or GAR.
 
     dense:      p = {'w': (d_in, d_out)}
     factorized: p = {'v': (d_in, r), 'u': (d_out, r)}; columns >= ``rank``
-                are masked out (the nested-mask training path)
+                (a Python int) are masked out, the nested-mask training path
     gar:        p = {'v_tilde': (d_in, r), 'u_hat': (d_out - r, r),
                  'perm_inv': (d_out,) int64}; the deploy path
+
+    ``tap`` names the input's moment while a tap store is active.
     """
+    record_tap(tap, x)
     if "w" in p:
         return x @ p["w"].to(x.dtype)
     if "u_hat" in p:
         return ops.gar_forward(x, p["v_tilde"], p["u_hat"], p["perm_inv"])
-    z = x @ p["v"].to(x.dtype)
-    if rank is not None:
-        mask = (torch.arange(z.shape[-1], device=z.device) < rank).to(z.dtype)
-        z = z * mask
-    return z @ p["u"].T.to(x.dtype)
+    return ops.lowrank_forward(x, p["v"], p["u"], rank)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,

@@ -1,13 +1,20 @@
-"""Model assembly for the paged serving forward.
+"""Model assembly: the train/prefill forward and the paged serving forward.
 
 A model is a sequence of segments, each a stack of ``count`` identical
 blocks with stacked parameters (a leading layers axis). The JAX package
-scans a segment with ``lax.scan``; here a Python loop walks its layers.
-Only self-attention stacks ('attn' segments with dense FFNs) are ported;
-other segment kinds and MoE FFNs raise.
+scans a segment with ``lax.scan`` and unrolls it into a tap-scoped Python
+loop only for calibration; here a Python loop always walks its layers,
+each under ``tap_scope(f"@{l}")``, so the tap keys are the reference's.
+Only self-attention stacks ('attn'/'attn_dense' segments with dense FFNs)
+are ported; other segment kinds and MoE FFNs raise.
+
+Ranks trees mirror the parameters (``{'segments': [{'attn': {'q': r,
+...}, 'mlp': {...}}, ...]}``) with one Python int per factorized group,
+shared by the group's layers.
 
 Public API:
   model_spec(cfg)                                 -> ParamSpec tree
+  forward(params, cfg, tokens, ranks=)            -> (logits, aux)
   paged_mixed_step(params, cfg, caches, tokens)   -> (logits, caches)
 """
 from __future__ import annotations
@@ -94,6 +101,66 @@ def _seg_ranks(ranks, i):
 
 def _layer(tree, l: int):
     return cm.tree_map(lambda a: a[l], tree)
+
+
+def rget_tree(ranks, key):
+    if not isinstance(ranks, dict):
+        return None
+    return ranks.get(key)
+
+
+def _apply_attn_block(p, x, cfg, *, positions, window, ranks):
+    """rms_norm -> self-attention -> residual -> rms_norm -> FFN ->
+    residual (the non-MoE, non-MLA block, no cache)."""
+    h = cm.rms_norm(x, p["ln_attn"], eps=cfg.norm_eps)
+    with cm.tap_scope("attn"):
+        y, _ = attn.attn_apply(p["attn"], h, cfg, positions=positions,
+                               window=window, ranks=rget_tree(ranks, "attn"))
+    x = x + y
+    h = cm.rms_norm(x, p["ln_mlp"], eps=cfg.norm_eps)
+    with cm.tap_scope("mlp"):
+        y = attn.ffn_apply(p["mlp"], h, ranks=rget_tree(ranks, "mlp"))
+    return x + y
+
+
+def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
+                cfg: ModelConfig, *, positions: torch.Tensor,
+                ranks: Optional[Dict], layer_offset: int) -> torch.Tensor:
+    """Walk one causal self-attention segment layer by layer. Returns x."""
+    if seg.kind not in ("attn", "attn_dense") or cfg.moe is not None \
+            or cfg.mla is not None:
+        raise NotImplementedError(
+            f"segment kind {seg.kind!r} (moe={cfg.moe is not None}, "
+            f"mla={cfg.mla is not None}) is not ported yet (ROADMAP A.10)")
+    windows = window_schedule(cfg, seg.count, layer_offset)
+    for l in range(seg.count):
+        with cm.tap_scope(f"@{l}"):
+            x = _apply_attn_block(_layer(params, l), x, cfg,
+                                  positions=positions, window=windows[l],
+                                  ranks=ranks)
+    return x
+
+
+def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            ranks: Optional[Dict] = None,
+            positions: Optional[torch.Tensor] = None):
+    """Train/prefill forward. tokens: (B, S). Returns (logits (B, S, V),
+    aux_loss), aux a float32 zero (no MoE). No frontend."""
+    if cfg.frontend_dim:
+        raise NotImplementedError("frontend inputs are not ported yet "
+                                  "(ROADMAP A.10)")
+    x = embed_tokens(params, tokens, cfg)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    offset = 0
+    for i, seg in enumerate(cfg.segments):
+        with cm.tap_scope(f"segments/{i}", absolute=True):
+            x = run_segment(seg, params["segments"][i], x, cfg,
+                            positions=positions,
+                            ranks=_seg_ranks(ranks, i), layer_offset=offset)
+        offset += seg.count
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_logits(params, x, cfg), aux
 
 
 def _run_paged_segments(params, cfg, x, caches, ranks, attn_fn):

@@ -23,30 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.threefry import M32, threefry2x32
 from repro_torch.models import transformer as tfm
-
-_M32 = 0xFFFFFFFF
-_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _rotl(x, r: int):
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
-def _threefry2x32(k0, k1, x0, x1):
-    """Threefry-2x32 (20 rounds) on uint32 values held in int64 numpy
-    arrays, every sum masked back to 32 bits."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
-    return x0, x1
-
 
 def _uniform_bits(seed, req_id, purpose, position):
     """The float32 bit pattern in [1, 2) of each keyed uniform, from uint32
@@ -56,8 +34,8 @@ def _uniform_bits(seed, req_id, purpose, position):
     k0, k1 = seed * 0, seed
     zero = seed * 0
     for part in (req_id, purpose, position):
-        k0, k1 = _threefry2x32(k0, k1, zero, part)
-    b0, b1 = _threefry2x32(k0, k1, zero, zero)
+        k0, k1 = threefry2x32(k0, k1, zero, part)
+    b0, b1 = threefry2x32(k0, k1, zero, zero)
     return ((b0 ^ b1) >> 9) | 0x3F800000
 
 
@@ -71,7 +49,7 @@ def keyed_uniform(seed: torch.Tensor, req_id: torch.Tensor,
     hashed on the host in numpy (some 700 array operations, a fraction of a
     millisecond for a batch of rows; on the card each would be a kernel
     launch); the uniforms are returned on the keys' device."""
-    keys = [a.cpu().numpy().astype(np.int64) & _M32
+    keys = [a.cpu().numpy().astype(np.int64) & M32
             for a in (seed, req_id, purpose, position)]
     bits = _uniform_bits(*keys).astype(np.uint32).view(np.float32)
     return torch.from_numpy(np.maximum(bits - np.float32(1.0),

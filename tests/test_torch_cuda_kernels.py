@@ -45,6 +45,57 @@ def test_gar_kernel_matches_plain(dev, t, n, m, r):
     assert float((y_k.cpu() - y_p).abs().max()) / scale < 2e-4
 
 
+LOWRANK_CASES = [(1024, 768, 3072, 768, 200), (1024, 3072, 768, 768, 768),
+                 (33, 17, 29, 7, 3), (33, 17, 29, 7, 0), (33, 17, 29, 7, 7),
+                 (33, 17, 29, 7, None), (70, 64, 96, 48, 31),
+                 (5, 300, 130, 257, 129)]
+
+
+def _lowrank_inputs(t, n, m, r, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((t, n)).astype(np.float32)
+    v = rng.standard_normal((n, r)).astype(np.float32) / math.sqrt(n)
+    u = rng.standard_normal((m, r)).astype(np.float32) / math.sqrt(r)
+    return x, v, u
+
+
+@pytest.mark.parametrize("t,n,m,r,rank", LOWRANK_CASES)
+def test_lowrank_kernel_matches_plain(dev, t, n, m, r, rank):
+    """The kernel against its plain version; relative to the output's max,
+    as for GAR (two float32 summation orders)."""
+    from repro_torch.kernels import lowrank_matmul as lk
+    from repro_torch.kernels import ref
+    x, v, u = (_t(a, dev) for a in _lowrank_inputs(t, n, m, r, t + n + r))
+    before = lk.launches
+    y_k = lk.lowrank_matmul(x, v, u, rank)
+    assert lk.launches == before + 1
+    y_p = ref.lowrank_matmul_ref(x.cpu(), v.cpu(), u.cpu(), rank)
+    scale = float(y_p.abs().max()) + 1e-6
+    assert float((y_k.cpu() - y_p).abs().max()) / scale < 2e-4
+    if rank == 0:
+        assert not y_k.any()
+
+
+@pytest.mark.parametrize("t,n,m,r,rank", [(64, 96, 80, 48, 20),
+                                          (33, 17, 29, 7, 7)])
+def test_lowrank_backward_on_card_matches_cpu(dev, t, n, m, r, rank):
+    """Autograd through ``ops.lowrank_forward`` on the card (kernel forward,
+    plain backward) against the CPU (plain forward and backward)."""
+    arrays = _lowrank_inputs(t, n, m, r, 7)
+    dy = np.random.default_rng(8).standard_normal((t, m)).astype(np.float32)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        x, v, u = (torch.tensor(a, device=device, requires_grad=True)
+                   for a in arrays)
+        y = ops.lowrank_forward(x, v, u, rank)
+        y.backward(torch.as_tensor(dy, device=device))
+        grads.append([y.detach().cpu()] + [a.grad.cpu() for a in (x, v, u)])
+    for name, a, b in zip(("y", "dx", "dv", "du"), *grads):
+        scale = float(b.abs().max()) + 1e-6
+        assert float((a - b).abs().max()) / scale < 2e-4, name
+    assert not grads[0][2][:, rank:].any() and not grads[0][3][:, rank:].any()
+
+
 def _attn_inputs(hq, hkv, d, bs, mb, t):
     """Three slots' block tables plus a null row; pads read the null row."""
     rng = np.random.default_rng(hq * 100 + d)

@@ -33,5 +33,7 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("src/repro_torch/serving/engine.py",
                  "src/repro_torch/kernels/ops.py",
-                 "src/repro_torch/bridge.py", "chip_smoke.py"):
+                 "src/repro_torch/bridge.py", "chip_smoke.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/kernels/lowrank_matmul.py"):
         assert must in names

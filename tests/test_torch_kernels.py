@@ -5,10 +5,13 @@ package's oracles (``repro.kernels.ref``), over the shape sweeps of
 The CUDA kernels themselves are held against these plain versions on the
 card (``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``).
 Tolerances: float32 attention 2e-5 absolute (two softmax implementations
-summing in different orders); GAR 2e-4 relative to the output's max (two
-matmul libraries); sampled tokens identical and warped probs 1e-5.
+summing in different orders); GAR and the low-rank linear 2e-4 relative to
+the output's max (two matmul libraries), and their gradients the same
+relative to each gradient's max; sampled tokens identical and warped probs
+1e-5.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -65,6 +68,58 @@ def test_gar_leading_dims_and_full_rank():
     assert y_t.shape == (2, 5, 12)
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=2e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------- low-rank linear
+
+LOWRANK_SHAPES = [(64, 32, 48, 16), (70, 64, 96, 48)]   # tests/test_kernels.py
+
+
+def _rel_err(a, b):
+    b = np.asarray(b)
+    return float(np.abs(np.asarray(a) - b).max()) / (
+        float(np.abs(b).max()) + 1e-6)
+
+
+@pytest.mark.parametrize("t,n,m,r", LOWRANK_SHAPES)
+@pytest.mark.parametrize("rank", [0, 1, "mid", "full", None])
+def test_lowrank_plain_matches_jax(t, n, m, r, rank):
+    """The plain version against the JAX oracle and the Pallas kernel in
+    interpret mode; ``ops.lowrank_forward`` on (B, S, n) inputs too."""
+    rk = {"mid": r // 2, "full": r}.get(rank, rank)
+    x, v, u = _np(t, n), _np(n, r), _np(m, r)
+    y_t = ref.lowrank_matmul_ref(*map(torch.as_tensor, (x, v, u)), rk)
+    y_oracle = jref.lowrank_matmul_ref(*map(jnp.asarray, (x, v, u)), rk)
+    y_pallas = jops.lowrank_forward(*map(jnp.asarray, (x, v, u)), rk,
+                                    use_pallas="interpret", bt=16, br=16)
+    assert _rel_err(y_t.numpy(), y_oracle) < 2e-4
+    assert _rel_err(y_t.numpy(), y_pallas) < 2e-4
+    y_ops = ops.lowrank_forward(torch.as_tensor(x.reshape(2, t // 2, n)),
+                                torch.as_tensor(v), torch.as_tensor(u), rk)
+    assert y_ops.shape == (2, t // 2, m)
+    np.testing.assert_array_equal(y_ops.reshape(t, m).numpy(), y_t.numpy())
+    if rk == 0:
+        assert not y_t.any()
+
+
+@pytest.mark.parametrize("rank", [0, 5, 48, None])
+def test_lowrank_gradients_match_jax(rank):
+    """dx, dv, du of the port's autograd function (the plain masked
+    products) against ``jax.grad`` of the reference's masked branch."""
+    t, n, m, r = 70, 64, 96, 48
+    x, v, u, dy = _np(t, n), _np(n, r), _np(m, r), _np(t, m)
+
+    def f(x, v, u):
+        return jnp.sum(jref.lowrank_matmul_ref(x, v, u, rank) * dy)
+
+    g_j = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (x, v, u)))
+    xs = [torch.tensor(a, requires_grad=True) for a in (x, v, u)]
+    ops.lowrank_forward(*xs, rank).backward(torch.as_tensor(dy))
+    for name, a, b in zip(("dx", "dv", "du"), xs, g_j):
+        assert _rel_err(a.grad.numpy(), b) < 2e-4, name
+    if rank is not None and rank < r:
+        assert not xs[1].grad[:, rank:].any()
+        assert not xs[2].grad[:, rank:].any()
 
 
 # -------------------------------------------------------- paged attention
@@ -226,11 +281,15 @@ def test_sampling_dispatch_matches_jax(with_topk, return_probs):
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers launch on CUDA tensors only; ``ops`` never hands
     them a CPU tensor (the plain version takes those)."""
-    from repro_torch.kernels import gar_matmul, paged_attention, sampling
+    from repro_torch.kernels import (gar_matmul, lowrank_matmul,
+                                     paged_attention, sampling)
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         gar_matmul.gar_matmul(x, torch.zeros(8, 8), torch.zeros(0, 8),
                               torch.arange(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        lowrank_matmul.lowrank_matmul(x, torch.zeros(8, 4),
+                                      torch.zeros(6, 4), 2)
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention.paged_prefill_attention(
             torch.zeros(1, 1, 4), torch.zeros(2, 2, 1, 4),
@@ -240,6 +299,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sampling.topk_mask_sample(torch.zeros(1, 4), torch.zeros(1),
                                   torch.zeros(1), torch.zeros(1))
-    counts = (gar_matmul.launches, paged_attention.launches,
-              sampling.launches)
-    assert counts == (0, 0, 0)
+    counts = (gar_matmul.launches, lowrank_matmul.launches,
+              paged_attention.launches, sampling.launches)
+    assert counts == (0, 0, 0, 0)

@@ -70,6 +70,22 @@ def test_specs_match(fixture):
         TFR.factorized_spec(tcfg), tcm.is_spec)] == shapes
 
 
+def test_tree_items_paths_match_jax(fixture):
+    """``tree_items`` walks in ``tree_leaves`` order and names each leaf by
+    the JAX tree's key path (dict keys and list indices joined by ``/``)."""
+    cfg, *_, tcfg = fixture
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        JFR.factorized_spec(cfg), is_leaf=jcm.is_spec)
+    jpaths = ["/".join(str(k.key if hasattr(k, "key") else k.idx)
+                       for k in path) for path, _ in flat]
+    tree = TFR.factorized_spec(tcfg)
+    items = list(tcm.tree_items(tree, tcm.is_spec))
+    assert [p for p, _ in items] == jpaths
+    assert [s for _, s in items] == tcm.tree_leaves(tree, tcm.is_spec)
+    for p, s in items:
+        assert tcm.tree_get(tree, p) is s
+
+
 # ------------------------------------------------------------ primitives
 
 def _close(t, j, rtol=1e-5, atol=1e-6):
