@@ -24,7 +24,16 @@ Phases, each fatal on failure:
                losses finite and ``lowrank_matmul`` launched;
   6. cross   - one training step (batch 2 x 32 tokens, budget row 0) from
                the trained factors on the card and on the CPU: the loss and
-               every gradient leaf must agree.
+               every gradient leaf must agree;
+  7. rwkv6   - the same consolidation of rwkv6-3b at full width cut to 8
+               of its 32 layers, 5 steps; ``wkv6`` and ``lowrank_matmul``
+               launched, losses and CE finite; then one training step card
+               vs CPU at 2 layers;
+  8. zamba2  - the same for zamba2-7b at full width cut to one
+               ``zamba_unit`` (5 Mamba2 layers, the shared attention block,
+               the unit's FFN) and one trailing Mamba2 layer, 5 steps;
+               ``ssd`` and ``lowrank_matmul`` launched; the card-vs-CPU step
+               at 2 Mamba2 layers (one in the unit, one trailing).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
@@ -32,10 +41,12 @@ non-zero, printing no result, without CUDA or without the repository.
 ``--profile`` serves the serving path's requests twice more, under
 ``torch.profiler`` (device time by kernel) and under ``cProfile`` (host
 time by function), and takes 3 more training steps under
-``torch.profiler``.
+``torch.profiler`` for each of the three trained models.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -56,6 +67,12 @@ TOL_ATTN = 2e-5                # float32 attention, absolute
 TOL_GAR = 2e-4                 # GAR, relative to the output's max
 TOL_PROBS = 1e-5               # warped probs, absolute; tokens identical
 TOL_LOWRANK = 2e-4             # low-rank linear, relative to the output's max
+# WKV6 and SSD, relative to the output's max: against the sequential
+# recurrences (the kernel's own order of operations), and against the
+# chunked forms the CPU runs, whose exponents (differences of cumulative
+# log-decays up to some 900 in magnitude) float32 keeps to about 5e-5
+TOL_RECUR_SEQ = 2e-5
+TOL_RECUR_CHUNKED = 2e-4
 # one training step card vs CPU: float32 sums in other orders through 12
 # layers and back; the KL gradient is a difference of two softmaxes
 TOL_TRAIN_LOSS = 1e-4          # relative
@@ -349,6 +366,106 @@ def check_sampling(dev, cases, rng, report):
     return worst
 
 
+def _check_recurrence(name, dev, label, kernel, plain, op, seq, arrays,
+                      chunk, work, flops, report):
+    """Hold ``kernel`` (the wrapper) against the sequential recurrence
+    ``seq`` and the op's chunked plain version ``plain`` on the card; time
+    kernel, chunked plain version, and a forward and backward through the
+    training path's ``op`` (the kernel, then the chunked recompute under
+    autograd) unless the shape is ragged. Returns the max abs error
+    against the sequential recurrence."""
+    ts = [torch.as_tensor(a, device=dev) for a in arrays]
+    y = kernel(*ts)
+    y_seq = seq(*ts)
+    y_plain = plain(*ts, chunk)
+    torch.cuda.synchronize()
+    scale = float(y_seq.abs().max()) + 1e-6
+    err = float((y - y_seq).abs().max())
+    err_chunked = float((y - y_plain).abs().max())
+    if not err / scale < TOL_RECUR_SEQ:
+        fail(f"{name} {label}: rel err {err / scale:.3e} against the "
+             "sequential recurrence")
+    if not err_chunked / scale < TOL_RECUR_CHUNKED:
+        fail(f"{name} {label}: rel err {err_chunked / scale:.3e} against "
+             "the chunked plain version")
+    if label.startswith("ragged"):
+        return err
+    sets = [[t.clone() for t in ts]
+            for _ in range(copies_for(nbytes(*ts)))]
+    ms = device_ms([lambda a=a: kernel(*a) for a in sets])
+    plain_ms = device_ms([lambda a=a: plain(*a, chunk) for a in sets])
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    dy = torch.randn_like(y)
+    train_ms = device_ms([lambda: op(*leaves, chunk=chunk).backward(dy)])
+    log(f"# {name} [{label}]: forward and backward through the op "
+        f"{train_ms:.4f} ms (the kernel, then the chunked recompute)")
+    b, by = bound_ms(work, flops)
+    report.append(dict(kernel=name, shape=label, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=b, bound_by=by,
+                       max_abs_err=err))
+    return err
+
+
+def check_wkv6(dev, cases, rng, report):
+    """cases: (label, B, S, H). r/k/v/u standard normal, w log-uniform over
+    (1e-14, 1) (some decays below the clamp), N = 64, chunk 64 as rwkv6."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wk
+
+    def seq(r, k, v, w, u):
+        b, s, h, n = r.shape
+        flat = [t.transpose(1, 2).reshape(b * h, s, n) for t in (r, k, v, w)]
+        y = ref.wkv6_ref(*flat, u.repeat(b, 1))
+        return y.reshape(b, h, s, n).transpose(1, 2)
+
+    worst = 0.0
+    for label, b, s, h in cases:
+        shape = (b, s, h, 64)
+        r, k, v = (rng.standard_normal(shape).astype(np.float32)
+                   for _ in range(3))
+        w = (10.0 ** rng.uniform(-14, 0, shape)).astype(np.float32)
+        u = rng.standard_normal((h, 64)).astype(np.float32)
+        n_io = 5 * b * s * h * 64
+        worst = max(worst, _check_recurrence(
+            "wkv6", dev, label, wk.wkv6, ops._wkv_plain, ops.wkv6_forward,
+            seq,
+            (r, k, v, w, u), 64, 4 * (n_io + h * 64),
+            5 * b * s * h * 64 * 64, report))
+    return worst
+
+
+def check_ssd(dev, cases, rng, report):
+    """cases: (label, B, S, H, G). x, b, c standard normal, dt the softplus
+    of a standard normal, a = -exp(0.3 N(0, 1)), P = N = 64, chunk 128 as
+    zamba2."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as sk
+
+    def seq(x, dt, a, bb, cc):
+        b, s, h, p = x.shape
+        rep = h // bb.shape[2]
+        bf, cf = (t.repeat_interleave(rep, 2).transpose(1, 2).reshape(
+            b * h, s, 64) for t in (bb, cc))
+        y = ref.ssd_ref(x.transpose(1, 2).reshape(b * h, s, p),
+                        dt.transpose(1, 2).reshape(b * h, s), a.repeat(b),
+                        bf, cf)
+        return y.reshape(b, h, s, p).transpose(1, 2)
+
+    worst = 0.0
+    for label, b, s, h, g in cases:
+        x = rng.standard_normal((b, s, h, 64)).astype(np.float32)
+        dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(
+            np.float32)
+        a = -np.exp(0.3 * rng.standard_normal(h)).astype(np.float32)
+        bb, cc = (rng.standard_normal((b, s, g, 64)).astype(np.float32)
+                  for _ in range(2))
+        work = 4 * (2 * b * s * h * 64 + b * s * h + h + 2 * b * s * g * 64)
+        worst = max(worst, _check_recurrence(
+            "ssd", dev, label, sk.ssd, ops._ssd_plain, ops.ssd_forward, seq,
+            (x, dt, a, bb, cc), 128, work, 5 * b * s * h * 64 * 64, report))
+    return worst
+
+
 # ------------------------------------------------------------ main path
 
 def greedy_loop(params, cfg, prompt, new_tokens, device):
@@ -434,46 +551,69 @@ def profile_main_path(engine, reqs) -> None:
             f"{ncalls:7d}x  {Path(path).name}:{line} {func}")
 
 
-def train_phase(cfg, dense, steps: int):
-    """Phase 5: ``launch.train.run`` at full width from ``dense`` (the
-    teacher) on the launcher's default source (8 x 129 tokens a batch)."""
+def train_phase(cfg, dense, steps: int, kernels):
+    """``launch.train.run`` at full width from ``dense`` (the teacher) on
+    the launcher's default source (8 x 129 tokens a batch). ``kernels``:
+    the kernel modules of the path, whose launch counts are set to 0 just
+    before and read just after; each must have launched. Returns (the run,
+    launches by kernel, median seconds per step)."""
     from repro_torch.data import make_source
-    from repro_torch.kernels import lowrank_matmul
     from repro_torch.launch import train
     source = make_source(cfg.vocab_size, 128, 8, seed=0)
-    lowrank_matmul.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
     t0 = time.perf_counter()
     res = train.run(cfg, dense, source, steps=steps, lr=1e-3, seed=0,
                     log=lambda msg: log(f"#   {msg}"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = lowrank_matmul.launches
+    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
     if not all(math.isfinite(x) for x in res.losses) or len(res.losses) \
             != steps:
-        fail(f"training losses not finite: {res.losses}")
+        fail(f"{cfg.name}: training losses not finite: {res.losses}")
     if not all(math.isfinite(x) for x in res.eval_before + res.eval_after):
-        fail("elastic eval CE not finite")
-    if launches <= 0:
-        fail("lowrank_matmul never launched on the training path")
+        fail(f"{cfg.name}: elastic eval CE not finite")
+    if min(launches.values()) <= 0:
+        fail(f"{cfg.name}: a kernel of the training path never launched: "
+             f"{launches}")
     tokens = 8 * 128
     med = statistics.median(res.step_seconds[1:] or res.step_seconds)
     su = res.setup_seconds
-    log(f"# train: gpt2-small full width, {steps} steps of flexrank_kd "
-        f"(batch 8 x 128 = {tokens} tokens, AdamW lr 1e-3), wall "
-        f"{wall:.2f} s; setup: calibrate {su['calibrate']:.2f} s, "
-        f"decompose {su['decompose']:.2f} s (DataSVD on the card), DP "
-        f"{su['dp']:.2f} s ({res.table.table.shape[0]} rows)")
+    log(f"# train: {cfg.name} full width, {cfg.num_layers} layers, {steps} "
+        f"steps of flexrank_kd (batch 8 x 128 = {tokens} tokens, AdamW lr "
+        f"1e-3), wall {wall:.2f} s; setup: calibrate {su['calibrate']:.2f} "
+        f"s, decompose {su['decompose']:.2f} s (DataSVD on the card), DP "
+        f"{su['dp']:.2f} s ({res.table.table.shape[0]} rows x "
+        f"{res.table.table.shape[1]} groups)")
     log(f"# train: step ms {[round(x * 1e3, 1) for x in res.step_seconds]}")
     log(f"# train: median {med * 1e3:.2f} ms/step after the first, "
         f"{tokens / med:.0f} training tokens/s; first step "
-        f"{res.step_seconds[0] * 1e3:.1f} ms")
+        f"{res.step_seconds[0] * 1e3:.1f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(f"# train: losses {[round(x, 5) for x in res.losses]}")
     log(f"# train: budget rows {res.budget_rows}")
     log(f"# train: CE per row before {[round(x, 4) for x in res.eval_before]}"
         f" after {[round(x, 4) for x in res.eval_after]}")
-    log(f"# train: lowrank_matmul launches {launches} "
-        f"({launches // max(steps, 1)} per step incl. eval)")
+    log(f"# train: launches {json.dumps(launches)} (8 calibration "
+        f"forwards, {steps} steps, {2 * res.table.table.shape[0]} eval "
+        "forwards)")
     return res, launches, med
+
+
+def cut_depth(tree, cfg, small):
+    """The first layers of every segment of ``tree`` (params of ``cfg``)
+    that ``small`` keeps: ``count`` of a segment, and ``mamba_per_unit``
+    of a zamba unit's mamba stack."""
+    from repro_torch.models import common as cm
+    segs = []
+    for seg, keep, p in zip(cfg.segments, small.segments, tree["segments"]):
+        p = cm.tree_map(lambda a: a[:keep.count], p)
+        if seg.kind == "zamba_unit":
+            p["mambas"] = cm.tree_map(lambda a: a[:, :keep.mamba_per_unit],
+                                      p["mambas"])
+        segs.append(p)
+    return dict(tree, segments=segs)
 
 
 def profile_train(cfg, res, dense, steps: int = 3) -> None:
@@ -512,14 +652,14 @@ def profile_train(cfg, res, dense, steps: int = 3) -> None:
         log(f"#   {dev_us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
 
 
-def cross_train_phase(cfg, res, dense, dev):
-    """Phase 6: one consolidation step's loss and gradients from the trained
+def cross_train_phase(cfg, trained, table, infos, dense, dev):
+    """One consolidation step's loss and gradients from the ``trained``
     factors at budget row 0, on the card and on the CPU."""
     from repro_torch import threefry
     from repro_torch.core import flexrank as FR
     from repro_torch.data import make_source
     from repro_torch.models import common as cm
-    table_rows = FR.table_host(res.table)
+    table_rows = FR.table_host(table)
     seed = next(i for i in range(1000) if FR.budget_draw(
         threefry.prng_key(i), table_rows.shape[0]) == 0)
     tokens = make_source(cfg.vocab_size, 32, 2, seed=1).batch_at(0)["tokens"]
@@ -527,16 +667,16 @@ def cross_train_phase(cfg, res, dense, dev):
     for device in (dev, torch.device("cpu")):
         params = cm.tree_map(
             lambda t: t.detach().to(device).clone().requires_grad_(True),
-            res.params)
+            trained)
         teacher = cm.tree_map(lambda t: t.to(device), dense)
-        loss_fn = FR.make_consolidation_loss(cfg, res.infos, table_rows,
-                                             teacher)
+        loss_fn = FR.make_consolidation_loss(cfg, infos, table_rows, teacher)
         t0 = time.perf_counter()
         loss, metrics = loss_fn(
             params, {"tokens": torch.as_tensor(tokens, device=device)},
             threefry.prng_key(seed))
         loss.backward()
-        grads = [(name, p.grad.cpu()) for name, p in cm.tree_items(params)]
+        grads = [(name, torch.zeros(p.shape) if p.grad is None
+                  else p.grad.cpu()) for name, p in cm.tree_items(params)]
         out.append((float(loss.detach()), metrics["budget_k"], grads,
                     time.perf_counter() - t0))
     (l_gpu, k_gpu, g_gpu, t_gpu), (l_cpu, k_cpu, g_cpu, t_cpu) = out
@@ -548,14 +688,58 @@ def cross_train_phase(cfg, res, dense, dev):
         e = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
         if e > worst:
             worst_name, worst = name, e
-    log(f"# cross-train: row 0, loss card {l_gpu:.7f} CPU {l_cpu:.7f} (rel "
+    log(f"# cross-train: {cfg.name} {cfg.num_layers} layers, row 0, loss "
+        f"card {l_gpu:.7f} CPU {l_cpu:.7f} (rel "
         f"{loss_err:.2e}), {len(g_gpu)} gradient leaves, worst {worst:.2e} "
         f"of its max at {worst_name}; step {t_gpu:.2f} s card, {t_cpu:.2f} s"
         " CPU")
     if not loss_err < TOL_TRAIN_LOSS:
-        fail(f"training loss card vs CPU: rel {loss_err:.3e}")
+        fail(f"{cfg.name}: training loss card vs CPU: rel {loss_err:.3e}")
     if not worst < TOL_TRAIN_GRAD:
-        fail(f"gradient {worst_name} card vs CPU: {worst:.3e} of its max")
+        fail(f"{cfg.name}: gradient {worst_name} card vs CPU: {worst:.3e} "
+             "of its max")
+
+
+def recurrent_phase(name, layers, keep, kernels, dev, profiling):
+    """Phases 7 and 8: ``train_phase`` on ``name`` at full width cut to
+    the segments ``layers`` (5 steps), then the card-vs-CPU step on the
+    trained factors cut to the segments ``keep``. Returns (launches by
+    kernel, median seconds per step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import flexrank as FR
+    from repro_torch.launch.train import dense_init
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    full = get_config(name)
+    cfg = dataclasses.replace(full, segments=layers,
+                              num_layers=_layer_count(layers))
+    for c in (full, cfg):
+        # float32 training state: the teacher, and the student with its
+        # gradients and two AdamW moments
+        dense_n = cm.param_count(tfm.model_spec(c))
+        fact_n = cm.param_count(FR.factorized_spec(c))
+        log(f"# {name}: {c.num_layers} layers: {dense_n / 1e9:.3f} B dense, "
+            f"{fact_n / 1e9:.3f} B factorized parameters, training state "
+            f"{4 * (dense_n + 4 * fact_n) / 1e9:.1f} GB")
+    t0 = time.perf_counter()
+    dense = dense_init(cfg, 0, dev)
+    torch.cuda.synchronize()
+    log(f"# {name}: dense init {time.perf_counter() - t0:.2f} s at d "
+        f"{cfg.d_model}, {cfg.num_layers} of {full.num_layers} layers")
+    res, launches, med = train_phase(cfg, dense, 5, kernels)
+    if profiling:
+        profile_train(cfg, res, dense)
+    small = dataclasses.replace(cfg, segments=keep,
+                                num_layers=_layer_count(keep))
+    cross_train_phase(small, cut_depth(res.params, cfg, small), res.table,
+                      FR.group_infos(small), cut_depth(dense, cfg, small),
+                      dev)
+    return launches, med
+
+
+def _layer_count(segments) -> int:
+    return sum(s.count * (s.mamba_per_unit + 1 if s.kind == "zamba_unit"
+                          else 1) for s in segments)
 
 
 def main() -> int:
@@ -568,9 +752,9 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
+    from repro_torch.configs import Segment, get_config
     from repro_torch.kernels import build, gar_matmul, lowrank_matmul, \
-        paged_attention, sampling
+        paged_attention, sampling, ssd, wkv6
     from repro_torch.launch.serve import serving_state
     from repro_torch.launch.train import dense_init
     from repro_torch.models import common as cm
@@ -680,7 +864,22 @@ def main() -> int:
                          rank))
     lr_cases.append(("ragged T=70 n=300 r=257 m=130 rank=129", 70,
                      *rand_lowrank(300, 130, 257), 129))
+    # rwkv6-3b's channel/k at full rank (two rank passes) and a ragged
+    # three-pass case
+    lr_cases.append(("rwkv6 channel/k T=1024 n=2560 r=2560 rank=2560 "
+                     "m=8960", 1024, *rand_lowrank(2560, 8960, 2560), None))
+    lr_cases.append(("ragged T=45 n=3584 r=3584 m=77 rank=3001", 45,
+                     *rand_lowrank(3584, 77, 3584), 3001))
     lr_err = check_lowrank(dev, lr_cases, rng, report)
+    # rwkv6-3b's and zamba2-7b's training shapes (8 x 128 tokens), then
+    # ragged ones
+    wkv_err = check_wkv6(dev, [("B=8 S=128 H=40 N=64", 8, 128, 40),
+                               ("ragged B=3 S=70 H=5", 3, 70, 5),
+                               ("ragged B=1 S=1 H=1", 1, 1, 1)], rng, report)
+    ssd_err = check_ssd(dev, [("B=8 S=128 H=112 G=1 P=N=64", 8, 128, 112, 1),
+                              ("ragged B=3 S=70 H=5 G=1", 3, 70, 5, 1),
+                              ("ragged B=1 S=33 H=6 G=2", 1, 33, 6, 2)],
+                        rng, report)
     for e in report:
         lib = ("-" if e["library_ms"] is None
                else f"{e['library_ms']:.4f}")
@@ -754,11 +953,30 @@ def main() -> int:
                      "the CPU")
 
     # 5. training path, 6. one training step card vs CPU
+    profiling = "--profile" in sys.argv[1:]
     del engine, deployed, params_fact
-    res, counts["lowrank_matmul"], _ = train_phase(cfg, dense, steps=20)
-    if "--profile" in sys.argv[1:]:
+    res, trained, _ = train_phase(cfg, dense, 20, (lowrank_matmul,))
+    counts.update(trained)
+    if profiling:
         profile_train(cfg, res, dense)
-    cross_train_phase(cfg, res, dense, dev)
+    cross_train_phase(cfg, res.params, res.table, res.infos, dense, dev)
+    del res, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. rwkv6-3b, 8. zamba2-7b: full width, cut in depth
+    rwkv_counts, _ = recurrent_phase(
+        "rwkv6-3b", (Segment("rwkv", 8),), (Segment("rwkv", 2),),
+        (wkv6, lowrank_matmul), dev, profiling)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zamba_counts, _ = recurrent_phase(
+        "zamba2-7b", (Segment("zamba_unit", 1, mamba_per_unit=5),
+                      Segment("mamba", 1)),
+        (Segment("zamba_unit", 1, mamba_per_unit=1), Segment("mamba", 1)),
+        (ssd, lowrank_matmul), dev, profiling)
+    counts["wkv6"] = rwkv_counts["wkv6"]
+    counts["ssd"] = zamba_counts["ssd"]
 
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {
@@ -774,11 +992,16 @@ def main() -> int:
         "topk_mask_sample": ("src/repro_torch/kernels/csrc/sampling.cu",
                              "src/repro/kernels/sampling.py:110", samp_err,
                              "S=8"),
+        "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                 "src/repro/kernels/rwkv6_wkv.py:57", wkv_err, "B=8"),
+        "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+                "src/repro/kernels/mamba2_ssd.py:53", ssd_err, "B=8"),
     }
     module_of = {"gar_matmul": "gar_matmul",
                  "lowrank_matmul": "lowrank_matmul",
                  "paged_prefill_attention": "paged_attention",
-                 "topk_mask_sample": "sampling"}
+                 "topk_mask_sample": "sampling", "wkv6": "wkv6",
+                 "ssd": "ssd"}
     line = []
     for kname, (src, rep, err, key) in replaces.items():
         e = next(x for x in report

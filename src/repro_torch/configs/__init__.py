@@ -2,10 +2,12 @@
 from typing import List
 
 from repro_torch.configs.base import (FlexRankConfig, ModelConfig, Segment)
-from repro_torch.configs import gpt2_small
+from repro_torch.configs import gpt2_small, rwkv6_3b, zamba2_7b
 
 _MODULES = {
     "gpt2-small": gpt2_small,
+    "rwkv6-3b": rwkv6_3b,
+    "zamba2-7b": zamba2_7b,
 }
 
 

@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("gar_matmul", "lowrank_matmul", "paged_attention", "sampling")
+SOURCES = ("gar_matmul", "lowrank_matmul", "paged_attention", "sampling",
+           "ssd", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -42,7 +42,11 @@
 // rows keep the shared memory at kr = 768 to 111 KB, so two blocks fit on
 // an SM.
 // rank = 0 writes zeros. T, n, r, m and kr need not be multiples of
-// anything: every load and store is masked.
+// anything: every load and store is masked. The z tile takes 128 bytes a
+// kept column, so a block holds at most some 1700 of them; the wrapper
+// runs a larger kr (rwkv6-3b's 2560, zamba2-7b's 3584) in passes over
+// column ranges of v and u (pointers offset, row stride r), each a launch
+// that adds its product into y (`accumulate`).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -103,6 +107,10 @@ __device__ __forceinline__ void fma_step(float (&acc)[TPT][NJ],
   }
 }
 
+// ACC: add the product into y (a rank pass after the first) instead of
+// writing it; a template argument, so that the writing kernel stays free
+// of the read of y
+template <bool ACC>
 __global__ void __launch_bounds__(NT)
 lowrank_matmul_kernel(const float* __restrict__ x, const float* __restrict__ v,
                       const float* __restrict__ u, float* __restrict__ y,
@@ -234,7 +242,10 @@ lowrank_matmul_kernel(const float* __restrict__ x, const float* __restrict__ v,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int c = c0 + tx + 32 * j;
-        if (c < j_hi) y[(size_t)(t0 + tt) * m + c] = acc[i][j];
+        if (c < j_hi) {
+          float* out = y + (size_t)(t0 + tt) * m + c;
+          *out = ACC ? *out + acc[i][j] : acc[i][j];
+        }
       }
     }
   }
@@ -246,12 +257,14 @@ extern "C" int lowrank_matmul_smem_bytes(int kr) {
 
 extern "C" int lowrank_matmul_f32(const float* x, const float* v,
                                   const float* u, float* y, int t, int n,
-                                  int r, int m, int kr, void* stream) {
+                                  int r, int m, int kr, int accumulate,
+                                  void* stream) {
   const int smem = lowrank_matmul_smem_bytes(kr);
+  auto kernel = accumulate ? lowrank_matmul_kernel<true>
+                           : lowrank_matmul_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        lowrank_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
@@ -266,8 +279,8 @@ extern "C" int lowrank_matmul_f32(const float* x, const float* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, lowrank_matmul_kernel, x, v, u, y,
-                                     t, n, r, m, kr);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, v, u, y, t, n, r, m,
+                                     kr);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,7 @@ def _lib():
     """The built library with its C signatures declared, once."""
     lib = build.library("lowrank_matmul")
     lib.lowrank_matmul_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _P]
+                                       _I, _P]
     lib.lowrank_matmul_f32.restype = _I
     lib.lowrank_matmul_smem_bytes.argtypes = [_I]
     lib.lowrank_matmul_smem_bytes.restype = _I
@@ -49,7 +49,9 @@ def kept_rank(r: int, rank: Optional[int]) -> int:
 def lowrank_matmul(x: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
                    rank: Optional[int] = None) -> torch.Tensor:
     """x (T, n), v (n, r), u (m, r) float32, contiguous on one CUDA device;
-    ``rank`` a Python int (``None`` = r). Returns y (T, m)."""
+    ``rank`` a Python int (``None`` = r). Returns y (T, m). One launch, or
+    one per rank pass where the kept rank exceeds a block's shared
+    memory."""
     global launches
     tensors = (x, v, u)
     if not all(t.is_cuda for t in tensors):
@@ -70,16 +72,36 @@ def lowrank_matmul(x: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
     if not all(tt.is_contiguous() for tt in tensors):
         raise ValueError("lowrank_matmul takes contiguous tensors")
     kr = kept_rank(r, rank)
-    lib = _lib()
-    if lib.lowrank_matmul_smem_bytes(kr) > SMEM_LIMIT:
-        raise ValueError(f"lowrank_matmul: rank {kr} needs more shared "
-                         "memory than a block has")
     y = torch.empty((t, m), dtype=x.dtype, device=x.device)
     if t == 0 or m == 0:
         return y
-    rc = lib.lowrank_matmul_f32(x.data_ptr(), v.data_ptr(), u.data_ptr(),
-                                y.data_ptr(), t, n, r, m, kr,
-                                build.stream_ptr(x.device))
-    build.check(rc, "lowrank_matmul")
-    launches += 1
+    launches += launch(_lib(), x, v, u, y, kr)
     return y
+
+
+def rank_passes(lib, kr: int):
+    """The column ranges ``[j0, j1)`` of the kept rank that one launch each
+    computes: as few, and as even, as the shared memory of a block allows
+    (one range up to some 1700 columns)."""
+    if kr == 0:
+        return [(0, 0)]
+    passes = 1
+    while lib.lowrank_matmul_smem_bytes(-(-kr // passes)) > SMEM_LIMIT:
+        passes += 1
+    size = -(-kr // passes)
+    return [(j, min(j + size, kr)) for j in range(0, kr, size)]
+
+
+def launch(lib, x, v, u, y, kr: int) -> int:
+    """Launch ``lib``'s kernel over the rank passes of ``kr`` into ``y``
+    (the first pass writes, the others add). Returns the launches."""
+    t, n = x.shape
+    r, m = v.shape[1], u.shape[0]
+    passes = rank_passes(lib, kr)
+    for i, (j0, j1) in enumerate(passes):
+        rc = lib.lowrank_matmul_f32(
+            x.data_ptr(), v.data_ptr() + 4 * j0, u.data_ptr() + 4 * j0,
+            y.data_ptr(), t, n, r, m, j1 - j0, int(i > 0),
+            build.stream_ptr(x.device))
+        build.check(rc, "lowrank_matmul")
+    return len(passes)

@@ -16,6 +16,8 @@ from repro_torch.kernels import gar_matmul as _gar
 from repro_torch.kernels import lowrank_matmul as _lr
 from repro_torch.kernels import paged_attention as _attn
 from repro_torch.kernels import sampling as _samp
+from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels import wkv6 as _wkv
 
 
 def gar_forward(x: torch.Tensor, v_tilde: torch.Tensor, u_hat: torch.Tensor,
@@ -82,6 +84,83 @@ def lowrank_forward(x: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
     y = _LowRank.apply(x.reshape(-1, x.shape[-1]), v.to(x.dtype),
                        u.to(x.dtype), rank)
     return y.reshape(*lead, -1)
+
+
+def _pad_steps(t: torch.Tensor, chunk: int, value: float = 0.0):
+    """Pad axis 1 (the steps) of ``t`` up to a multiple of ``chunk``."""
+    pad = (-t.shape[1]) % chunk if t.shape[1] > chunk else 0
+    if pad == 0:
+        return t
+    width = [0, 0] * (t.dim() - 2) + [0, pad]
+    return torch.nn.functional.pad(t, width, value=value)
+
+
+def _wkv_plain(r, k, v, w, u, chunk):
+    """``models.rwkv.wkv_chunked`` on any S: the steps are padded to a chunk
+    multiple with ``w = 1`` and zero r/k/v (no-op steps at the end), as the
+    reference's ``ops.wkv6_forward`` pads for its kernel."""
+    from repro_torch.models.rwkv import wkv_chunked   # models import ops
+    s = r.shape[1]
+    y, _ = wkv_chunked(*(_pad_steps(t, chunk) for t in (r, k, v)),
+                       _pad_steps(w, chunk, 1.0), u, chunk=chunk)
+    return y[:, :s]
+
+
+def _ssd_plain(x, dt, a, b, c, chunk):
+    """``models.ssm.ssd_chunked`` on any S: zero-padded steps at the end
+    (``dt = 0``: no decay and no input), as the reference's
+    ``ops.ssd_forward`` pads for its kernel."""
+    from repro_torch.models.ssm import ssd_chunked     # models import ops
+    s = x.shape[1]
+    y, _ = ssd_chunked(*(_pad_steps(t, chunk) for t in (x, dt)), a,
+                       *(_pad_steps(t, chunk) for t in (b, c)), chunk=chunk)
+    return y[:, :s]
+
+
+class _Recurrence(torch.autograd.Function):
+    """A linear recurrence from a zero state whose forward is a CUDA kernel
+    on CUDA tensors and the chunked plain version on CPU tensors, and whose
+    backward recomputes the chunked plain version under autograd and
+    backpropagates through it: the reference has no backward kernel and
+    takes ``jax.grad`` of its chunked form."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, chunk, *args):
+        ctx.plain, ctx.chunk = plain, chunk
+        ctx.save_for_backward(*args)
+        if args[0].is_cuda:
+            return kernel(*(t.contiguous() for t in args))
+        return plain(*args, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        args = [t.detach().requires_grad_(need) for t, need in
+                zip(ctx.saved_tensors, ctx.needs_input_grad[3:])]
+        wanted = [t for t in args if t.requires_grad]
+        with torch.enable_grad():
+            y = ctx.plain(*args, ctx.chunk)
+            grads = iter(torch.autograd.grad(y, wanted, dy))
+        return (None, None, None, *(next(grads) if t.requires_grad else None
+                                    for t in args))
+
+
+def wkv6_forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, *,
+                 chunk: int = 64) -> torch.Tensor:
+    """RWKV6 WKV recurrence from a zero state. r/k/v/w: (B, S, H, N), w the
+    decays in (0, 1); u: (H, N). Returns y (B, S, H, N). ``chunk`` is the
+    plain version's chunk length. Differentiable in every input."""
+    return _Recurrence.apply(_wkv.wkv6, _wkv_plain, chunk, r, k, v, w, u)
+
+
+def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, *,
+                chunk: int = 128) -> torch.Tensor:
+    """Mamba2 SSD scan from a zero state, without the skip term. x:
+    (B, S, H, P); dt: (B, S, H) step sizes; a: (H,) negative decay rates;
+    b/c: (B, S, G, N) with G dividing H. Returns y (B, S, H, P). ``chunk``
+    is the plain version's chunk length. Differentiable in every input."""
+    return _Recurrence.apply(_ssd.ssd, _ssd_plain, chunk, x, dt, a, b, c)
 
 
 def paged_prefill_attention_forward(q, k_pool, v_pool, block_tables,

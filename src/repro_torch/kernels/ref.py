@@ -3,9 +3,9 @@
 Each function repeats the arithmetic of its counterpart in the JAX
 package's ``kernels/ref.py``: q pre-scaled by ``1/sqrt(d)`` before the dot,
 float32 logits, a ``-1e30`` mask, the two-level blocked CDF (``block=1024``)
-clamped to ``V-1``, and first-occurrence argmax. The CPU tests hold them
-against that module; ``chip_smoke.py`` holds each CUDA kernel against them
-on the card.
+clamped to ``V-1``, first-occurrence argmax, and the sequential WKV6 and
+SSD recurrences. The CPU tests hold them against that module;
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
@@ -33,6 +33,39 @@ def lowrank_matmul_ref(x: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
         mask = (torch.arange(z.shape[-1], device=z.device) < rank).to(z.dtype)
         z = z * mask
     return z @ u.T
+
+
+def wkv6_ref(r, k, v, w, u):
+    """Sequential WKV6 recurrence from a zero state. r/k/v/w: (BH, S, N);
+    u: (BH, N). ``y_t = r_t^T (S + u k_t v_t^T)``, ``S <- diag(w_t) S +
+    k_t v_t^T``, S (N, N) float32."""
+    bh, s, n = r.shape
+    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    state = torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(s):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        ys.append(torch.einsum("bn,bnm->bm", r[:, t],
+                               state + u[:, :, None] * kv))
+        state = state * w[:, t, :, None] + kv
+    return torch.stack(ys, dim=1).reshape(bh, s, n)
+
+
+def ssd_ref(x, dt, a, b, c):
+    """Sequential Mamba2 SSD recurrence from a zero state. x: (BH, S, P);
+    dt: (BH, S); a: (BH,); b/c: (BH, S, N). ``S <- exp(dt_t a) S + b_t
+    (x_t dt_t)^T``, ``y_t = c_t S``, S (N, P) float32."""
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    x, dt, a, b, c = (t.float() for t in (x, dt, a, b, c))
+    state = torch.zeros((bh, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * a)
+        state = state * decay[:, None, None] + torch.einsum(
+            "bn,bp->bnp", b[:, t], x[:, t] * dt[:, t, None])
+        ys.append(torch.einsum("bn,bnp->bp", c[:, t], state))
+    return torch.stack(ys, dim=1).reshape(bh, s, p)
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_tables, context_lens, *,

@@ -99,7 +99,10 @@ def train_step(params, opt_state: adamw.AdamWState, loss_fn: Callable,
     ``lr``."""
     loss, metrics = loss_fn(params, batch, rng)
     loss.backward()
-    grads = cm.tree_map(lambda p: p.grad, params)
+    # a leaf the loss does not reach (zamba2's per-unit ``ln_attn``: the
+    # shared block has its own norm) has a zero gradient, as under jax.grad
+    grads = cm.tree_map(lambda p: torch.zeros_like(p) if p.grad is None
+                        else p.grad, params)
     params, opt_state, om = adamw.apply_updates(params, grads, opt_state,
                                                 opt_cfg)
     for p in cm.tree_leaves(params):

@@ -117,14 +117,20 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                use_rope: bool = True) -> Tuple[torch.Tensor, None]:
     """Self-attention with no cache (train/prefill): project, attend over
     the sequence itself, project out. x: (B, S, d). Returns (y, None).
-    The decode cache, cross-attention and ``static_kv`` branches of the
-    reference raise until the contiguous decode and the other families are
-    ported (ROADMAP A.10)."""
-    if cache is not None or kv_source is not None or static_kv is not None:
+    The decode cache branch of the reference raises until the contiguous
+    decode is ported (ROADMAP A.6, with A.12 for zamba2's shared block);
+    the cross-attention and ``static_kv`` branches until the audio and
+    vision families are (ROADMAP A.13, A.14)."""
+    if cache is not None:
         raise NotImplementedError(
-            "attn_apply ports the cache-free self-attention branch only; "
-            "the decode cache, cross-attention and static_kv wait for "
-            "ROADMAP A.10")
+            "attn_apply with a decode cache (the contiguous prefill/decode "
+            "path) is not ported yet: ROADMAP A.6, and A.12 for zamba2's "
+            "shared attention block")
+    if kv_source is not None or static_kv is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_source/static_kv) is not ported yet: "
+            "ROADMAP A.13 (seamless-m4t-medium), A.14 "
+            "(llama-3.2-vision-11b)")
     r = ranks or {}
     q, k, v = project_qkv(p, x, cfg, ranks=r, positions=positions,
                           rope=use_rope)

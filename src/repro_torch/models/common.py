@@ -176,6 +176,16 @@ def tree_set(tree: PyTree, path: str, value) -> None:
         cur[last] = value
 
 
+def rget(ranks, *path):
+    """Nested lookup into a ranks tree; None when absent (a dense leaf)."""
+    cur = ranks
+    for k in path:
+        if not isinstance(cur, dict) or k not in cur:
+            return None
+        cur = cur[k]
+    return None if isinstance(cur, dict) else cur
+
+
 # ---------------------------------------------------------------------------
 # activation taps (DataSVD moment collection, core/flexrank.py)
 # ---------------------------------------------------------------------------

@@ -5,12 +5,15 @@ blocks with stacked parameters (a leading layers axis). The JAX package
 scans a segment with ``lax.scan`` and unrolls it into a tap-scoped Python
 loop only for calibration; here a Python loop always walks its layers,
 each under ``tap_scope(f"@{l}")``, so the tap keys are the reference's.
-Only self-attention stacks ('attn'/'attn_dense' segments with dense FFNs)
-are ported; other segment kinds and MoE FFNs raise.
+Ported segment kinds: self-attention stacks with dense FFNs
+('attn'/'attn_dense'), 'rwkv', 'mamba', and 'zamba_unit' (a stack of
+mamba blocks, then the model's one *shared* attention block, then the
+unit's FFN); the other kinds, MoE FFNs and MLA raise, naming the ROADMAP
+item of their family.
 
 Ranks trees mirror the parameters (``{'segments': [{'attn': {'q': r,
-...}, 'mlp': {...}}, ...]}``) with one Python int per factorized group,
-shared by the group's layers.
+...}, 'mlp': {...}}, ...], 'shared_attn': {...}}``) with one Python int
+per factorized group, shared by the group's layers.
 
 Public API:
   model_spec(cfg)                                 -> ParamSpec tree
@@ -26,6 +29,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, Segment
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamSpec
 
 GLOBAL_WINDOW = 1 << 30
@@ -40,12 +45,54 @@ def _attn_block_spec(cfg: ModelConfig) -> Dict:
     }
 
 
-def segment_spec(cfg: ModelConfig, seg: Segment) -> Dict:
-    if seg.kind == "attn" and cfg.moe is None and cfg.mla is None:
-        return cm.stack_spec(_attn_block_spec(cfg), seg.count)
+def _mamba_block_spec(cfg: ModelConfig) -> Dict:
+    return {
+        "ln": ParamSpec((cfg.d_model,), (None,), "zeros"),
+        "mamba": ssm_mod.mamba_spec(cfg),
+    }
+
+
+# the families whose segment kinds are not ported, and the ROADMAP item of
+# each
+_UNPORTED = {
+    "moe": "MoE FFNs (deepseek-moe-16b, llama4-scout-17b-a16e): ROADMAP A.3",
+    "mla": "MLA attention (minicpm3-4b): ROADMAP A.15",
+    "encoder": "the audio encoder-decoder family (seamless-m4t-medium): "
+               "ROADMAP A.13",
+    "decoder": "the audio encoder-decoder family (seamless-m4t-medium): "
+               "ROADMAP A.13",
+    "vision_unit": "the vision family (llama-3.2-vision-11b): ROADMAP A.14",
+}
+
+
+def _check_ported(cfg: ModelConfig, seg: Segment) -> None:
+    """Raise for a segment kind, MoE FFN or MLA block not ported yet,
+    naming its family's ROADMAP item."""
+    what = ("mla" if cfg.mla is not None
+            else "moe" if cfg.moe is not None and seg.kind == "attn"
+            else seg.kind)
+    if what in ("attn", "attn_dense", "rwkv", "mamba", "zamba_unit"):
+        return
     raise NotImplementedError(
-        f"segment kind {seg.kind!r} (moe={cfg.moe is not None}, "
-        f"mla={cfg.mla is not None}) is not ported yet (ROADMAP queue A)")
+        f"segment kind {seg.kind!r} of {cfg.name} is not ported yet: "
+        + _UNPORTED.get(what, "unknown segment kind"))
+
+
+def segment_spec(cfg: ModelConfig, seg: Segment) -> Dict:
+    _check_ported(cfg, seg)
+    if seg.kind in ("attn", "attn_dense"):
+        return cm.stack_spec(_attn_block_spec(cfg), seg.count)
+    if seg.kind == "mamba":
+        return cm.stack_spec(_mamba_block_spec(cfg), seg.count)
+    if seg.kind == "rwkv":
+        return cm.stack_spec(rwkv_mod.rwkv_spec(cfg), seg.count)
+    unit = {                                            # zamba_unit
+        "mambas": cm.stack_spec(_mamba_block_spec(cfg), seg.mamba_per_unit),
+        "ln_attn": ParamSpec((cfg.d_model,), (None,), "zeros"),
+        "ln_mlp": ParamSpec((cfg.d_model,), (None,), "zeros"),
+        "mlp": attn.ffn_spec(cfg),
+    }
+    return cm.stack_spec(unit, seg.count)
 
 
 def model_spec(cfg: ModelConfig) -> Dict:
@@ -57,8 +104,17 @@ def model_spec(cfg: ModelConfig) -> Dict:
     if not cfg.tie_embeddings:
         spec["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.vocab_size),
                                           (cm.EMBED, cm.VOCAB))}
+    if any(s.kind == "zamba_unit" for s in cfg.segments):
+        # zamba's single *shared* full-attention block (weights reused by
+        # every unit)
+        spec["shared_attn"] = {
+            "ln_attn": ParamSpec((cfg.d_model,), (None,), "zeros"),
+            "attn": attn.attn_spec(cfg),
+        }
     if cfg.frontend_dim:
-        raise NotImplementedError("frontend projections are not ported yet")
+        raise NotImplementedError(
+            f"the frontend projection of {cfg.name} is not ported yet "
+            "(ROADMAP A.13 audio, A.14 vision)")
     return spec
 
 
@@ -123,21 +179,67 @@ def _apply_attn_block(p, x, cfg, *, positions, window, ranks):
     return x + y
 
 
+def _apply_mamba_block(p, x, cfg, *, ranks):
+    h = cm.rms_norm(x, p["ln"], eps=cfg.norm_eps)
+    with cm.tap_scope("mamba"):
+        y, _ = ssm_mod.mamba_apply(p["mamba"], h, cfg,
+                                   ranks=rget_tree(ranks, "mamba"))
+    return x + y
+
+
 def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
                 cfg: ModelConfig, *, positions: torch.Tensor,
-                ranks: Optional[Dict], layer_offset: int) -> torch.Tensor:
-    """Walk one causal self-attention segment layer by layer. Returns x."""
-    if seg.kind not in ("attn", "attn_dense") or cfg.moe is not None \
-            or cfg.mla is not None:
-        raise NotImplementedError(
-            f"segment kind {seg.kind!r} (moe={cfg.moe is not None}, "
-            f"mla={cfg.mla is not None}) is not ported yet (ROADMAP A.10)")
-    windows = window_schedule(cfg, seg.count, layer_offset)
-    for l in range(seg.count):
-        with cm.tap_scope(f"@{l}"):
-            x = _apply_attn_block(_layer(params, l), x, cfg,
-                                  positions=positions, window=windows[l],
-                                  ranks=ranks)
+                ranks: Optional[Dict], layer_offset: int,
+                shared_attn_params: Optional[Dict] = None,
+                shared_attn_ranks: Optional[Dict] = None) -> torch.Tensor:
+    """Walk one segment layer by layer (no cache). Returns x.
+
+    A 'zamba_unit' runs its mamba stack under ``tap_scope("mambas")`` (tap
+    keys with two layer indices, ``segments/i/@u/mambas/@m/...``), then the
+    shared attention block under the absolute scope ``shared_attn/attn``
+    (one moment per projection, summed over every unit), then its FFN."""
+    _check_ported(cfg, seg)
+    if seg.kind in ("attn", "attn_dense"):
+        windows = window_schedule(cfg, seg.count, layer_offset)
+        for l in range(seg.count):
+            with cm.tap_scope(f"@{l}"):
+                x = _apply_attn_block(_layer(params, l), x, cfg,
+                                      positions=positions, window=windows[l],
+                                      ranks=ranks)
+        return x
+    if seg.kind == "mamba":
+        for l in range(seg.count):
+            with cm.tap_scope(f"@{l}"):
+                x = _apply_mamba_block(_layer(params, l), x, cfg,
+                                       ranks=ranks)
+        return x
+    if seg.kind == "rwkv":
+        for l in range(seg.count):
+            with cm.tap_scope(f"@{l}"):
+                x, _ = rwkv_mod.rwkv_apply(_layer(params, l), x, cfg,
+                                           ranks=ranks)
+        return x
+    mranks = rget_tree(ranks, "mambas")                 # zamba_unit
+    for u in range(seg.count):
+        p_u = _layer(params, u)
+        with cm.tap_scope(f"@{u}"):
+            with cm.tap_scope("mambas"):
+                for l in range(seg.mamba_per_unit):
+                    with cm.tap_scope(f"@{l}"):
+                        x = _apply_mamba_block(_layer(p_u["mambas"], l), x,
+                                               cfg, ranks=mranks)
+            h = cm.rms_norm(x, shared_attn_params["ln_attn"],
+                            eps=cfg.norm_eps)
+            with cm.tap_scope("shared_attn/attn", absolute=True):
+                y, _ = attn.attn_apply(
+                    shared_attn_params["attn"], h, cfg, positions=positions,
+                    window=GLOBAL_WINDOW,
+                    ranks=rget_tree(shared_attn_ranks, "attn"))
+            x = x + y
+            h = cm.rms_norm(x, p_u["ln_mlp"], eps=cfg.norm_eps)
+            with cm.tap_scope("mlp"):
+                x = x + attn.ffn_apply(p_u["mlp"], h,
+                                       ranks=rget_tree(ranks, "mlp"))
     return x
 
 
@@ -147,8 +249,9 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Train/prefill forward. tokens: (B, S). Returns (logits (B, S, V),
     aux_loss), aux a float32 zero (no MoE). No frontend."""
     if cfg.frontend_dim:
-        raise NotImplementedError("frontend inputs are not ported yet "
-                                  "(ROADMAP A.10)")
+        raise NotImplementedError(
+            f"the frontend inputs of {cfg.name} are not ported yet (ROADMAP "
+            "A.13 audio, A.14 vision)")
     x = embed_tokens(params, tokens, cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -157,7 +260,10 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         with cm.tap_scope(f"segments/{i}", absolute=True):
             x = run_segment(seg, params["segments"][i], x, cfg,
                             positions=positions,
-                            ranks=_seg_ranks(ranks, i), layer_offset=offset)
+                            ranks=_seg_ranks(ranks, i), layer_offset=offset,
+                            shared_attn_params=params.get("shared_attn"),
+                            shared_attn_ranks=rget_tree(ranks,
+                                                        "shared_attn"))
         offset += seg.count
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_logits(params, x, cfg), aux
@@ -169,9 +275,9 @@ def _run_paged_segments(params, cfg, x, caches, ranks, attn_fn):
     v_pool, ranks)`` -> (y, k_pool, v_pool) with the pools of one layer,
     updated in place. Returns (x, segment pools)."""
     if cfg.moe is not None:
-        raise NotImplementedError("MoE FFNs in the paged forward are not "
-                                  "ported yet (ROADMAP: MoE in "
-                                  "_run_paged_segments)")
+        raise NotImplementedError(
+            f"the MoE FFNs of {cfg.name} in the paged forward are not "
+            "ported yet (ROADMAP A.3)")
     windowed = bool(cfg.local_window and cfg.global_every)
     offset = 0
     for i, seg in enumerate(cfg.segments):

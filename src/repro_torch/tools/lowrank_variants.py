@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.lowrank_matmul import SMEM_LIMIT
+from repro_torch.kernels import lowrank_matmul
 
 # name -> -D tile sizes over the source's defaults (the shipped kernel:
 # 2 columns a thread, unpadded z rows); nj4pad4 is the kernel's first
@@ -72,7 +72,7 @@ def build_variants(names: List[str]) -> Dict[str, ctypes.CDLL]:
         print(f"# variant {name} {VARIANTS[name]}: {' | '.join(ptxas)}")
         lib = ctypes.CDLL(str(out))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lowrank_matmul_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.lowrank_matmul_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.lowrank_matmul_f32.restype = i
         lib.lowrank_matmul_smem_bytes.argtypes = [i]
         lib.lowrank_matmul_smem_bytes.restype = i
@@ -81,15 +81,9 @@ def build_variants(names: List[str]) -> Dict[str, ctypes.CDLL]:
 
 
 def launch(lib, x, v, u, kr: int) -> torch.Tensor:
-    t, n = x.shape
-    r, m = v.shape[1], u.shape[0]
-    if lib.lowrank_matmul_smem_bytes(kr) > SMEM_LIMIT:
-        raise ValueError(f"rank {kr} needs more shared memory than a block "
-                         "has")
-    y = torch.empty((t, m), dtype=x.dtype, device=x.device)
-    build.check(lib.lowrank_matmul_f32(
-        x.data_ptr(), v.data_ptr(), u.data_ptr(), y.data_ptr(), t, n, r, m,
-        kr, build.stream_ptr(x.device)), "lowrank variant")
+    y = torch.empty((x.shape[0], u.shape[0]), dtype=x.dtype,
+                    device=x.device)
+    lowrank_matmul.launch(lib, x, v, u, y, kr)
     return y
 
 

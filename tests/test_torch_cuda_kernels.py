@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -48,7 +48,8 @@ def test_gar_kernel_matches_plain(dev, t, n, m, r):
 LOWRANK_CASES = [(1024, 768, 3072, 768, 200), (1024, 3072, 768, 768, 768),
                  (33, 17, 29, 7, 3), (33, 17, 29, 7, 0), (33, 17, 29, 7, 7),
                  (33, 17, 29, 7, None), (70, 64, 96, 48, 31),
-                 (5, 300, 130, 257, 129)]
+                 (5, 300, 130, 257, 129), (40, 2560, 96, 2560, None),
+                 (33, 3584, 70, 3584, 3001)]   # last two: rank passes
 
 
 def _lowrank_inputs(t, n, m, r, seed):
@@ -68,7 +69,11 @@ def test_lowrank_kernel_matches_plain(dev, t, n, m, r, rank):
     x, v, u = (_t(a, dev) for a in _lowrank_inputs(t, n, m, r, t + n + r))
     before = lk.launches
     y_k = lk.lowrank_matmul(x, v, u, rank)
-    assert lk.launches == before + 1
+    kr = lk.kept_rank(r, rank)
+    passes = lk.rank_passes(lk._lib(), kr)
+    assert lk.launches == before + len(passes)
+    # a block's shared memory holds the z tile of some 1700 kept columns
+    assert len(passes) == (1 if kr <= 1700 else 2)
     y_p = ref.lowrank_matmul_ref(x.cpu(), v.cpu(), u.cpu(), rank)
     scale = float(y_p.abs().max()) + 1e-6
     assert float((y_k.cpu() - y_p).abs().max()) / scale < 2e-4
@@ -171,6 +176,83 @@ def test_sampling_kernel_matches_plain(dev, s, v):
         np.testing.assert_array_equal(t_only.cpu().numpy(), t_p.numpy())
 
 
+def _wkv_arrays(b, s, h, seed):
+    """r/k/v/u standard normal, w log-uniform over (1e-14, 1): some decays
+    fall below the kernel's clamp of 1e-12."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, s, h, 64)).astype(np.float32)
+               for _ in range(3))
+    w = (10.0 ** rng.uniform(-14, 0, (b, s, h, 64))).astype(np.float32)
+    u = rng.standard_normal((h, 64)).astype(np.float32)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("b,s,h", [(8, 128, 40), (3, 70, 5), (1, 1, 1),
+                                   (2, 33, 3)])
+def test_wkv6_kernel_matches_plain(dev, b, s, h):
+    """The kernel against the chunked plain version (chunk 64, S padded)
+    and the sequential one; 1e-4 of the output's max, the gap between the
+    chunked and sequential forms on the CPU at these decays."""
+    from repro_torch.kernels import wkv6 as wk
+    arrays = _wkv_arrays(b, s, h, b * s + h)
+    before = wk.launches
+    y_k = ops.wkv6_forward(*(_t(a, dev) for a in arrays), chunk=64).cpu()
+    assert wk.launches == before + 1
+    y_p = ops.wkv6_forward(*map(torch.as_tensor, arrays), chunk=64)
+    scale = float(y_p.abs().max()) + 1e-6
+    assert float((y_k - y_p).abs().max()) / scale < 1e-4
+    flat = [torch.as_tensor(a).transpose(1, 2).reshape(b * h, s, 64)
+            for a in arrays[:4]]
+    y_s = ref.wkv6_ref(*flat, torch.as_tensor(arrays[4]).repeat(b, 1))
+    y_s = y_s.reshape(b, h, s, 64).transpose(1, 2)
+    assert float((y_k - y_s).abs().max()) / scale < 1e-4
+
+
+def _ssd_arrays(b, s, h, g, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, 64)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = -np.exp(0.3 * rng.standard_normal(h)).astype(np.float32)
+    bb, cc = (rng.standard_normal((b, s, g, 64)).astype(np.float32)
+              for _ in range(2))
+    return x, dt, a, bb, cc
+
+
+@pytest.mark.parametrize("b,s,h,g", [(8, 128, 112, 1), (3, 70, 5, 1),
+                                     (2, 50, 6, 2), (1, 1, 1, 1)])
+def test_ssd_kernel_matches_plain(dev, b, s, h, g):
+    from repro_torch.kernels import ssd as sk
+    arrays = _ssd_arrays(b, s, h, g, b * s + h + g)
+    before = sk.launches
+    y_k = ops.ssd_forward(*(_t(a, dev) for a in arrays), chunk=128).cpu()
+    assert sk.launches == before + 1
+    y_p = ops.ssd_forward(*map(torch.as_tensor, arrays), chunk=128)
+    scale = float(y_p.abs().max()) + 1e-6
+    assert float((y_k - y_p).abs().max()) / scale < 1e-4
+
+
+def test_recurrences_backward_on_card_match_cpu(dev):
+    """Autograd through ``ops.wkv6_forward`` and ``ops.ssd_forward`` on the
+    card (kernel forward, plain recompute backward) against the CPU; decays
+    moderate enough that the chunked form's masked exponent stays finite."""
+    wkv = list(_wkv_arrays(2, 40, 3, 5))
+    wkv[3] = np.clip(wkv[3], 0.3, 1.0)
+    for fn, arrays in ((ops.wkv6_forward, wkv),
+                       (ops.ssd_forward, _ssd_arrays(2, 40, 4, 2, 6))):
+        dy = np.random.default_rng(9).standard_normal(
+            arrays[0].shape).astype(np.float32)
+        grads = []
+        for device in (dev, torch.device("cpu")):
+            ts = [torch.tensor(a, device=device, requires_grad=True)
+                  for a in arrays]
+            y = fn(*ts, chunk=16)
+            y.backward(torch.as_tensor(dy, device=device))
+            grads.append([y.detach().cpu()] + [t.grad.cpu() for t in ts])
+        for i, (a, b) in enumerate(zip(*grads)):
+            scale = float(b.abs().max()) + 1e-6
+            assert float((a - b).abs().max()) / scale < 1e-4, (fn, i)
+
+
 def test_wrappers_raise_on_cpu_mixed_devices(dev):
     x = torch.zeros(4, 8, device=dev)
     with pytest.raises(ValueError):
@@ -185,3 +267,15 @@ def test_wrappers_raise_on_cpu_mixed_devices(dev):
             torch.zeros(1, 1, dtype=torch.int32, device=dev),
             torch.zeros(1, dtype=torch.int32, device=dev),
             torch.ones(1, dtype=torch.int32, device=dev), window=4)
+    from repro_torch.kernels import ssd as sk
+    from repro_torch.kernels import wkv6 as wk
+    r = torch.zeros(1, 4, 2, 64, device=dev)
+    with pytest.raises(ValueError):
+        wk.wkv6(r, r, r, r, torch.zeros(2, 64))
+    with pytest.raises(ValueError):
+        wk.wkv6(*(torch.zeros(1, 4, 2, 32, device=dev),) * 4,
+                torch.zeros(2, 32, device=dev))
+    with pytest.raises(ValueError):
+        sk.ssd(r, torch.zeros(1, 4, 2, device=dev),
+               torch.zeros(2, device=dev),
+               *(torch.zeros(1, 4, 3, 64, device=dev),) * 2)
