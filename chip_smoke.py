@@ -7,7 +7,8 @@ Phases, each fatal on failure:
                ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
                parallel) and print the build seconds;
   2. kernels - hold each kernel against its plain PyTorch version on the
-               card, at the main paths' shapes and at ragged ones, and time
+               card, at the main paths' shapes (windowed attention and
+               GAR in rank passes among them) and at ragged ones, and time
                kernel, plain version and (where one exists) one PyTorch
                library call with CUDA events;
   3. serve   - serve gpt2-small at full width (random weights from a seed,
@@ -33,7 +34,23 @@ Phases, each fatal on failure:
                ``zamba_unit`` (5 Mamba2 layers, the shared attention block,
                the unit's FFN) and one trailing Mamba2 layer, 5 steps;
                ``ssd`` and ``lowrank_matmul`` launched; the card-vs-CPU step
-               at 2 Mamba2 layers (one in the unit, one trailing).
+               at 2 Mamba2 layers (one in the unit, one trailing);
+  9. decode  - the pure-decode path on gpt2-small: 8 prompts of 90-159
+               tokens fill a ``PagedKVCache`` through ``paged_mixed_step``,
+               then 32 greedy steps of ``paged_decode_step`` over
+               ``model_caches()`` at budget rows 0 and 6, each held against
+               the same step through ``paged_mixed_step`` with one token a
+               slot (logits within TOL_DECODE, greedy tokens identical); the
+               decode kernel launched;
+  10. gemma3 - gemma3-27b at full width cut to 6 of its 62 layers (one
+               period of the 5:1 local:global pattern): the serving
+               launcher's state, GAR at its shapes in rank passes, 8
+               requests of 1100-1500 prompt tokens (past the 1024-token
+               window) and 32 new through ``ElasticEngine(prefill_chunk=256,
+               max_batch=8, max_len=2048)`` at budgets 0.4 and 1.0; the
+               decode check of phase 9; one greedy request card vs CPU on
+               the 0.4 row cut to 2 layers; every kernel of the path
+               launched.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
@@ -41,7 +58,8 @@ non-zero, printing no result, without CUDA or without the repository.
 ``--profile`` serves the serving path's requests twice more, under
 ``torch.profiler`` (device time by kernel) and under ``cProfile`` (host
 time by function), and takes 3 more training steps under
-``torch.profiler`` for each of the three trained models.
+``torch.profiler`` for each of the three trained models, and serves
+gemma3-27b's requests twice more as it does gpt2-small's.
 """
 from __future__ import annotations
 
@@ -66,6 +84,11 @@ L2_BYTES = 50 * 2**20
 TOL_ATTN = 2e-5                # float32 attention, absolute
 TOL_GAR = 2e-4                 # GAR, relative to the output's max
 TOL_PROBS = 1e-5               # warped probs, absolute; tokens identical
+# paged_decode_step against paged_mixed_step with one token a slot, on the
+# card: relative to the logits' max (the same kernels' arithmetic on the
+# same rows; float32 sums of other launch shapes at most)
+TOL_DECODE = 1e-5
+GEMMA_DECODE_STEPS = 32        # decode-check steps on gemma3, each row
 TOL_LOWRANK = 2e-4             # low-rank linear, relative to the output's max
 # WKV6 and SSD, relative to the output's max: against the sequential
 # recurrences (the kernel's own order of operations), and against the
@@ -147,6 +170,9 @@ def check_gar(dev, shapes, rng, report):
     for label, t, v_tilde, u_hat, perm_inv in shapes:
         n, r = v_tilde.shape
         m = r + u_hat.shape[0]
+        passes = len(gk.rank_passes(gk._lib(), r))
+        if passes > 1:
+            label = f"{label} ({passes} rank passes)"
         x = torch.as_tensor(rng.standard_normal((t, n)).astype(np.float32),
                             device=dev)
         y = gk.gar_matmul(x, v_tilde, u_hat, perm_inv)
@@ -178,7 +204,7 @@ def check_gar(dev, shapes, rng, report):
         b, by = bound_ms(work, 2 * t * (n * r + (m - r) * r))
         report.append(dict(kernel="gar_matmul", shape=label, ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
-                           bound_by=by, max_abs_err=err))
+                           bound_by=by, max_abs_err=err, passes=passes))
     return worst
 
 
@@ -225,10 +251,44 @@ def check_lowrank(dev, cases, rng, report):
     return worst
 
 
+def _visible(lens, window):
+    """Per row, the first key of its window: ``max(0, ctx - window)``."""
+    return np.maximum(0, np.asarray(lens, np.int64) - (window or 1 << 30))
+
+
+def _kv_work(rows, lens, window, bs, hkv, d, hq):
+    """The distinct K/V bytes the rows' windows cover (whole blocks of
+    each table row), and the flops of their visible keys."""
+    lo, hi = {}, {}
+    for s, c, f in zip(rows, lens, _visible(lens, window)):
+        s = int(s)
+        lo[s] = min(lo.get(s, f), int(f))
+        hi[s] = max(hi.get(s, 0), int(c))
+    blocks = sum(math.ceil(hi[s] / bs) - lo[s] // bs for s in hi)
+    keys = int((np.asarray(lens, np.int64) - _visible(lens, window)).sum())
+    return blocks * bs * hkv * d * 8, 4 * hq * d * keys
+
+
+def _sdpa_operands(dev, q, kp, vp, per_row_tables, lens, window):
+    """K/V gathered per row beforehand, heads repeated for GQA, and the
+    mask of the visible keys: the library yardstick's inputs."""
+    rows, hq, d = q.shape
+    hkv = kp.shape[2]
+    mb, bs = per_row_tables.shape[1], kp.shape[1]
+    kg = kp[per_row_tables].reshape(rows, mb * bs, hkv, d).transpose(1, 2)
+    vg = vp[per_row_tables].reshape(rows, mb * bs, hkv, d).transpose(1, 2)
+    kg = kg.repeat_interleave(hq // hkv, 1).contiguous()
+    vg = vg.repeat_interleave(hq // hkv, 1).contiguous()
+    pos = torch.arange(mb * bs, device=dev)[None, :]
+    lo = torch.as_tensor(_visible(lens.cpu().numpy(), window), device=dev)
+    mask = ((pos < lens[:, None]) & (pos >= lo[:, None]))[:, None, None, :]
+    return kg, vg, mask
+
+
 def _attn_case(dev, rng, t, hq, hkv, d, bs, b, mb, decode, chunk):
     """A mixed batch like the engine's: ``decode`` tokens of distinct
     slots, one prefill chunk of ``chunk`` tokens in another slot, pads on
-    the null row. Returns the operands and the distinct K/V bytes read."""
+    the null row. Returns the operands."""
     nb = b * mb + 1
     kp = torch.as_tensor(rng.standard_normal((nb, bs, hkv, d))
                          .astype(np.float32), device=dev)
@@ -249,72 +309,130 @@ def _attn_case(dev, rng, t, hq, hkv, d, bs, b, mb, decode, chunk):
     q = torch.as_tensor(rng.standard_normal((t, hq, d)).astype(np.float32),
                         device=dev)
     ops_ = [torch.as_tensor(a, device=dev) for a in (tables, sid, lens)]
-    need = {}
-    for s, c in zip(sid, lens):
-        need[int(s)] = max(need.get(int(s), 0), int(c))
-    kv_bytes = sum(math.ceil(c / bs) for c in need.values()) * bs * hkv * d * 8
-    flops = int(4 * hq * d * lens.sum())
-    return (q, kp, vp, *ops_), kv_bytes, flops
+    return (q, kp, vp, *ops_)
+
+
+def _time_attention(name, label, kernel, plain, args, per_row_tables, rows,
+                    window, err, report):
+    """Time ``kernel`` and ``plain`` (each called as f(*args,
+    window=window)) and SDPA over K/V gathered beforehand; append the
+    report entry. ``rows`` name each query row's table row (the slot)."""
+    import torch.nn.functional as F
+    q, kp, vp = args[:3]
+    lens = args[-1]
+    kg, vg, mask = _sdpa_operands(q.device, q, kp, vp, per_row_tables, lens,
+                                  window)
+    yl = F.scaled_dot_product_attention(q[:, :, None, :], kg, vg,
+                                        attn_mask=mask)[:, :, 0]
+    # a timing yardstick only: at some shapes its float32 path runs on TF32
+    # tensor cores, so it is held to computing the same function (a
+    # gross-error guard), not to TOL_ATTN
+    lib_err = float((yl - plain(*args, window=window)).abs().max())
+    log(f"# yardstick SDPA [{name} {label}]: max abs diff {lib_err:.2e}")
+    if not lib_err < 0.1:
+        fail(f"{name} {label}: SDPA yardstick computes something else "
+             f"({lib_err:.3e})")
+    sets = [(q, kp.clone(), vp.clone(), *args[3:])
+            for _ in range(copies_for(nbytes(kp, vp)))]
+    # gathered per query row, K/V outgrow the L2 cache many times over at
+    # gemma3's shapes (8.9 GB each at T=264): one set is read cold
+    lib_sets = ([(kg, vg)] if nbytes(kg, vg) >= 4 * L2_BYTES else
+                [(kg.clone(), vg.clone())
+                 for _ in range(copies_for(nbytes(kg, vg)))])
+    ms = device_ms([lambda s=s: kernel(*s, window=window) for s in sets])
+    plain_ms = device_ms([lambda s=s: plain(*s, window=window)
+                          for s in sets])
+    lib_ms = device_ms([lambda s=s: F.scaled_dot_product_attention(
+        q[:, :, None, :], s[0], s[1], attn_mask=mask) for s in lib_sets])
+    # q read and the output written once, the distinct K/V blocks the rows'
+    # windows cover, the routing tables
+    _, bs, hkv, d = kp.shape
+    kv_bytes, flops = _kv_work(rows.cpu().numpy(), lens.cpu().numpy(),
+                               window, bs, hkv, d, q.shape[1])
+    work = 2 * nbytes(q) + kv_bytes + nbytes(*args[3:])
+    b, by = bound_ms(work, flops)
+    report.append(dict(kernel=name, shape=label, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b, bound_by=by,
+                       max_abs_err=err))
 
 
 def check_attention(dev, cases, rng, report):
-    import torch.nn.functional as F
+    """cases: (label, geometry, softcaps, windows). Every window is held
+    against the plain version and timed unless the shape is ragged."""
     from repro_torch.kernels import paged_attention as ak
     from repro_torch.kernels import ref
     worst = 0.0
-    for label, geom, softcaps in cases:
-        args, kv_bytes, flops = _attn_case(dev, rng, *geom)
+    for label, geom, softcaps, windows in cases:
+        args = _attn_case(dev, rng, *geom)
         q, kp, vp, tables, sid, lens = args
-        for softcap in softcaps:
-            y = ak.paged_prefill_attention(*args, softcap=softcap)
-            y_plain = ref.paged_prefill_attention_ref(*args, softcap=softcap)
-            torch.cuda.synchronize()
-            err = float((y - y_plain).abs().max())
-            if not err < TOL_ATTN:
-                fail(f"paged_prefill_attention {label} softcap={softcap}: "
-                     f"abs err {err:.3e}")
-            worst = max(worst, err)
-        if label.startswith("ragged"):
-            continue
-        k = copies_for(nbytes(kp, vp))
-        sets = [(q, kp.clone(), vp.clone(), tables, sid, lens)
-                for _ in range(k)]
-        # yardstick: SDPA over K/V gathered per token beforehand
-        t, hq, d = q.shape
-        hkv = kp.shape[2]
-        mb, bs = tables.shape[1], kp.shape[1]
-        per_tok = tables[sid.long()].long()
-        kg = kp[per_tok].reshape(t, mb * bs, hkv, d).transpose(1, 2)
-        vg = vp[per_tok].reshape(t, mb * bs, hkv, d).transpose(1, 2)
-        kg = kg.repeat_interleave(hq // hkv, 1).contiguous()
-        vg = vg.repeat_interleave(hq // hkv, 1).contiguous()
-        mask = (torch.arange(mb * bs, device=dev)[None, :]
-                < lens[:, None])[:, None, None, :]
-        yl = F.scaled_dot_product_attention(q[:, :, None, :], kg, vg,
-                                            attn_mask=mask)[:, :, 0]
-        # a timing yardstick only: at some shapes its float32 path runs on
-        # TF32 tensor cores, so it is held to computing the same function
-        # (a gross-error guard), not to TOL_ATTN
-        lib_err = float((yl - y_plain).abs().max())
-        log(f"# yardstick SDPA [{label}]: max abs diff {lib_err:.2e}")
-        if not lib_err < 0.1:
-            fail(f"paged_prefill_attention {label}: SDPA yardstick "
-                 f"computes something else ({lib_err:.3e})")
-        lib_sets = [(kg.clone(), vg.clone())
-                    for _ in range(copies_for(nbytes(kg, vg)))]
-        ms = device_ms([lambda s=s: ak.paged_prefill_attention(*s)
-                        for s in sets])
-        plain_ms = device_ms([lambda s=s: ref.paged_prefill_attention_ref(*s)
-                              for s in sets])
-        lib_ms = device_ms([lambda s=s: F.scaled_dot_product_attention(
-            q[:, :, None, :], s[0], s[1], attn_mask=mask) for s in lib_sets])
-        # q read and the output written once, the distinct K/V blocks the
-        # tokens' contexts cover, the routing tables
-        work = 2 * nbytes(q) + kv_bytes + nbytes(tables, sid, lens)
-        b, by = bound_ms(work, flops)
-        report.append(dict(kernel="paged_prefill_attention", shape=label,
-                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=b, bound_by=by, max_abs_err=err))
+        for window in windows:
+            wl = label if window is None else f"{label} window={window}"
+            err_w = 0.0
+            for softcap in softcaps:
+                y = ak.paged_prefill_attention(*args, softcap=softcap,
+                                               window=window)
+                y_plain = ref.paged_prefill_attention_ref(
+                    *args, softcap=softcap, window=window)
+                torch.cuda.synchronize()
+                err = float((y - y_plain).abs().max())
+                if not err < TOL_ATTN:
+                    fail(f"paged_prefill_attention {wl} softcap={softcap}: "
+                         f"abs err {err:.3e}")
+                err_w = max(err_w, err)
+            worst = max(worst, err_w)
+            if not label.startswith("ragged"):
+                _time_attention("paged_prefill_attention", wl,
+                                ak.paged_prefill_attention,
+                                ref.paged_prefill_attention_ref, args,
+                                tables[sid.long()].long(), sid, window,
+                                err_w, report)
+    return worst
+
+
+def _decode_case(dev, rng, b, hq, hkv, d, bs, mb, lo, hi):
+    """``b`` slots, each its own table row of distinct random blocks,
+    contexts uniform in [lo, hi]; block 0 is the null block."""
+    nb = b * mb + 1
+    kp, vp = (torch.as_tensor(rng.standard_normal((nb, bs, hkv, d))
+                              .astype(np.float32), device=dev)
+              for _ in range(2))
+    tables = (1 + rng.permutation(b * mb).reshape(b, mb)).astype(np.int32)
+    lens = rng.integers(lo, hi + 1, b).astype(np.int32)
+    q = torch.as_tensor(rng.standard_normal((b, hq, d)).astype(np.float32),
+                        device=dev)
+    return (q, kp, vp, *(torch.as_tensor(a, device=dev)
+                         for a in (tables, lens)))
+
+
+def check_decode(dev, cases, rng, report):
+    """cases: (label, geometry, softcaps, windows): the decode kernel held
+    against ``ref.paged_attention_ref`` for every softcap and window, and
+    timed (kernel, plain, SDPA, bound) for every window unless ragged."""
+    from repro_torch.kernels import paged_attention as ak
+    from repro_torch.kernels import ref
+    worst = 0.0
+    for label, geom, softcaps, windows in cases:
+        args = _decode_case(dev, rng, *geom)
+        tables = args[3]
+        for window in windows:
+            wl = label if window is None else f"{label} window={window}"
+            err_w = 0.0
+            for softcap in softcaps:
+                y = ak.paged_attention(*args, softcap=softcap, window=window)
+                y_plain = ref.paged_attention_ref(*args, softcap=softcap,
+                                                  window=window)
+                torch.cuda.synchronize()
+                err = float((y - y_plain).abs().max())
+                if not (err < TOL_ATTN and bool(torch.isfinite(y).all())):
+                    fail(f"paged_attention {wl} softcap={softcap}: abs err "
+                         f"{err:.3e}")
+                err_w = max(err_w, err)
+            worst = max(worst, err_w)
+            if not label.startswith("ragged"):
+                _time_attention("paged_attention", wl, ak.paged_attention,
+                                ref.paged_attention_ref, args, tables.long(),
+                                torch.arange(len(tables)), window, err_w,
+                                report)
     return worst
 
 
@@ -468,13 +586,14 @@ def check_ssd(dev, cases, rng, report):
 
 # ------------------------------------------------------------ main path
 
-def greedy_loop(params, cfg, prompt, new_tokens, device):
-    """Greedy decode of one prompt through ``paged_mixed_step`` with full
-    logits rows; returns (tokens, per-step top-2 margins)."""
+def greedy_loop(params, cfg, prompt, new_tokens, device, max_len=64):
+    """Greedy decode of one prompt through ``paged_mixed_step``, scoring
+    the last token of each feed; returns (tokens, per-step top-2
+    margins)."""
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.kv_cache import PagedKVCache
-    cache = PagedKVCache(cfg, max_batch=1, max_len=64, block_size=16,
-                         device=device)
+    cache = PagedKVCache(cfg, max_batch=1, max_len=max_len, block_size=16,
+                         prefix_cache=False, device=device)
     cache.open_slot(0)
     cache.extend_slot(0, len(prompt))
     feed = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
@@ -484,7 +603,9 @@ def greedy_loop(params, cfg, prompt, new_tokens, device):
         caches = {"slot_ids": torch.zeros_like(positions),
                   "positions": positions,
                   "block_tables": cache.device_tables(null_rows=1),
-                  "segments": cache.pools}
+                  "segments": cache.pools,
+                  "sample_ids": torch.tensor([feed.shape[1] - 1],
+                                             device=device)}
         logits, _ = tfm.paged_mixed_step(params, cfg, caches, feed)
         last = logits[0, -1].float().cpu()
         top = torch.topk(last, 2)
@@ -495,6 +616,235 @@ def greedy_loop(params, cfg, prompt, new_tokens, device):
         feed = torch.tensor([[toks[-1]]], dtype=torch.int32, device=device)
         positions = torch.tensor([n], dtype=torch.int32, device=device)
     return toks, margins
+
+
+def decode_check(cfg, rows, prompts, steps, dev, max_len):
+    """Phase 9 (and the decode part of phase 10): for each budget row
+    (``rows``: row -> deployed params), fill a ``PagedKVCache`` with
+    ``prompts`` through ``paged_mixed_step`` (one prompt a call), copy it
+    into a second cache, then take ``steps`` greedy steps on both: one
+    through ``paged_decode_step`` over ``model_caches()``, the other through
+    ``paged_mixed_step`` with one token a slot. Logits within TOL_DECODE
+    of their max and identical greedy tokens at every step. Returns
+    (decode kernel launches, worst relative difference, median ms of a
+    decode step, median ms of a mixed step)."""
+    from repro_torch.kernels import paged_attention as ak
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.kv_cache import PagedKVCache
+    b = len(prompts)
+    i32 = torch.int32
+    worst, t_dec, t_mix = 0.0, [], []
+    ak.decode_launches = 0
+    for row, params in rows.items():
+        caches = [PagedKVCache(cfg, max_batch=b, max_len=max_len,
+                               block_size=16, prefix_cache=False, device=dev)
+                  for _ in range(2)]
+        first = []
+        for slot, prompt in enumerate(prompts):
+            for c in caches:
+                c.open_slot(slot)
+                c.extend_slot(slot, len(prompt))
+            n = len(prompt)
+            feed = torch.as_tensor(prompt, dtype=i32, device=dev)[None]
+            logits, _ = tfm.paged_mixed_step(params, cfg, {
+                "slot_ids": torch.full((n,), slot, dtype=i32, device=dev),
+                "positions": torch.arange(n, dtype=i32, device=dev),
+                "block_tables": caches[0].device_tables(),
+                "segments": caches[0].pools,
+                "sample_ids": torch.tensor([n - 1], device=dev)}, feed)
+            first.append(int(torch.argmax(logits[0, -1])))
+        if not np.array_equal(caches[0].host_tables(),
+                              caches[1].host_tables()):
+            fail("decode check: the two caches allocated different blocks")
+        for p0, p1 in zip(caches[0].pools, caches[1].pools):
+            for k in "kv":
+                p1[k].copy_(p0[k])
+        tok = torch.tensor(first, dtype=i32, device=dev)
+        for step in range(steps):
+            for c in caches:
+                for slot in range(b):
+                    c.append_token(slot)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            l_dec, new = tfm.paged_decode_step(params, cfg,
+                                               caches[0].model_caches(),
+                                               tok[:, None])
+            torch.cuda.synchronize()
+            t_dec.append(time.perf_counter() - t0)
+            if not torch.equal(new["positions"],
+                               caches[0].device_positions() + 1):
+                fail("paged_decode_step: positions not advanced by one")
+            t0 = time.perf_counter()
+            l_mix, _ = tfm.paged_mixed_step(params, cfg, {
+                "slot_ids": torch.arange(b, dtype=i32, device=dev),
+                "positions": caches[1].device_positions(),
+                "block_tables": caches[1].device_tables(),
+                "segments": caches[1].pools}, tok[None])
+            torch.cuda.synchronize()
+            t_mix.append(time.perf_counter() - t0)
+            l_dec, l_mix = l_dec[:, 0], l_mix[0]
+            rel = float((l_dec - l_mix).abs().max()) / float(
+                l_mix.abs().max())
+            worst = max(worst, rel)
+            g_dec, g_mix = torch.argmax(l_dec, -1), torch.argmax(l_mix, -1)
+            if not (rel <= TOL_DECODE and torch.equal(g_dec, g_mix)
+                    and bool(torch.isfinite(l_dec).all())):
+                fail(f"{cfg.name} row {row} step {step}: decode vs mixed "
+                     f"logits rel {rel:.3e}, greedy {g_dec.tolist()} vs "
+                     f"{g_mix.tolist()}")
+            tok = g_dec.to(i32)
+    launches = ak.decode_launches
+    if launches <= 0:
+        fail(f"{cfg.name}: the decode kernel never launched")
+    med_dec = statistics.median(t_dec) * 1e3
+    med_mix = statistics.median(t_mix) * 1e3
+    log(f"# decode: {cfg.name} rows {sorted(rows)}, {b} slots (prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))}), {steps} steps "
+        f"each: paged_decode_step vs paged_mixed_step logits worst rel "
+        f"{worst:.2e}, greedy tokens identical; median step {med_dec:.2f} ms "
+        f"(decode) vs {med_mix:.2f} ms (mixed); decode kernel launches "
+        f"{launches}")
+    return launches, worst, med_dec, med_mix
+
+
+def gemma_phase(dev, rng, report, profiling):
+    """Phase 10: gemma3-27b at full width cut to 6 of its 62 layers (one
+    period of the 5:1 local:global pattern): the serving launcher's state,
+    8 requests past the 1024-token window through ``ElasticEngine``, GAR
+    at its shapes in rank passes, the decode check, and one greedy request
+    card vs CPU on the deployed row cut to 2 layers. Returns launches by
+    kernel and the GAR error."""
+    from repro_torch.configs import Segment, get_config
+    from repro_torch.core import flexrank as FR
+    from repro_torch.kernels import gar_matmul, paged_attention, sampling
+    from repro_torch.launch.serve import serving_state
+    from repro_torch.launch.train import dense_init
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ElasticEngine, Request, SamplingParams
+    full = get_config("gemma3-27b")
+    cfg = dataclasses.replace(full, segments=(Segment("attn", 6),),
+                              num_layers=6)
+    for c in (full, cfg):
+        n = cm.param_count(tfm.model_spec(c))
+        log(f"# gemma3: {c.num_layers} layers: {n / 1e9:.3f} B dense "
+            f"parameters, {4 * n / 1e9:.1f} GB in float32")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = dense_init(cfg, 0, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    setup = {}
+    params_fact, table, infos = serving_state(cfg, dense, 0, timings=setup)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_state = torch.cuda.max_memory_allocated() / 1e9
+    engine = ElasticEngine(cfg, params_fact, table, infos, device="cuda",
+                           prefill_chunk=256, max_batch=8, max_len=2048)
+    budgets = (0.4, 1.0)
+    rows = [engine._budget_row(b) for b in budgets]
+    deployed = {r: engine._realize(r) for r in rows}
+    log(f"# gemma3 setup: dense init {t_init:.2f} s, calibrate "
+        f"{setup['calibrate']:.2f} s, decompose {setup['decompose']:.2f} s "
+        f"(DataSVD, {len(infos)} groups x 6 layers on the card), DP "
+        f"{setup['dp']:.2f} s ({table.table.shape[0]} rows), deploy "
+        + ", ".join(f"row {r} (budget {b}) {engine.deploy_seconds[r]:.2f} s"
+                    for b, r in zip(budgets, rows))
+        + f"; peak device memory {peak_state:.2f} GB building the state")
+    log(f"# gemma3 table: ranks by group {[i.path for i in infos]}: "
+        + "; ".join(f"row {k} {table.table[k].tolist()}"
+                    for k in range(table.table.shape[0])))
+
+    # GAR at gemma3's shapes from the deployed leaves: gate at the 0.4 row
+    # and at full rank, down at full rank (m - r = 0); decode and prefill T
+    shapes = []
+    for r, projs in ((rows[0], ("mlp/gate",)),
+                     (rows[1], ("mlp/gate", "mlp/down"))):
+        layer = deployed[r]["segments"][0]
+        for proj in projs:
+            leaf = cm.tree_get(layer, proj)
+            vt, uh, pi = (leaf["v_tilde"][0], leaf["u_hat"][0],
+                          leaf["perm_inv"][0])
+            n, rr = vt.shape
+            for t in (8, 264):
+                shapes.append((f"gemma3 {proj} row {r} T={t} n={n} r={rr} "
+                               f"m={rr + uh.shape[0]}", t, vt, uh, pi))
+    gar_err = check_gar(dev, shapes, rng, report)
+
+    prng = np.random.default_rng(2)
+    reqs = []
+    for i in range(8):
+        plen = int(prng.integers(1100, 1501))
+        samp = (SamplingParams(temperature=0.8, top_k=40, seed=200 + i)
+                if i % 2 else None)
+        reqs.append(Request(
+            prompt=prng.integers(0, cfg.vocab_size, plen).astype(np.int32),
+            max_new_tokens=32, budget=budgets[i % 2], sampling=samp))
+    for k in (gar_matmul, paged_attention, sampling):
+        k.launches = 0
+    gar_matmul.pass_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = engine.generate(reqs, mode="continuous")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"gar_matmul": gar_matmul.launches,
+              "gar_matmul_passes": gar_matmul.pass_launches,
+              "paged_prefill_attention": paged_attention.launches,
+              "topk_mask_sample": sampling.launches}
+    for rq, rs in zip(reqs, results):
+        if len(rs.tokens) != len(rq.prompt) + 32:
+            fail(f"gemma3: request of {len(rq.prompt)} tokens returned "
+                 f"{len(rs.tokens)}")
+        gen = rs.tokens[len(rq.prompt):]
+        if gen.min() < 0 or gen.max() >= cfg.vocab_size:
+            fail("gemma3: generated token out of the vocabulary")
+    s = engine.last_metrics.summary()
+    log(f"# gemma3 serving: full width, 6 of 62 layers, 8 requests (prompts "
+        f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}"
+        f", 32 new each, budgets 0.4/1.0 -> rows {rows}), wall {wall:.2f} s,"
+        f" {s['tokens_per_s']:.1f} tok/s, ttft mean "
+        f"{s['ttft_mean_s'] * 1e3:.1f} ms, {s['mixed_iterations']:.0f} mixed "
+        f"iterations, dispatch {s['dispatch_ms_mean']:.2f} ms / host "
+        f"{s['host_ms_mean']:.2f} ms per iteration, preemptions "
+        f"{s['preemptions']}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"# gemma3 kernels: launches serving {json.dumps(counts)}")
+    if min(counts.values()) <= 0:
+        fail(f"gemma3: a kernel of the serving path never launched: {counts}")
+    if profiling:
+        profile_main_path(engine, reqs)
+
+    # the decode check on the served rows, 8 prompts past the window
+    prompts = [prng.integers(0, cfg.vocab_size, int(prng.integers(1100, 1501))
+                             ).astype(np.int32) for _ in range(8)]
+    counts["paged_attention"], _, _, _ = decode_check(
+        cfg, deployed, prompts, GEMMA_DECODE_STEPS, dev, 2048)
+
+    # card vs CPU: one greedy request on the 0.4 row cut to 2 (local)
+    # layers, past the window; the deployed row moves to the CPU
+    small = dataclasses.replace(cfg, segments=(Segment("attn", 2),),
+                                num_layers=2)
+    p_gpu = cut_depth(deployed[rows[0]], cfg, small)
+    p_cpu = cm.tree_map(lambda t: t.cpu(), p_gpu)
+    prompt = prng.integers(0, cfg.vocab_size, 1100).astype(np.int32)
+    with torch.no_grad():
+        toks_gpu, marg_gpu = greedy_loop(p_gpu, small, prompt, 8, dev, 1152)
+        t0 = time.perf_counter()
+        toks_cpu, marg_cpu = greedy_loop(p_cpu, small, prompt, 8,
+                                         torch.device("cpu"), 1152)
+        t_cpu = time.perf_counter() - t0
+    log(f"# gemma3 cross-check: row {rows[0]} at 2 layers, 1100 prompt "
+        f"tokens: card {toks_gpu}, CPU {toks_cpu} ({t_cpu:.1f} s on the "
+        f"CPU), top-2 margins card {[round(m, 4) for m in marg_gpu]}")
+    if toks_gpu != toks_cpu:
+        for i, (a, b) in enumerate(zip(toks_gpu, toks_cpu)):
+            if a != b:
+                fail(f"gemma3: card and CPU part at step {i}: top-2 margin "
+                     f"{marg_gpu[i]:.3e} on the card, {marg_cpu[i]:.3e} on "
+                     "the CPU")
+    return counts, gar_err
 
 
 def kernel_rows(prof) -> list:
@@ -822,22 +1172,41 @@ def main() -> int:
                 torch.as_tensor(rng.standard_normal((m - r, r)).astype(
                     np.float32) / math.sqrt(r), device=dev),
                 torch.as_tensor(rng.permutation(m), device=dev))
+    # ragged shapes, gemma3's widths among them in 2 and 3 rank passes
     for t, n, m, r in ((33, 17, 29, 7), (100, 96, 80, 40), (5, 64, 64, 64),
-                       (19, 3072, 768, 301)):
+                       (19, 3072, 768, 301), (19, 5376, 21504, 3001),
+                       (5, 21504, 5376, 5376)):
         gar_shapes.append((f"ragged T={t} n={n} r={r} m={m}", t,
                            *rand_gar(n, m, r)))
     gar_err = check_gar(dev, gar_shapes, rng, report)
     attn_err = check_attention(dev, [
         ("T=8 decode Hq=Hkv=12 D=64 BS=16", (8, 12, 12, 64, 16, 8, 16, 8, 0),
-         (0.0,)),
+         (0.0,), (None,)),
         ("T=72 decode7+chunk64 Hq=Hkv=12 D=64 BS=16",
-         (72, 12, 12, 64, 16, 8, 16, 7, 64), (0.0, 30.0)),
+         (72, 12, 12, 64, 16, 8, 16, 7, 64), (0.0, 30.0), (None,)),
+        # gemma3's mixed iteration: 8 decode tokens and a 256-token chunk
+        # over contexts to 2048, global and local (1024) layers, and a
+        # window that starts mid-block
+        ("gemma3 T=264 decode8+chunk256 Hq=32 Hkv=16 D=128 BS=16",
+         (264, 32, 16, 128, 16, 9, 128, 8, 256), (0.0, 30.0),
+         (None, 1024, 1000)),
         ("ragged GQA 12/4 D=40 BS=7", (10, 12, 4, 40, 7, 3, 3, 2, 5),
-         (0.0, 30.0)),
-        ("ragged GQA 8/2 D=32 BS=8", (10, 8, 2, 32, 8, 3, 4, 2, 4), (0.0,)),
+         (0.0, 30.0), (None, 9, 1)),
+        ("ragged GQA 8/2 D=32 BS=8", (10, 8, 2, 32, 8, 3, 4, 2, 4), (0.0,),
+         (None, 13)),
+    ], rng, report)
+    dec_err = check_decode(dev, [
+        ("gpt2 B=8 Hq=Hkv=12 D=64 BS=16", (8, 12, 12, 64, 16, 16, 90, 256),
+         (0.0, 30.0), (None,)),
+        ("gemma3 B=8 Hq=32 Hkv=16 D=128 BS=16",
+         (8, 32, 16, 128, 16, 128, 1024, 2048), (0.0, 30.0),
+         (None, 1024, 1000)),
+        ("ragged B=5 GQA 12/4 D=40 BS=7", (5, 12, 4, 40, 7, 3, 1, 21),
+         (0.0, 30.0), (None, 9, 1)),
     ], rng, report)
     samp_err = check_sampling(dev, [("S=8 V=50257", 8, 50257),
                                     ("S=4 V=50257", 4, 50257),
+                                    ("S=8 V=262144", 8, 262144),
                                     ("ragged S=9 V=515", 9, 515),
                                     ("ragged S=3 V=64", 3, 64)], rng, report)
     last = table.table.shape[0] - 1
@@ -952,6 +1321,9 @@ def main() -> int:
                      f"{marg_gpu[i]:.3e} on the card, {marg_cpu[i]:.3e} on "
                      "the CPU")
 
+    # rows 0 and the top one stay deployed for phase 9
+    gpt2_rows = {0: engine._realize(0), last: engine._realize(last)}
+
     # 5. training path, 6. one training step card vs CPU
     profiling = "--profile" in sys.argv[1:]
     del engine, deployed, params_fact
@@ -977,6 +1349,36 @@ def main() -> int:
         (ssd, lowrank_matmul), dev, profiling)
     counts["wkv6"] = rwkv_counts["wkv6"]
     counts["ssd"] = zamba_counts["ssd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. the pure-decode path on gpt2-small: 8 prompts of 90-159 tokens, 32
+    # steps at rows 0 and 6, decode vs mixed
+    prompts = [prng.integers(0, cfg.vocab_size, int(prng.integers(90, 160))
+                             ).astype(np.int32) for _ in range(8)]
+    for k in (gar_matmul, paged_attention):
+        k.launches = 0
+    counts["paged_attention_decode"], _, _, _ = decode_check(
+        cfg, gpt2_rows, prompts, 32, dev, 256)
+    counts["gar_matmul"] += gar_matmul.launches
+    counts["paged_attention"] += paged_attention.launches
+    del gpt2_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. gemma3-27b at full width, 6 of 62 layers
+    gemma_counts, gemma_gar_err = gemma_phase(dev, rng, report, profiling)
+    gar_err = max(gar_err, gemma_gar_err)
+    counts["gar_matmul"] += gemma_counts["gar_matmul"]
+    counts["paged_attention"] += gemma_counts["paged_prefill_attention"]
+    counts["paged_attention_decode"] += gemma_counts["paged_attention"]
+    counts["sampling"] += gemma_counts["topk_mask_sample"]
+    for e in report:
+        if e["shape"].startswith("gemma3 mlp"):
+            log(f"# kernel {e['kernel']} [{e['shape']}]: {e['ms']:.4f} ms, "
+                f"plain {e['plain_ms']:.4f} ms, library "
+                f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+                f"({e['bound_by']}), max abs err {e['max_abs_err']:.2e}")
 
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {
@@ -986,6 +1388,10 @@ def main() -> int:
         "lowrank_matmul": ("src/repro_torch/kernels/csrc/lowrank_matmul.cu",
                            "src/repro/kernels/lowrank_matmul.py:46", lr_err,
                            f"mlp/gate row {last} T=1024"),
+        "paged_attention": (
+            "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:97", dec_err,
+            "gemma3 B=8"),
         "paged_prefill_attention": (
             "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention.py:164", attn_err, "T=72"),
@@ -999,6 +1405,7 @@ def main() -> int:
     }
     module_of = {"gar_matmul": "gar_matmul",
                  "lowrank_matmul": "lowrank_matmul",
+                 "paged_attention": "paged_attention_decode",
                  "paged_prefill_attention": "paged_attention",
                  "topk_mask_sample": "sampling", "wkv6": "wkv6",
                  "ssd": "ssd"}

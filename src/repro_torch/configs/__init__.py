@@ -2,9 +2,10 @@
 from typing import List
 
 from repro_torch.configs.base import (FlexRankConfig, ModelConfig, Segment)
-from repro_torch.configs import gpt2_small, rwkv6_3b, zamba2_7b
+from repro_torch.configs import gemma3_27b, gpt2_small, rwkv6_3b, zamba2_7b
 
 _MODULES = {
+    "gemma3-27b": gemma3_27b,
     "gpt2-small": gpt2_small,
     "rwkv6-3b": rwkv6_3b,
     "zamba2-7b": zamba2_7b,

@@ -22,6 +22,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+SMEM_LIMIT = 232448        # shared memory one block may use on Hopper
 SOURCES = ("gar_matmul", "lowrank_matmul", "paged_attention", "sampling",
            "ssd", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -92,6 +93,19 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
+
+
+def rank_passes(smem_bytes, r: int):
+    """The column ranges ``[j0, j1)`` of a rank ``r`` that one launch each
+    takes: as few, and as even, as fit a block's shared memory, where a
+    launch over ``c`` columns needs ``smem_bytes(c)`` bytes."""
+    if r == 0:
+        return [(0, 0)]
+    passes = 1
+    while smem_bytes(-(-r // passes)) > SMEM_LIMIT:
+        passes += 1
+    size = -(-r // passes)
+    return [(j, min(j + size, r)) for j in range(0, r, size)]
 
 
 def check(rc: int, what: str) -> None:

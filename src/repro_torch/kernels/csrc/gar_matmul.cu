@@ -33,8 +33,18 @@
 //            columns, one per lane, and streams their u_hat rows through a
 //            shared tile 32 values at a time (coalesced, 32 loads in flight
 //            per lane, the next chunk's issued before this one's
-//            products). The output tile is staged in shared memory and
-//            written row by row.
+//            products). Each lane writes its column for the tile's tokens
+//            (a warp writes 32 neighbouring floats of a row at a time).
+//
+// Rank passes: the z tile takes 64 bytes a column of shared memory, so a
+// rank above some 2480 does not fit a block. The wrapper then launches one
+// pass per range [j0, j0 + rp) of z's columns, as few and as even as fit:
+// a pass computes z[:, j0:j0+rp] = x @ v_tilde[:, j0:j0+rp], writes the
+// identity outputs whose source lies in its range (and leaves the other
+// identity outputs untouched), and adds z_pass @ u_hat[:, j0:j0+rp]^T into
+// the tail outputs: the first pass writes them, later passes add
+// (`ACC`, a template argument, so the one-pass kernel has no run-time
+// branch on it). v_tilde and u_hat keep their leading dimension r.
 //
 // Each weight byte is read once per token tile (from L2 after the first
 // tile), spread over C SMs. m - r = 0 and r, n, m that are multiples of
@@ -64,18 +74,21 @@ __host__ __device__ inline int scratch_floats() {
   return p1 > p2 ? p1 : p2;
 }
 
+// v and u point at column j0 of v_tilde and u_hat (leading dimension r);
+// this pass owns z's columns [j0, j0 + rp).
+template <bool ACC>
 __global__ void __launch_bounds__(NT)
 gar_matmul_kernel(const float* __restrict__ x, const float* __restrict__ v,
                   const float* __restrict__ u,
                   const int64_t* __restrict__ perm_inv,
-                  float* __restrict__ y, int t_total, int n, int r, int mt) {
+                  float* __restrict__ y, int t_total, int n, int r, int mt,
+                  int j0, int rp) {
   extern __shared__ __align__(16) float smem[];
   const int m = r + mt;
-  const int rc = ceil_div(r, CL);
+  const int rc = ceil_div(rp, CL);
   const int mc = ceil_div(m, CL);
-  float* zt = smem;                      // (r, TT) the whole z tile, token-minor
-  float* ys = zt + r * TT;               // (TT, mc) output tile
-  float* scratch = ys + TT * mc;         // phase 1 or phase 2 working space
+  float* zt = smem;                      // (rp, TT) the pass's z tile, token-minor
+  float* scratch = zt + rp * TT;         // phase 1 or phase 2 working space
   float* xs = scratch;                   // (KC, TT) x chunk, token-minor
   float* red = xs + KC * TT;             // (NWARPS, TT, 64) partial sums
 
@@ -85,7 +98,7 @@ gar_matmul_kernel(const float* __restrict__ x, const float* __restrict__ v,
   const int rows = min(TT, t_total - t0);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int k_lo = b * rc, k_hi = min(r, k_lo + rc);
+  const int k_lo = b * rc, k_hi = min(rp, k_lo + rc);
 
   // phase 1: z[:, k_lo:k_hi] for this token tile. A lane owns two columns
   // (64 per pass, coalesced reads of v_tilde rows); each warp takes RPW
@@ -175,7 +188,7 @@ gar_matmul_kernel(const float* __restrict__ x, const float* __restrict__ v,
       const int q = f / slice, off = f - q * slice;
       const int src = (b + 1 + q) % CL;
       const int e = src * slice + off;
-      dst[g] = (f < total && e < r * TT) ? e : -1;
+      dst[g] = (f < total && e < rp * TT) ? e : -1;
       val[g] = dst[g] >= 0 ? cluster.map_shared_rank(zt, src)[e] : 0.f;
     }
 #pragma unroll
@@ -196,6 +209,7 @@ gar_matmul_kernel(const float* __restrict__ x, const float* __restrict__ v,
     const bool has = j < jn;
     const int c = has ? (int)perm_inv[j_lo + j] : 0;
     const bool tail = has && c >= r;
+    const bool mine = has && c >= j0 && c < j0 + rp;   // identity, this pass
     const int row = tail ? c - r : -1;
     float part[TT];
 #pragma unroll
@@ -206,10 +220,10 @@ gar_matmul_kernel(const float* __restrict__ x, const float* __restrict__ v,
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int ri = __shfl_sync(FULL_MASK, row, i);
-        uv[i] = (ri >= 0 && lane < r) ? u[(size_t)ri * r + lane] : 0.f;
+        uv[i] = (ri >= 0 && lane < rp) ? u[(size_t)ri * r + lane] : 0.f;
       }
-      for (int k0 = 0; k0 < r; k0 += 32) {
-        const int kw = min(32, r - k0);
+      for (int k0 = 0; k0 < rp; k0 += 32) {
+        const int kw = min(32, rp - k0);
 #pragma unroll
         for (int i = 0; i < 32; ++i) tile[i * TS + lane] = uv[i];
         __syncwarp();
@@ -217,7 +231,7 @@ gar_matmul_kernel(const float* __restrict__ x, const float* __restrict__ v,
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int ri = __shfl_sync(FULL_MASK, row, i);
-          un[i] = (ri >= 0 && kn < r) ? u[(size_t)ri * r + kn] : 0.f;
+          un[i] = (ri >= 0 && kn < rp) ? u[(size_t)ri * r + kn] : 0.f;
         }
         for (int kk = 0; kk < kw; ++kk) {
           const float uk = tile[lane * TS + kk];
@@ -236,37 +250,39 @@ gar_matmul_kernel(const float* __restrict__ x, const float* __restrict__ v,
         for (int i = 0; i < 32; ++i) uv[i] = un[i];
       }
     }
-    if (has) {
+    if (tail || mine) {
+      float* yo = y + (size_t)t0 * m + j_lo + j;
 #pragma unroll
-      for (int tt = 0; tt < TT; ++tt)
-        ys[tt * mc + j] = tail ? part[tt] : zt[c * TT + tt];
+      for (int tt = 0; tt < TT; ++tt) {
+        if (tt < rows) {
+          const float val = tail ? part[tt] : zt[(c - j0) * TT + tt];
+          yo[(size_t)tt * m] = (ACC && tail) ? yo[(size_t)tt * m] + val : val;
+        }
+      }
     }
   }
-  __syncthreads();
-  for (int e = tid; e < TT * jn; e += NT) {
-    const int tt = e / jn, jj = e - tt * jn;
-    if (tt < rows) y[(size_t)(t0 + tt) * m + j_lo + jj] = ys[tt * mc + jj];
-  }
 }
 
-extern "C" int gar_matmul_smem_bytes(int r, int m) {
-  return (int)(sizeof(float) * ((size_t)r * TT + (size_t)TT * ceil_div(m, CL) +
-                                (size_t)scratch_floats()));
+extern "C" int gar_matmul_smem_bytes(int rp) {
+  return (int)(sizeof(float) * ((size_t)rp * TT + (size_t)scratch_floats()));
 }
 
+// one rank pass over z's columns [j0, j0 + rp); accumulate: add into the
+// tail outputs (a pass after the first) instead of writing them
 extern "C" int gar_matmul_f32(const float* x, const float* v_tilde,
                               const float* u_hat, const int64_t* perm_inv,
-                              float* y, int t, int n, int r, int mt,
-                              void* stream) {
-  const int m = r + mt;
-  const int smem = gar_matmul_smem_bytes(r, m);
+                              float* y, int t, int n, int r, int mt, int j0,
+                              int rp, int accumulate, void* stream) {
+  const int smem = gar_matmul_smem_bytes(rp);
+  auto kernel = accumulate ? gar_matmul_kernel<true> : gar_matmul_kernel<false>;
+  cudaError_t e;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gar_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  cudaError_t e = cudaFuncSetAttribute(
-      gar_matmul_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CL, ceil_div(t, TT));
@@ -280,8 +296,8 @@ extern "C" int gar_matmul_f32(const float* x, const float* v_tilde,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, gar_matmul_kernel, x, v_tilde, u_hat, perm_inv,
-                         y, t, n, r, mt);
+  e = cudaLaunchKernelEx(&cfg, kernel, x, v_tilde + j0, u_hat + j0, perm_inv,
+                         y, t, n, r, mt, j0, rp);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,6 @@ launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-SMEM_LIMIT = 232448        # shared memory one block may use on Hopper
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,13 +82,7 @@ def rank_passes(lib, kr: int):
     """The column ranges ``[j0, j1)`` of the kept rank that one launch each
     computes: as few, and as even, as the shared memory of a block allows
     (one range up to some 1700 columns)."""
-    if kr == 0:
-        return [(0, 0)]
-    passes = 1
-    while lib.lowrank_matmul_smem_bytes(-(-kr // passes)) > SMEM_LIMIT:
-        passes += 1
-    size = -(-kr // passes)
-    return [(j, min(j + size, kr)) for j in range(0, kr, size)]
+    return build.rank_passes(lib.lowrank_matmul_smem_bytes, kr)
 
 
 def launch(lib, x, v, u, y, kr: int) -> int:

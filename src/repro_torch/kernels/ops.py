@@ -163,25 +163,37 @@ def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return _Recurrence.apply(_ssd.ssd, _ssd_plain, chunk, x, dt, a, b, c)
 
 
+def paged_attention_forward(q, k_pool, v_pool, block_tables, context_lens,
+                            *, softcap: float = 0.0,
+                            window: Optional[int] = None):
+    """Paged decode attention, one query token a slot. q: (B, Hq, D);
+    pools: (NB, BS, Hkv, D); block_tables: (B, MB); context_lens: (B,).
+    ``window`` (sliding-window lookback) keeps keys ``[ctx - window, ctx)``.
+    Returns (B, Hq, D)."""
+    if q.is_cuda:
+        i32 = torch.int32
+        return _attn.paged_attention(
+            q.contiguous(), k_pool, v_pool, block_tables.to(i32).contiguous(),
+            context_lens.to(i32).contiguous(), softcap=softcap,
+            window=window)
+    return ref.paged_attention_ref(q, k_pool, v_pool, block_tables,
+                                   context_lens, softcap=softcap,
+                                   window=window)
+
+
 def paged_prefill_attention_forward(q, k_pool, v_pool, block_tables,
                                     slot_ids, context_lens, *,
                                     softcap: float = 0.0,
                                     window: Optional[int] = None):
     """Flat-token paged attention. q: (T, Hq, D); pools: (NB, BS, Hkv, D);
-    block_tables: (B, MB); slot_ids/context_lens: (T,). Returns (T, Hq, D).
-
-    ``window`` (sliding-window lookback) has no kernel yet: on a CUDA tensor
-    it raises, on the CPU the plain version applies it."""
+    block_tables: (B, MB); slot_ids/context_lens: (T,). ``window`` as for
+    ``paged_attention_forward``. Returns (T, Hq, D)."""
     if q.is_cuda:
-        if window is not None:
-            raise NotImplementedError(
-                "windowed paged attention has no CUDA kernel yet "
-                "(ROADMAP: windowed/softcap paged configs on the card)")
         i32 = torch.int32
         return _attn.paged_prefill_attention(
             q.contiguous(), k_pool, v_pool, block_tables.to(i32).contiguous(),
             slot_ids.to(i32).contiguous(), context_lens.to(i32).contiguous(),
-            softcap=softcap)
+            softcap=softcap, window=window)
     return ref.paged_prefill_attention_ref(q, k_pool, v_pool, block_tables,
                                            slot_ids, context_lens,
                                            softcap=softcap, window=window)

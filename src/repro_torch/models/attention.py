@@ -1,6 +1,7 @@
 """GQA self-attention (+RoPE, logit softcap) and FFN blocks: the paged
-serving forward and the contiguous train/prefill forward (exact
-query-chunked attention), spec/apply pairs driven by ``transformer``.
+serving forwards (decode and mixed) and the contiguous train/prefill
+forward (exact query-chunked attention), spec/apply pairs driven by
+``transformer``.
 
 Each projection names its activation tap ("q", "k", "v", "o", "gate",
 "up", "down") for the calibration pass."""
@@ -140,6 +141,40 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s = x.shape[:2]
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return linear(p["o"], out, rank=r.get("o"), tap="o"), None
+
+
+def paged_attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                     positions: torch.Tensor, block_tables: torch.Tensor,
+                     k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     window: Optional[int] = None,
+                     ranks: Optional[Dict] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode self-attention over a block-paged KV cache.
+
+    x: (B, 1, d), one token per sequence, each at its own position.
+    ``positions``: (B,) 0-based index of the current token; its K/V is
+    scattered IN PLACE (the JAX reference donates the pools) into
+    (block_tables[b, pos // BS], pos % BS) before attending over the
+    ``pos + 1`` valid keys. Returns (y, k_pool, v_pool)."""
+    r = ranks or {}
+    hd = cfg.resolved_head_dim
+    bsz = x.shape[0]
+    bs = k_pool.shape[1]
+
+    q, k, v = project_qkv(p, x, cfg, ranks=r, positions=positions[:, None])
+
+    blk = block_tables[torch.arange(bsz, device=x.device),
+                       positions // bs].long()
+    off = positions % bs
+    k_pool[blk, off] = k[:, 0].to(k_pool.dtype)
+    v_pool[blk, off] = v[:, 0].to(v_pool.dtype)
+
+    out = ops.paged_attention_forward(
+        q[:, 0], k_pool, v_pool, block_tables, positions + 1,
+        softcap=cfg.attn_logit_softcap, window=window)
+    out = out.reshape(bsz, 1, cfg.num_heads * hd)
+    y = linear(p["o"], out, rank=r.get("o"), tap="o")
+    return y, k_pool, v_pool
 
 
 def paged_prefill_attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,

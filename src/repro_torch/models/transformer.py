@@ -18,6 +18,7 @@ per factorized group, shared by the group's layers.
 Public API:
   model_spec(cfg)                                 -> ParamSpec tree
   forward(params, cfg, tokens, ranks=)            -> (logits, aux)
+  paged_decode_step(params, cfg, caches, tokens)  -> (logits, caches)
   paged_mixed_step(params, cfg, caches, tokens)   -> (logits, caches)
 """
 from __future__ import annotations
@@ -271,9 +272,11 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def _run_paged_segments(params, cfg, x, caches, ranks, attn_fn):
     """rms_norm -> paged attention (``attn_fn``) -> residual -> rms_norm ->
-    ffn -> residual, layer by layer. ``attn_fn(p_attn, h, window, k_pool,
-    v_pool, ranks)`` -> (y, k_pool, v_pool) with the pools of one layer,
-    updated in place. Returns (x, segment pools)."""
+    ffn -> residual, layer by layer, shared by the paged decode and mixed
+    steps so that the two stay structurally identical. ``attn_fn(p_attn,
+    h, window, k_pool, v_pool, ranks)`` -> (y, k_pool, v_pool) with the
+    pools of one layer, updated in place; ``window`` is the layer's window,
+    or None for all-global configs. Returns (x, segment pools)."""
     if cfg.moe is not None:
         raise NotImplementedError(
             f"the MoE FFNs of {cfg.name} in the paged forward are not "
@@ -298,6 +301,39 @@ def _run_paged_segments(params, cfg, x, caches, ranks, attn_fn):
                                    ranks=(ranks_l or {}).get("mlp"))
         offset += seg.count
     return x, caches["segments"]
+
+
+def paged_decode_step(params: Dict, cfg: ModelConfig, caches: Dict,
+                      tokens: torch.Tensor, *,
+                      ranks: Optional[Dict] = None):
+    """One continuous-batching decode step over the block-paged KV cache:
+    one token a slot, each slot at its own position.
+
+    tokens: (B, 1). ``caches`` (``PagedKVCache.model_caches()``):
+
+      {'positions': (B,) 0-based index of each slot's current token,
+       'block_tables': (B, MB),
+       'segments': [{'k': (count, NB, BS, Hkv, D), 'v': ...} per segment]}
+
+    The pools are updated in place. The serving engine runs every
+    iteration through ``paged_mixed_step``; this entry, whose attention
+    needs no per-token ``slot_ids``, is the pure-decode path. Returns
+    (logits (B, 1, V), caches with ``positions + 1``).
+    """
+    assert paged_compatible(cfg), cfg.name
+    positions = caches["positions"]
+    block_tables = caches["block_tables"]
+    x = embed_tokens(params, tokens, cfg)
+
+    def attn_fn(p, h, window, kp, vp, attn_ranks):
+        return attn.paged_attn_apply(
+            p, h, cfg, positions=positions, block_tables=block_tables,
+            k_pool=kp, v_pool=vp, window=window, ranks=attn_ranks)
+
+    x, segments = _run_paged_segments(params, cfg, x, caches, ranks, attn_fn)
+    return lm_logits(params, x, cfg), {"positions": positions + 1,
+                                       "block_tables": block_tables,
+                                       "segments": segments}
 
 
 def paged_mixed_step(params: Dict, cfg: ModelConfig, caches: Dict,

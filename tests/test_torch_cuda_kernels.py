@@ -45,6 +45,37 @@ def test_gar_kernel_matches_plain(dev, t, n, m, r):
     assert float((y_k.cpu() - y_p).abs().max()) / scale < 2e-4
 
 
+# gemma3-27b's GAR shapes (d 5376, d_ff 21504): gate at a low rank (one
+# pass), gate at full rank and a ragged rank (3 and 2 passes), down at full
+# rank with m - r = 0 (3 passes); T 8 as at decode
+GAR_PASS_CASES = [(8, 5376, 21504, 1900, 1), (8, 5376, 21504, 5376, 3),
+                  (19, 5376, 21504, 3001, 2), (8, 21504, 5376, 5376, 3)]
+
+
+@pytest.mark.parametrize("t,n,m,r,passes", GAR_PASS_CASES)
+def test_gar_kernel_rank_passes_match_plain(dev, t, n, m, r, passes):
+    """Ranks above a block's shared memory run in rank passes: the count
+    of passes and launches, and the output against ``ref.gar_matmul_ref``
+    (relative to the output's max, as for one pass)."""
+    from repro_torch.kernels import gar_matmul as gk
+    rng = np.random.default_rng(r)
+    x = _t(rng.standard_normal((t, n)).astype(np.float32), dev)
+    v = _t((rng.standard_normal((n, r)) / math.sqrt(n)).astype(np.float32),
+           dev)
+    u = _t((rng.standard_normal((m - r, r)) / math.sqrt(r)).astype(
+        np.float32), dev)
+    perm_inv = _t(rng.permutation(m), dev)
+    assert len(gk.rank_passes(gk._lib(), r)) == passes
+    before, before_p = gk.launches, gk.pass_launches
+    y = gk.gar_matmul(x, v, u, perm_inv)
+    assert (gk.launches - before, gk.pass_launches - before_p) == \
+        (passes, passes - 1)
+    z, tail = ref.gar_matmul_ref(x, v, u)
+    y_p = torch.cat([z, tail], dim=-1)[:, perm_inv]
+    scale = float(y_p.abs().max()) + 1e-6
+    assert float((y - y_p).abs().max()) / scale < 2e-4
+
+
 LOWRANK_CASES = [(1024, 768, 3072, 768, 200), (1024, 3072, 768, 768, 768),
                  (33, 17, 29, 7, 3), (33, 17, 29, 7, 0), (33, 17, 29, 7, 7),
                  (33, 17, 29, 7, None), (70, 64, 96, 48, 31),
@@ -128,6 +159,64 @@ def test_paged_attention_kernel_matches_plain(dev, hq, hkv, d, bs, mb, t):
         y_k = ops.paged_prefill_attention_forward(*args, softcap=softcap)
         y_p = ops.paged_prefill_attention_forward(*[a.cpu() for a in args],
                                                   softcap=softcap)
+        assert float((y_k.cpu() - y_p).abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("hq,hkv,d,bs,mb,t", [(12, 12, 64, 16, 10, 72),
+                                              (32, 16, 128, 16, 12, 20),
+                                              (12, 4, 40, 7, 3, 10)])
+@pytest.mark.parametrize("window", [1024, 37, 16, 1])
+def test_windowed_paged_prefill_matches_plain(dev, hq, hkv, d, bs, mb, t,
+                                              window):
+    """Windows at and between block boundaries, one wider than every
+    context, and a window of one key."""
+    args = [_t(a, dev) for a in _attn_inputs(hq, hkv, d, bs, mb, t)]
+    for softcap in (0.0, 30.0):
+        y_k = ops.paged_prefill_attention_forward(*args, softcap=softcap,
+                                                  window=window)
+        y_p = ops.paged_prefill_attention_forward(
+            *[a.cpu() for a in args], softcap=softcap, window=window)
+        assert float((y_k.cpu() - y_p).abs().max()) < 2e-5
+
+
+def _decode_inputs(hq, hkv, d, bs, mb, lens, seed):
+    """One table row a slot; an idle slot (context 1) reads the null row."""
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    nb = b * mb + 1
+    kp = rng.standard_normal((nb, bs, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((nb, bs, hkv, d)).astype(np.float32)
+    tables = (1 + rng.permutation(b * mb).reshape(b, mb)).astype(np.int32)
+    lens = np.asarray(lens, np.int32)
+    tables[lens == 1] = 0
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    return q, kp, vp, tables, lens
+
+
+# gpt2 (Hq = Hkv = 12, D 64) and gemma3 (32/16, D 128) decode geometries,
+# contexts that fill their last block, end mid-block, or are idle
+DECODE_CASES = [(12, 12, 64, 16, 16, [256, 100, 1, 17, 160, 33, 250, 64]),
+                (32, 16, 128, 16, 128, [2048, 1024, 1500, 1, 1100, 1999,
+                                        1025, 1234]),
+                (8, 2, 32, 8, 4, [32, 17, 1]),
+                (5, 5, 24, 3, 4, [12, 7, 1])]
+
+
+@pytest.mark.parametrize("case", range(len(DECODE_CASES)))
+@pytest.mark.parametrize("window", [None, 1024, 37])
+def test_paged_decode_kernel_matches_plain(dev, case, window):
+    from repro_torch.kernels import paged_attention as ak
+    hq, hkv, d, bs, mb, lens = DECODE_CASES[case]
+    args = [_t(a, dev) for a in _decode_inputs(hq, hkv, d, bs, mb, lens,
+                                               case)]
+    for softcap in (0.0, 30.0):
+        before = ak.decode_launches
+        y_k = ops.paged_attention_forward(*args, softcap=softcap,
+                                          window=window)
+        assert ak.decode_launches == before + 1
+        y_p = ops.paged_attention_forward(*[a.cpu() for a in args],
+                                          softcap=softcap, window=window)
+        assert torch.isfinite(y_k).all()
         assert float((y_k.cpu() - y_p).abs().max()) < 2e-5
 
 
@@ -259,14 +348,28 @@ def test_wrappers_raise_on_cpu_mixed_devices(dev):
         from repro_torch.kernels.gar_matmul import gar_matmul
         gar_matmul(x, torch.zeros(8, 8), torch.zeros(0, 8),
                    torch.arange(8))
-    with pytest.raises(NotImplementedError):
-        ops.paged_prefill_attention_forward(
-            torch.zeros(1, 1, 4, device=dev), torch.zeros(2, 2, 1, 4,
-                                                          device=dev),
-            torch.zeros(2, 2, 1, 4, device=dev),
-            torch.zeros(1, 1, dtype=torch.int32, device=dev),
-            torch.zeros(1, dtype=torch.int32, device=dev),
-            torch.ones(1, dtype=torch.int32, device=dev), window=4)
+    from repro_torch.kernels import paged_attention as ak
+    pool = torch.zeros(2, 2, 1, 4, device=dev)
+    table = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    ones = torch.ones(1, dtype=torch.int32, device=dev)
+    q = torch.zeros(1, 1, 4, device=dev)
+    # a window launches the kernel on CUDA tensors (no plain version there)
+    assert ops.paged_prefill_attention_forward(
+        q, pool, pool, table, table[0], ones, window=4).is_cuda
+    assert ops.paged_attention_forward(q, pool, pool, table, ones,
+                                       window=4).is_cuda
+    with pytest.raises(ValueError):
+        ak.paged_attention(q, pool.cpu(), pool, table, ones)
+    with pytest.raises(ValueError):
+        ak.paged_attention(q.cpu(), pool.cpu(), pool.cpu(), table.cpu(),
+                           ones.cpu())
+    with pytest.raises(TypeError):
+        ak.paged_attention(q, pool, pool, table.long(), ones)
+    with pytest.raises(ValueError):
+        ak.paged_attention(q, pool, pool, table, ones, window=0)
+    with pytest.raises(ValueError):
+        ak.paged_prefill_attention(q, pool, pool, table, table[0], ones,
+                                   window=0)
     from repro_torch.kernels import ssd as sk
     from repro_torch.kernels import wkv6 as wk
     r = torch.zeros(1, 4, 2, 64, device=dev)
