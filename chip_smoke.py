@@ -8,9 +8,9 @@ Phases, each fatal on failure:
                parallel) and print the build seconds;
   2. kernels - hold each kernel against its plain PyTorch version on the
                card, at the main paths' shapes (windowed attention and
-               GAR in rank passes among them) and at ragged ones, and time
-               kernel, plain version and (where one exists) one PyTorch
-               library call with CUDA events;
+               GAR at gemma3's widths among them) and at ragged ones, and
+               time kernel, plain version and (where one exists) one
+               PyTorch library call with CUDA events;
   3. serve   - serve gpt2-small at full width (random weights from a seed,
                the serving launcher's calibrated DataSVD state) through
                ``ElasticEngine``: 8 requests at budgets 0.4 and 1.0, half
@@ -44,7 +44,7 @@ Phases, each fatal on failure:
                decode kernel launched;
   10. gemma3 - gemma3-27b at full width cut to 6 of its 62 layers (one
                period of the 5:1 local:global pattern): the serving
-               launcher's state, GAR at its shapes in rank passes, 8
+               launcher's state, GAR at its shapes (T 8 and 264), 8
                requests of 1100-1500 prompt tokens (past the 1024-token
                window) and 32 new through ``ElasticEngine(prefill_chunk=256,
                max_batch=8, max_len=2048)`` at budgets 0.4 and 1.0; the
@@ -80,6 +80,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 on the tensor cores
 L2_BYTES = 50 * 2**20
 TOL_ATTN = 2e-5                # float32 attention, absolute
 TOL_GAR = 2e-4                 # GAR, relative to the output's max
@@ -148,10 +149,37 @@ def copies_for(nbytes: int) -> int:
     return min(64, max(2, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, rate: float = FP32_FLOPS_PER_S
+             ) -> tuple:
+    """The least time for ``nbytes`` at the memory rate and ``flops`` at
+    ``rate`` (float32 outside the tensor cores unless named), and which of
+    the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tf32x3_bounds(nbytes: float, flops: float) -> dict:
+    """Bounds of a kernel whose float32 products run as three TF32 products
+    on the tensor cores (3xTF32): ``bound_ms`` at the rate its arithmetic
+    uses, and the float32 bound beside it, named as such."""
+    b, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    return dict(bound_ms=b, bound_by=by,
+                bound_fp32_ms=bound_ms(nbytes, flops)[0])
+
+
+def kernel_line(e: dict) -> str:
+    """One timed row: kernel, plain and library ms, kernel / library, the
+    bound (and for 3xTF32 kernels the float32 bound beside it)."""
+    lib = "-" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
+    ratio = ("-" if e["library_ms"] is None
+             else f"{e['ms'] / e['library_ms']:.2f}")
+    fp32 = (f", float32 bound {e['bound_fp32_ms']:.4f} ms"
+            if "bound_fp32_ms" in e else "")
+    return (f"# kernel {e['kernel']} [{e['shape']}]: {e['ms']:.4f} ms, "
+            f"plain {e['plain_ms']:.4f} ms, library {lib} ms, kernel / "
+            f"library {ratio}, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}){fp32}, max abs err {e['max_abs_err']:.2e}")
 
 
 def nbytes(*ts) -> int:
@@ -170,9 +198,6 @@ def check_gar(dev, shapes, rng, report):
     for label, t, v_tilde, u_hat, perm_inv in shapes:
         n, r = v_tilde.shape
         m = r + u_hat.shape[0]
-        passes = len(gk.rank_passes(gk._lib(), r))
-        if passes > 1:
-            label = f"{label} ({passes} rank passes)"
         x = torch.as_tensor(rng.standard_normal((t, n)).astype(np.float32),
                             device=dev)
         y = gk.gar_matmul(x, v_tilde, u_hat, perm_inv)
@@ -201,10 +226,10 @@ def check_gar(dev, shapes, rng, report):
         plain_ms = device_ms([lambda s=s: torch.cat(
             ref.gar_matmul_ref(*s[:3]), dim=-1)[:, s[3]] for s in sets])
         lib_ms = device_ms([lambda w=w: torch.matmul(x, w) for w in dense])
-        b, by = bound_ms(work, 2 * t * (n * r + (m - r) * r))
+        flops = 2 * t * (n * r + (m - r) * r)
         report.append(dict(kernel="gar_matmul", shape=label, ms=ms,
-                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
-                           bound_by=by, max_abs_err=err, passes=passes))
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           max_abs_err=err, **tf32x3_bounds(work, flops)))
     return worst
 
 
@@ -244,10 +269,10 @@ def check_lowrank(dev, cases, rng, report):
         # x read, y written, and the kr kept columns of v and u (the masked
         # ones add exact zeros and are skipped)
         work = 4 * (t * n + (n + m) * kr + t * m)
-        b, by = bound_ms(work, 2 * t * kr * (n + m))
         report.append(dict(kernel="lowrank_matmul", shape=label, ms=ms,
-                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
-                           bound_by=by, max_abs_err=err))
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           max_abs_err=err,
+                           **tf32x3_bounds(work, 2 * t * kr * (n + m))))
     return worst
 
 
@@ -711,7 +736,7 @@ def gemma_phase(dev, rng, report, profiling):
     """Phase 10: gemma3-27b at full width cut to 6 of its 62 layers (one
     period of the 5:1 local:global pattern): the serving launcher's state,
     8 requests past the 1024-token window through ``ElasticEngine``, GAR
-    at its shapes in rank passes, the decode check, and one greedy request
+    at its shapes, the decode check, and one greedy request
     card vs CPU on the deployed row cut to 2 layers. Returns launches by
     kernel and the GAR error."""
     from repro_torch.configs import Segment, get_config
@@ -783,14 +808,12 @@ def gemma_phase(dev, rng, report, profiling):
             max_new_tokens=32, budget=budgets[i % 2], sampling=samp))
     for k in (gar_matmul, paged_attention, sampling):
         k.launches = 0
-    gar_matmul.pass_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = engine.generate(reqs, mode="continuous")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"gar_matmul": gar_matmul.launches,
-              "gar_matmul_passes": gar_matmul.pass_launches,
               "paged_prefill_attention": paged_attention.launches,
               "topk_mask_sample": sampling.launches}
     for rq, rs in zip(reqs, results):
@@ -1172,7 +1195,8 @@ def main() -> int:
                 torch.as_tensor(rng.standard_normal((m - r, r)).astype(
                     np.float32) / math.sqrt(r), device=dev),
                 torch.as_tensor(rng.permutation(m), device=dev))
-    # ragged shapes, gemma3's widths among them in 2 and 3 rank passes
+    # ragged shapes, gemma3's widths among them (ranks 3001 and 5376; m - r
+    # = 0)
     for t, n, m, r in ((33, 17, 29, 7), (100, 96, 80, 40), (5, 64, 64, 64),
                        (19, 3072, 768, 301), (19, 5376, 21504, 3001),
                        (5, 21504, 5376, 5376)):
@@ -1233,8 +1257,8 @@ def main() -> int:
                          rank))
     lr_cases.append(("ragged T=70 n=300 r=257 m=130 rank=129", 70,
                      *rand_lowrank(300, 130, 257), 129))
-    # rwkv6-3b's channel/k at full rank (two rank passes) and a ragged
-    # three-pass case
+    # rwkv6-3b's channel/k at full rank and a ragged kept rank of zamba2's
+    # width
     lr_cases.append(("rwkv6 channel/k T=1024 n=2560 r=2560 rank=2560 "
                      "m=8960", 1024, *rand_lowrank(2560, 8960, 2560), None))
     lr_cases.append(("ragged T=45 n=3584 r=3584 m=77 rank=3001", 45,
@@ -1250,12 +1274,7 @@ def main() -> int:
                               ("ragged B=1 S=33 H=6 G=2", 1, 33, 6, 2)],
                         rng, report)
     for e in report:
-        lib = ("-" if e["library_ms"] is None
-               else f"{e['library_ms']:.4f}")
-        log(f"# kernel {e['kernel']} [{e['shape']}]: {e['ms']:.4f} ms, "
-            f"plain {e['plain_ms']:.4f} ms, library {lib} ms, bound "
-            f"{e['bound_ms']:.4f} ms ({e['bound_by']}), max abs err "
-            f"{e['max_abs_err']:.2e}")
+        log(kernel_line(e))
 
     # 3. serving path
     prng = np.random.default_rng(1)
@@ -1375,10 +1394,7 @@ def main() -> int:
     counts["sampling"] += gemma_counts["topk_mask_sample"]
     for e in report:
         if e["shape"].startswith("gemma3 mlp"):
-            log(f"# kernel {e['kernel']} [{e['shape']}]: {e['ms']:.4f} ms, "
-                f"plain {e['plain_ms']:.4f} ms, library "
-                f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-                f"({e['bound_by']}), max abs err {e['max_abs_err']:.2e}")
+            log(kernel_line(e))
 
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {

@@ -3,10 +3,13 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``. The
 libraries go to ``kernels/build/`` (listed in ``.gitignore``) under a name
-that carries a hash of the source and flags, so an edited source is rebuilt
-and a built one is reused. ``build()`` starts one ``nvcc`` per missing
-source, all at once; ``library(name)`` builds on first use. Nothing here
-runs when the module is imported.
+that carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt and a built one is
+reused. ``build()`` starts one ``nvcc`` per missing
+source, all at once; ``library(name)`` builds on first use. ``defines``
+(``-D`` macros) build a variant beside the default library, for timing
+variants of a kernel (``tools/core_variants.py``). Nothing here runs when
+the module is imported.
 """
 from __future__ import annotations
 
@@ -18,19 +21,19 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SMEM_LIMIT = 232448        # shared memory one block may use on Hopper
 SOURCES = ("gar_matmul", "lowrank_matmul", "paged_attention", "sampling",
            "ssd", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
-# name -> (seconds, ptxas report) of the builds this process ran
+# name (and -D macros) -> (seconds, ptxas report) of the builds this
+# process ran
 build_log: Dict[str, Tuple[float, str]] = {}
 
 
@@ -44,13 +47,20 @@ def nvcc() -> str:
     return found
 
 
-def target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+def flags(defines: Sequence[str] = ()) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+def target(name: str, defines: Sequence[str] = ()) -> Path:
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(flags(defines)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Iterable[str] = SOURCES,
+          defines: Sequence[str] = ()) -> Dict[str, float]:
     """Compile every named source whose library is missing, in parallel.
     Returns seconds per source built (0.0 for one already built)."""
     names = list(names)
@@ -58,12 +68,13 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     procs = {}
     out: Dict[str, float] = {}
     for name in names:
-        dst = target(name)
+        dst = target(name, defines)
         if dst.exists():
             out[name] = 0.0
             continue
         tmp = dst.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags(defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, dst, time.perf_counter())
@@ -76,36 +87,25 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             continue
         os.replace(tmp, dst)
         out[name] = secs
-        build_log[name] = (secs, log)
+        build_log[" ".join((name, *flags(defines)[len(NVCC_FLAGS):]))] = (
+            secs, log)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            path = target(name)
+            path = target(name, defines)
             if not path.exists():
-                build([name])
+                build([name], defines)
             lib = ctypes.CDLL(str(path))
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
-
-
-def rank_passes(smem_bytes, r: int):
-    """The column ranges ``[j0, j1)`` of a rank ``r`` that one launch each
-    takes: as few, and as even, as fit a block's shared memory, where a
-    launch over ``c`` columns needs ``smem_bytes(c)`` bytes."""
-    if r == 0:
-        return [(0, 0)]
-    passes = 1
-    while smem_bytes(-(-r // passes)) > SMEM_LIMIT:
-        passes += 1
-    size = -(-r // passes)
-    return [(j, min(j + size, r)) for j in range(0, r, size)]
 
 
 def check(rc: int, what: str) -> None:

@@ -5,282 +5,178 @@
 //   y = (z * [col < rank]) @ u^T   (T, m)
 //
 // Replaces the Pallas kernel `lowrank_matmul` of the JAX package
-// (src/repro/kernels/lowrank_matmul.py, `_kernel`). What it keeps from that
-// kernel: z never goes to device memory, and the mask costs no extra
-// traffic. What differs: the TPU walked the r axis as a sequential grid
-// dimension, accumulating y block by block; here blocks run in no order, so
-// the whole z tile of a token tile has to be on chip before the second
-// product starts. The kernel also skips the masked z columns: they add
-// exact zeros, so only kr = min(rank, r) columns are computed and read.
+// (src/repro/kernels/lowrank_matmul.py:46, `_kernel`). What it keeps from
+// that kernel: the mask costs no extra traffic. The masked columns add
+// exact zeros, so only the kr = min(rank, r) kept columns of v and u are
+// read and multiplied.
 //
-// Bound on the card: operations. At the training shapes (T = 1024 tokens,
-// n, m in {768, 3072}, kr up to 768) the kernel does 2 T (n + m) kr flops
-// for (T (n + m) + (n + m) kr) * 4 bytes, some 100 flops per byte, far above
-// the card's float32 ridge; the least time is the flops at the float32 rate
-// (67 TFLOP/s; no tensor cores, as the reference runs in float32).
+// What bounds it on the card: operations. At the training shapes (T 1024;
+// gpt2-small n, m in {768, 3072} and kr up to 768; rwkv6-3b and zamba2-7b
+// kr up to 2560 and 3584) the kernel does 2 T (n + m) kr flops, some 100
+// or more a byte, far above the card's ridge; the least time is those
+// flops in 3xTF32 (three TF32 products a float32 product) at 495 TFLOP/s.
 //
-// Design: a cluster of CL = 8 blocks (a portable size) per tile of TT = 32
-// token rows, as in csrc/gar_matmul.cu:
+// Design (the tile product, its 3xTF32 arithmetic on mma.sync or wgmma,
+// the cp.async ring and split-K are csrc/lowrank_core.cuh):
 //
-//   phase 1: block b computes the z columns [b*rc, (b+1)*rc), rc =
-//            ceil(kr / CL), for its TT tokens, by a register-tiled product:
-//            each thread holds 4 tokens x 2 columns (32 apart), chunks of
-//            KC = 32 of the n reduction are staged in shared memory, the next
-//            chunk's loads issued before this chunk's products;
-//   gather:  after a cluster barrier every block copies the other blocks' z
-//            rows out of their shared memory (distributed shared memory), so
-//            every block holds the whole (kr, TT) z tile;
-//   phase 2: block b produces the output columns [b*mc, (b+1)*mc), mc =
-//            ceil(m / CL), by the same register-tiled product over the kr
-//            reduction, u rows streamed through shared memory in chunks of
-//            KC, and writes them straight to y (coalesced along m).
+//   stage 1 (lowrank_stage1): z[:, :kr] = x @ v[:, :kr] into a scratch
+//            (T, ldz) that the wrapper allocates, ldz = kr rounded up to 4;
+//   stage 2 (lowrank_stage2): y = z @ u[:, :kr]^T, written straight to y.
 //
-// Each weight byte is read once per token tile (from L2 after the first),
-// spread over CL SMs. The tiles were chosen by their time over the
-// training table's rows (repro_torch.tools.lowrank_variants): 2 columns a
-// thread waste less of a phase-1 tile at small kr than 4, and unpadded z
-// rows keep the shared memory at kr = 768 to 111 KB, so two blocks fit on
-// an SM.
-// rank = 0 writes zeros. T, n, r, m and kr need not be multiples of
-// anything: every load and store is masked. The z tile takes 128 bytes a
-// kept column, so a block holds at most some 1700 of them; the wrapper
-// runs a larger kr (rwkv6-3b's 2560, zamba2-7b's 3584) in passes over
-// column ranges of v and u (pointers offset, row stride r), each a launch
-// that adds its product into y (`accumulate`).
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
+// Each stage tiles its output as 128 weight columns x a token tile of BN
+// tokens (96 or 128 at training T, on wgmma; the token tiles of one weight
+// tile are neighbouring blocks, so they share its L2 lines), split along
+// the reduction in clusters of up to 16 where the tiles alone leave a
+// partial wave (kernels/tiles.py picks both). Two launches, not one
+// cooperative launch: z (at most 14.7 MB, zamba2 at kr 3584) stays in the
+// 50 MB L2 between them; the second is a programmatic dependent launch
+// that loads its first u tiles while the first finishes.
+// Any kept rank runs in one call (z lives in the scratch). Sums run in a
+// fixed order (no atomics). rank 0 writes zeros (the second product has no
+// reduction steps). T, n, r, m and kr need not be multiples of anything:
+// the tile loads are masked.
+#include "lowrank_core.cuh"
 
-namespace cg = cooperative_groups;
+using namespace lrc;
 
-// The tile sizes may be set with -D (repro_torch.tools.lowrank_variants
-// builds variants that way); the defaults are the shipped kernel.
-#ifndef CL
-#define CL 8                 // blocks per cluster (at most 8: portable)
-#endif
-#ifndef NT
-#define NT 256               // threads per block (8 warps)
-#endif
-#ifndef TPT
-#define TPT 4                // token rows per thread (a multiple of 4)
-#endif
-#ifndef KC
-#define KC 32                // reduction depth staged per step
-#endif
-#ifndef NJ
-#define NJ 2                 // columns per thread, 32 apart
-#endif
-#ifndef ZPAD
-#define ZPAD 0               // padding of a z tile row (a multiple of 4)
-#endif
-#define TT (NT / 32 * TPT)   // token rows per cluster: 32
-#define CT (32 * NJ)         // columns per tile
-#define ZS (TT + ZPAD)       // row stride of the z tile (float4 rows)
-#define XS (TT + 4)          // row stride of the x tile (float4 rows)
-#define WS (CT + 1)          // row stride of the weight tile
-#define XPT (TT * KC / NT)   // x values each thread stages per step
-#define WPT (KC * CT / NT)   // weight values each thread stages per step
-
-__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-__host__ __device__ inline int smem_floats(int kr) {
-  return ceil_div(kr, CL) * CL * ZS + KC * XS + KC * WS;
-}
-
-// acc[i][j] += a[i] * w[32 j] for the thread's TPT token rows (a, read as
-// float4 broadcasts) and NJ columns (w, one per lane)
-__device__ __forceinline__ void fma_step(float (&acc)[TPT][NJ],
-                                         const float* a, const float* w) {
-  float av[TPT];
-#pragma unroll
-  for (int p = 0; p < TPT / 4; ++p) {
-    const float4 f = *reinterpret_cast<const float4*>(a + 4 * p);
-    av[4 * p] = f.x;
-    av[4 * p + 1] = f.y;
-    av[4 * p + 2] = f.z;
-    av[4 * p + 3] = f.w;
-  }
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const float wj = w[32 * j];
-#pragma unroll
-    for (int i = 0; i < TPT; ++i) acc[i][j] += av[i] * wj;
-  }
-}
-
-// ACC: add the product into y (a rank pass after the first) instead of
-// writing it; a template argument, so that the writing kernel stays free
-// of the read of y
-template <bool ACC>
-__global__ void __launch_bounds__(NT)
-lowrank_matmul_kernel(const float* __restrict__ x, const float* __restrict__ v,
-                      const float* __restrict__ u, float* __restrict__ y,
-                      int t_total, int n, int r, int m, int kr) {
+// SHIFT: v's rows are off the 16-byte grid (csrc/lowrank_core.cuh)
+template <int BN, bool SHIFT>
+__global__ void __launch_bounds__(Cfg<BN>::NT, Cfg<BN>::MIN_BLOCKS)
+lowrank_stage1(const float* __restrict__ x, const float* __restrict__ v,
+               float* __restrict__ z, int t, int n, int r, int kr, int ldz,
+               int kchunk, int b_vec) {
+  using C = Cfg<BN>;
   extern __shared__ __align__(16) float smem[];
-  const int rc = ceil_div(kr, CL);
-  const int mc = ceil_div(m, CL);
-  float* zs = smem;                      // (rc * CL, ZS) z, row = z column
-  float* xs = zs + rc * CL * ZS;         // (KC, XS) x chunk, token-minor
-  float* ws = xs + KC * XS;              // (KC, WS) v or u chunk
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int b = (int)cluster.block_rank();
-  const int t0 = blockIdx.y * TT;
-  const int rows = min(TT, t_total - t0);
-  const int tid = threadIdx.x;
-  const int tx = tid & 31, ty = tid >> 5;
-
-  // phase 1: z[:, c_lo:c_hi] for this token tile
-  const int c_lo = b * rc, c_hi = min(kr, c_lo + rc);
-  for (int c0 = c_lo; c0 < c_hi; c0 += CT) {
-    float acc[TPT][NJ];
-#pragma unroll
-    for (int i = 0; i < TPT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-    float xr[XPT], wr[WPT];
-    auto load = [&](int i0) {
-#pragma unroll
-      for (int q = 0; q < XPT; ++q) {
-        const int e = tid + q * NT, tt = e / KC, k = e - tt * KC;
-        xr[q] = (tt < rows && i0 + k < n) ? x[(size_t)(t0 + tt) * n + i0 + k]
-                                          : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < WPT; ++q) {
-        const int e = tid + q * NT, k = e / CT, c = e - k * CT;
-        wr[q] = (i0 + k < n && c0 + c < c_hi) ? v[(size_t)(i0 + k) * r + c0 + c]
-                                              : 0.f;
-      }
-    };
-    load(0);
-    for (int i0 = 0; i0 < n; i0 += KC) {
-      __syncthreads();                 // the last chunk's readers are done
-#pragma unroll
-      for (int q = 0; q < XPT; ++q) {
-        const int e = tid + q * NT, tt = e / KC;
-        xs[(e - tt * KC) * XS + tt] = xr[q];
-      }
-#pragma unroll
-      for (int q = 0; q < WPT; ++q) {
-        const int e = tid + q * NT, k = e / CT;
-        ws[k * WS + e - k * CT] = wr[q];
-      }
-      __syncthreads();
-      if (i0 + KC < n) load(i0 + KC);
-#pragma unroll 8
-      for (int k = 0; k < KC; ++k)
-        fma_step(acc, xs + k * XS + ty * TPT, ws + k * WS + tx);
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = c0 + tx + 32 * j;
-      if (c < c_hi) {
-#pragma unroll
-        for (int p = 0; p < TPT / 4; ++p)
-          *reinterpret_cast<float4*>(zs + c * ZS + ty * TPT + 4 * p) =
-              make_float4(acc[4 * p][j], acc[4 * p + 1][j], acc[4 * p + 2][j],
-                          acc[4 * p + 3][j]);
-      }
-    }
-  }
-
-  // gather: every block copies the other blocks' z rows (TT floats each,
-  // as TT / 4 float4 values)
-  cluster.sync();
-  const int row4 = TT / 4;
-  const int slice = rc * row4;
-  const int total = (CL - 1) * slice;
-  for (int f = tid; f < total; f += NT) {
-    const int q = f / slice, off = f - q * slice;
-    const int src = (b + 1 + q) % CL;
-    const int row = src * rc + off / row4;
-    if (row < kr) {
-      const int e = row * ZS + (off % row4) * 4;
-      const float4* remote =
-          reinterpret_cast<const float4*>(cluster.map_shared_rank(zs, src) + e);
-      *reinterpret_cast<float4*>(zs + e) = *remote;
-    }
-  }
-  cluster.sync();   // no block leaves while another still reads its z
-
-  // phase 2: y[:, j_lo:j_hi] = z[:, :kr] @ u[j_lo:j_hi, :kr]^T
-  const int j_lo = b * mc, j_hi = min(m, j_lo + mc);
-  for (int c0 = j_lo; c0 < j_hi; c0 += CT) {
-    float acc[TPT][NJ];
-#pragma unroll
-    for (int i = 0; i < TPT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-    float wr[WPT];
-    auto load = [&](int k0) {
-#pragma unroll
-      for (int q = 0; q < WPT; ++q) {
-        const int e = tid + q * NT, c = e / KC, k = e - c * KC;
-        wr[q] = (c0 + c < j_hi && k0 + k < kr) ? u[(size_t)(c0 + c) * r + k0 + k]
-                                               : 0.f;
-      }
-    };
-    if (kr > 0) load(0);
-    for (int k0 = 0; k0 < kr; k0 += KC) {
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < WPT; ++q) {
-        const int e = tid + q * NT, c = e / KC;
-        ws[(e - c * KC) * WS + c] = wr[q];
-      }
-      __syncthreads();
-      if (k0 + KC < kr) load(k0 + KC);
-      const int kw = min(KC, kr - k0);
-#pragma unroll 4
-      for (int k = 0; k < kw; ++k)
-        fma_step(acc, zs + (k0 + k) * ZS + ty * TPT, ws + k * WS + tx);
-    }
-#pragma unroll
-    for (int i = 0; i < TPT; ++i) {
-      const int tt = ty * TPT + i;
-      if (tt >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = c0 + tx + 32 * j;
-        if (c < j_hi) {
-          float* out = y + (size_t)(t0 + tt) * m + c;
-          *out = ACC ? *out + acc[i][j] : acc[i][j];
-        }
-      }
-    }
-  }
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  griddep_launch();
+  griddep_wait();                        // x, and z's last readers
+  if (m0 >= kr) return;                  // the whole cluster shares m0
+  const int k0 = blockIdx.z * kchunk, k1 = min(n, k0 + kchunk);
+  Acc<C> acc;
+  tile_product<C, false, SHIFT>(smem, v, r, kr, x, n, b_vec, t, m0, n0, k0,
+                         k1, acc);
+  float* zo = z + (size_t)n0 * ldz + m0;
+  reduce_store<C>(smem, acc, min(BM, kr - m0), min(BN, t - n0),
+                  [&](int i, int tt, float s) {
+                    zo[(size_t)tt * ldz + i] = s;
+                  });
 }
 
-extern "C" int lowrank_matmul_smem_bytes(int kr) {
-  return (int)(sizeof(float) * (size_t)smem_floats(kr));
+// SHIFT: u's rows are off the 16-byte grid
+template <int BN, bool SHIFT>
+__global__ void __launch_bounds__(Cfg<BN>::NT, Cfg<BN>::MIN_BLOCKS)
+lowrank_stage2(const float* __restrict__ z, const float* __restrict__ u,
+               float* __restrict__ y, int t, int r, int m, int kr, int ldz,
+               int kchunk) {
+  using C = Cfg<BN>;
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  griddep_launch();
+  if (m0 >= m) {
+    griddep_wait();
+    return;
+  }
+  const int k0 = blockIdx.z * kchunk, k1 = min(kr, k0 + kchunk);
+  Acc<C> acc;
+  tile_product<C, true, SHIFT>(smem, u, r, m, z, ldz, true, t, m0, n0, k0,
+                        k1, acc);
+  float* yo = y + (size_t)n0 * m + m0;
+  reduce_store<C>(smem, acc, min(BM, m - m0), min(BN, t - n0),
+                  [&](int i, int tt, float s) { yo[(size_t)tt * m + i] = s; });
 }
 
+template <int BN>
+static int run(const float* x, const float* v, const float* u, float* y,
+               float* scratch, int t, int n, int r, int m, int kr, int gy1,
+               int split1, int kc1, int gy2, int split2, int kc2,
+               cudaStream_t stream) {
+  using C = Cfg<BN>;
+  const int ldz = (kr + 3) & ~3;
+  const int gx = (t + BN - 1) / BN;
+  const int b_vec = n % 4 == 0 && grid_offset(x) == 0;
+  const int smem1 = 4 * smem_floats<BN, false>();
+  const int smem2 = 4 * smem_floats<BN, true>();
+  int rc = launch(
+      shifted_rows(v, r) ? lowrank_stage1<BN, true> : lowrank_stage1<BN, false>,
+      C::NT, smem1, gx, gy1, split1, stream, x, v, scratch, t, n, r, kr, ldz,
+      kc1, b_vec);
+  if (rc != 0) return rc;
+  return launch(
+      shifted_rows(u, r) ? lowrank_stage2<BN, true> : lowrank_stage2<BN, false>,
+      C::NT, smem2, gx, gy2, split2, stream, (const float*)scratch, u, y, t,
+      r, m, kr, ldz, kc2);
+}
+
+// scratch: t * ldz floats (z). The tiling (bn, the grid rows, splits and
+// reduction chunks of both stages) comes from the wrapper
+// (kernels/lowrank_matmul.py: tiling).
 extern "C" int lowrank_matmul_f32(const float* x, const float* v,
-                                  const float* u, float* y, int t, int n,
-                                  int r, int m, int kr, int accumulate,
-                                  void* stream) {
-  const int smem = lowrank_matmul_smem_bytes(kr);
-  auto kernel = accumulate ? lowrank_matmul_kernel<true>
-                           : lowrank_matmul_kernel<false>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
+                                  const float* u, float* y, float* scratch,
+                                  int t, int n, int r, int m, int kr, int bn,
+                                  int gy1, int split1, int kc1, int gy2,
+                                  int split2, int kc2, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (bn) {
+    case 8:
+      return run<8>(x, v, u, y, scratch, t, n, r, m, kr, gy1, split1, kc1,
+                    gy2, split2, kc2, s);
+    case 32:
+      return run<32>(x, v, u, y, scratch, t, n, r, m, kr, gy1, split1, kc1,
+                     gy2, split2, kc2, s);
+    case 64:
+      return run<64>(x, v, u, y, scratch, t, n, r, m, kr, gy1, split1, kc1,
+                     gy2, split2, kc2, s);
+    case 96:
+      return run<96>(x, v, u, y, scratch, t, n, r, m, kr, gy1, split1, kc1,
+                     gy2, split2, kc2, s);
+    case 128:
+      return run<128>(x, v, u, y, scratch, t, n, r, m, kr, gy1, split1, kc1,
+                      gy2, split2, kc2, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
+}
+
+// Blocks of clusters of `split` blocks that the card holds at once, for the
+// kernel of token tile bn (cudaOccupancyMaxActiveClusters x split). The
+// wrappers split with the card's answer (lowrank_matmul.py: card_slots); the
+// CPU tests' table of an H100 SXM (kernels/tiles.py: CLUSTER_SLOTS) is held
+// against it.
+extern "C" int lowrank_cluster_slots(int bn, int split) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL, ceil_div(t, TT));
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
+  cfg.gridDim = dim3(1, 1, split * 64);
+  cfg.blockDim = dim3(256);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, v, u, y, t, n, r, m,
-                                     kr);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  int n = -1;
+  auto query = [&](auto kernel, int smem) {
+    cfg.dynamicSmemBytes = smem;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess ||
+        cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1) != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+      return -1;
+    return n * split;
+  };
+  switch (bn) {
+    case 8:
+      return query(lowrank_stage2<8, false>, 4 * smem_floats<8, true>());
+    case 32:
+      return query(lowrank_stage2<32, false>, 4 * smem_floats<32, true>());
+    case 64:
+      return query(lowrank_stage2<64, false>, 4 * smem_floats<64, true>());
+    case 96:
+      return query(lowrank_stage2<96, false>, 4 * smem_floats<96, true>());
+    case 128:
+      return query(lowrank_stage2<128, false>, 4 * smem_floats<128, true>());
+    default: return -1;
+  }
 }

@@ -2,53 +2,64 @@
 
 Replaces the JAX package's Pallas ``gar_matmul``
 (``src/repro/kernels/gar_matmul.py``) plus the output permutation of its
-``ops.gar_forward``: one launch computes ``y = P^{-1}[x@v_tilde ;
-(x@v_tilde)@u_hat^T]``. A cluster of 16 thread blocks per tile of 16
-tokens splits both products across 16 SMs and shares ``z`` through distributed
-shared memory, so ``z`` never goes to device memory. A rank whose z tile
-does not fit a block's shared memory (above some 2480) runs in rank passes,
-one launch each (``rank_passes``). Bound on the card: the bytes of
-``v_tilde`` and ``u_hat`` (serving T is small); see the source note. The
-plain version is ``ref.gar_matmul_ref`` followed by the same permutation
-(``ops``).
+``ops.gar_forward``: ``y = P^{-1}[x@v_tilde ; (x@v_tilde)@u_hat^T]`` in two
+launches. The first writes ``z = x @ v_tilde`` to a scratch buffer (it
+stays in L2), the second computes the tail from it and writes every output
+column in place, the identity ones copied from ``z``. Both products run on
+the tensor cores in 3xTF32, tiled over every SM (``tiling``). Bound on the
+card: the bytes of ``v_tilde`` and ``u_hat`` at decode, the operations at
+a prefill chunk; see the source note. The plain version is
+``ref.gar_matmul_ref`` followed by the same permutation (``ops``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tiles
+from repro_torch.kernels.lowrank_matmul import card_slots
 
-# launches of the CUDA kernel since the last reset (plain int, read by
-# chip_smoke.py to prove the serving path went through the kernel); every
-# rank pass is a launch, and ``pass_launches`` counts those after a call's
-# first
+# CUDA launches since the last reset (plain int, read by chip_smoke.py to
+# prove the serving path went through the kernel): two a call
 launches = 0
-pass_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    """The built library with its C signatures declared, once."""
-    lib = build.library("gar_matmul")
-    lib.gar_matmul_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _P]
+def _lib(defines: Tuple[str, ...] = ()):
+    """The built library (with the ``-D`` macros of a variant, see
+    ``tools/core_variants.py``) with its C signature declared, once."""
+    lib = build.library("gar_matmul", defines)
+    lib.gar_matmul_f32.argtypes = [_P] * 6 + [_I] * 11 + [_P]
     lib.gar_matmul_f32.restype = _I
-    lib.gar_matmul_smem_bytes.argtypes = [_I]
-    lib.gar_matmul_smem_bytes.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=4096)
+def tiling(t: int, n: int, r: int, m: int,
+           slots: tiles.Slots = tiles.CLUSTER_SLOTS) -> tiles.Tiling:
+    """The tiling of a call on x (t, n), v_tilde (n, r), m outputs, on a
+    card of cluster occupancy ``slots`` (cached: a model's shapes repeat
+    every layer and step)."""
+    mt = m - r
+    bn = tiles.token_tile(t, [(r, n), (mt, r)], slots)
+    ldz = -(-r // 4) * 4
+    return tiles.Tiling(
+        tiles.stage(r, n, t, bn, slots=slots),
+        tiles.stage(mt, r, t, bn, tiles.copy_blocks(t, m), slots),
+        ldz, t * ldz + mt)
 
 
 def gar_matmul(x: torch.Tensor, v_tilde: torch.Tensor, u_hat: torch.Tensor,
                perm_inv: torch.Tensor) -> torch.Tensor:
     """x (T, n), v_tilde (n, r), u_hat (m - r, r) float32 and perm_inv (m,)
     int64, all contiguous on one CUDA device. Returns y (T, m)."""
-    global launches, pass_launches
+    global launches
     tensors = (x, v_tilde, u_hat, perm_inv)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("gar_matmul launches on CUDA tensors only")
@@ -74,21 +85,14 @@ def gar_matmul(x: torch.Tensor, v_tilde: torch.Tensor, u_hat: torch.Tensor,
     y = torch.empty((t, r + mt), dtype=x.dtype, device=x.device)
     if t == 0:
         return y
-    lib = _lib()
-    passes = rank_passes(lib, r)
-    for i, (j0, j1) in enumerate(passes):
-        rc = lib.gar_matmul_f32(x.data_ptr(), v_tilde.data_ptr(),
-                                u_hat.data_ptr(), perm_inv.data_ptr(),
-                                y.data_ptr(), t, n, r, mt, j0, j1 - j0,
-                                int(i > 0), build.stream_ptr(x.device))
-        build.check(rc, "gar_matmul")
-    launches += len(passes)
-    pass_launches += len(passes) - 1
+    plan = tiling(t, n, r, r + mt, card_slots())
+    scratch = plan.scratch(x.device)
+    s1, s2 = plan.stage1, plan.stage2
+    rc = _lib().gar_matmul_f32(
+        x.data_ptr(), v_tilde.data_ptr(), u_hat.data_ptr(),
+        perm_inv.data_ptr(), y.data_ptr(), scratch.data_ptr(), t, n, r, mt,
+        s1.bn, s1.rows, s1.split, s1.k_chunk, s2.rows, s2.split, s2.k_chunk,
+        build.stream_ptr(x.device))
+    build.check(rc, "gar_matmul")
+    launches += 2
     return y
-
-
-def rank_passes(lib, r: int):
-    """The column ranges ``[j0, j1)`` of z that one launch each computes:
-    as few, and as even, as the shared memory of a block allows (one range
-    up to some 2480 columns)."""
-    return build.rank_passes(lib.gar_matmul_smem_bytes, r)
