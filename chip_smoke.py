@@ -10,7 +10,8 @@ Phases, each fatal on failure:
                card, at the main paths' shapes (windowed attention and
                GAR at gemma3's widths among them) and at ragged ones, and
                time kernel, plain version and (where one exists) one
-               PyTorch library call with CUDA events;
+               PyTorch library call with CUDA events; log the attention
+               kernels' split scratch at gemma3's T 264;
   3. serve   - serve gpt2-small at full width (random weights from a seed,
                the serving launcher's calibrated DataSVD state) through
                ``ElasticEngine``: 8 requests at budgets 0.4 and 1.0, half
@@ -726,9 +727,10 @@ def decode_check(cfg, rows, prompts, steps, dev, max_len):
     log(f"# decode: {cfg.name} rows {sorted(rows)}, {b} slots (prompts "
         f"{min(map(len, prompts))}-{max(map(len, prompts))}), {steps} steps "
         f"each: paged_decode_step vs paged_mixed_step logits worst rel "
-        f"{worst:.2e}, greedy tokens identical; median step {med_dec:.2f} ms "
-        f"(decode) vs {med_mix:.2f} ms (mixed); decode kernel launches "
-        f"{launches}")
+        f"{worst:.2e} (bit-identical: {'yes' if worst == 0.0 else 'no'}), "
+        f"greedy tokens identical; median step {med_dec:.2f} ms (decode) vs "
+        f"{med_mix:.2f} ms (mixed); decode kernel launches {launches} (two "
+        f"a layer)")
     return launches, worst, med_dec, med_mix
 
 
@@ -1218,7 +1220,13 @@ def main() -> int:
          (0.0, 30.0), (None, 9, 1)),
         ("ragged GQA 8/2 D=32 BS=8", (10, 8, 2, 32, 8, 3, 4, 2, 4), (0.0,),
          (None, 13)),
+        # a D that is not a multiple of 4: the scalar path
+        ("ragged GQA 6/2 D=18 BS=5", (12, 6, 2, 18, 5, 3, 4, 2, 6),
+         (0.0, 30.0), (None, 7)),
     ], rng, report)
+    log(f"# paged attention scratch (partials of every split) at gemma3 "
+        f"T=264: {paged_attention.scratch_bytes(264, 32, 128, 128, 16)} "
+        f"bytes a call")
     dec_err = check_decode(dev, [
         ("gpt2 B=8 Hq=Hkv=12 D=64 BS=16", (8, 12, 12, 64, 16, 16, 90, 256),
          (0.0, 30.0), (None,)),
@@ -1227,6 +1235,8 @@ def main() -> int:
          (None, 1024, 1000)),
         ("ragged B=5 GQA 12/4 D=40 BS=7", (5, 12, 4, 40, 7, 3, 1, 21),
          (0.0, 30.0), (None, 9, 1)),
+        ("ragged B=3 GQA 6/2 D=18 BS=5", (3, 6, 2, 18, 5, 4, 1, 20),
+         (0.0,), (None, 7)),
     ], rng, report)
     samp_err = check_sampling(dev, [("S=8 V=50257", 8, 50257),
                                     ("S=4 V=50257", 4, 50257),

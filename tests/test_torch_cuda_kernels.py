@@ -180,7 +180,8 @@ def _attn_inputs(hq, hkv, d, bs, mb, t):
                                               (12, 12, 64, 16, 16, 8),
                                               (8, 2, 32, 8, 4, 10),
                                               (12, 4, 40, 7, 3, 10),
-                                              (5, 5, 24, 3, 4, 10)])
+                                              (5, 5, 24, 3, 4, 10),
+                                              (6, 2, 18, 5, 4, 12)])
 def test_paged_attention_kernel_matches_plain(dev, hq, hkv, d, bs, mb, t):
     args = [_t(a, dev) for a in _attn_inputs(hq, hkv, d, bs, mb, t)]
     for softcap in (0.0, 30.0):
@@ -227,7 +228,8 @@ DECODE_CASES = [(12, 12, 64, 16, 16, [256, 100, 1, 17, 160, 33, 250, 64]),
                 (32, 16, 128, 16, 128, [2048, 1024, 1500, 1, 1100, 1999,
                                         1025, 1234]),
                 (8, 2, 32, 8, 4, [32, 17, 1]),
-                (5, 5, 24, 3, 4, [12, 7, 1])]
+                (5, 5, 24, 3, 4, [12, 7, 1]),
+                (6, 2, 18, 5, 4, [20, 9, 1])]   # D 18: the scalar path
 
 
 @pytest.mark.parametrize("case", range(len(DECODE_CASES)))
@@ -241,7 +243,7 @@ def test_paged_decode_kernel_matches_plain(dev, case, window):
         before = ak.decode_launches
         y_k = ops.paged_attention_forward(*args, softcap=softcap,
                                           window=window)
-        assert ak.decode_launches == before + 1
+        assert ak.decode_launches == before + 2   # units, then the merge
         y_p = ops.paged_attention_forward(*[a.cpu() for a in args],
                                           softcap=softcap, window=window)
         assert torch.isfinite(y_k).all()
@@ -268,6 +270,111 @@ def test_paged_attention_kernel_repeatable(dev):
                 f", contexts {[int(inputs[5][tok]) for tok, _ in moved[:8]]}"
                 f", max diff {float((y - y0).abs().max()):.3e}")
         assert float((y_k - y_p).abs().max()) < 2e-5
+
+
+def _gemma_decode_inputs(seed):
+    """gemma3's decode shape: 8 slots, Hq 32, Hkv 16, D 128, BS 16, MB 128,
+    contexts 1024-2048."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1024, 2049, 8)
+    return _decode_inputs(32, 16, 128, 16, 128, lens, seed)
+
+
+def _gemma_mixed_inputs(seed):
+    """gemma3's mixed iteration: 8 decode tokens of 8 slots, then a
+    256-token chunk of a ninth slot at positions start .. start + 255 (T
+    264), all over tables of 128 blocks of 16 keys."""
+    rng = np.random.default_rng(seed)
+    b, mb, bs = 9, 128, 16
+    nb = b * mb + 1
+    kp, vp = (rng.standard_normal((nb, bs, 16, 128)).astype(np.float32)
+              for _ in range(2))
+    tables = (1 + rng.permutation(b * mb).reshape(b, mb)).astype(np.int32)
+    start = int(rng.integers(0, mb * bs - 256 + 1))
+    sid = np.concatenate([np.arange(8), np.full(256, 8)]).astype(np.int32)
+    lens = np.concatenate([rng.integers(1024, 2049, 8),
+                           start + 1 + np.arange(256)]).astype(np.int32)
+    q = rng.standard_normal((264, 32, 128)).astype(np.float32)
+    return q, kp, vp, tables, sid, lens
+
+
+@pytest.mark.parametrize("window", [None, 1024, 1000])
+def test_decode_and_flat_kernels_bit_identical(dev, window):
+    """The decode kernel and the flat-token kernel with one token a slot run
+    each slot's token through the same instructions: the same bits."""
+    from repro_torch.kernels import paged_attention as ak
+    q, kp, vp, tables, lens = (_t(a, dev) for a in _gemma_decode_inputs(3))
+    sid = torch.arange(8, dtype=torch.int32, device=dev)
+    for softcap in (0.0, 30.0):
+        y_d = ops.paged_attention_forward(q, kp, vp, tables, lens,
+                                          softcap=softcap, window=window)
+        before = ak.launches
+        y_f = ops.paged_prefill_attention_forward(
+            q, kp, vp, tables, sid, lens, softcap=softcap, window=window)
+        assert ak.launches == before + 2   # units, then the merge
+        assert torch.equal(y_d, y_f), float((y_d - y_f).abs().max())
+
+
+@pytest.mark.parametrize("window", [None, 1000])
+def test_attention_kernels_repeat_at_gemma_shapes(dev, window):
+    """Two calls of each kernel give the same bits at gemma3's decode and
+    T 264 shapes, and both hold the plain version."""
+    dec = [_t(a, dev) for a in _gemma_decode_inputs(4)]
+    mixed = [_t(a, dev) for a in _gemma_mixed_inputs(5)]
+    for fn, args in ((ops.paged_attention_forward, dec),
+                     (ops.paged_prefill_attention_forward, mixed)):
+        y1 = fn(*args, window=window)
+        y2 = fn(*args, window=window)
+        assert torch.equal(y1, y2)
+        y_p = fn(*[a.cpu() for a in args], window=window)
+        assert float((y1.cpu() - y_p).abs().max()) < 2e-5
+
+
+# contexts that end on a split boundary (256 keys at BS 16), one key past
+# it, one key, and a window of one key and one that starts mid-block
+SPLIT_EDGE_LENS = [256, 257, 512, 513, 1, 255, 768, 100]
+
+
+@pytest.mark.parametrize("window", [None, 1, 300, 256])
+def test_attention_kernels_at_split_edges(dev, window):
+    from repro_torch.kernels import paged_attention as ak
+    assert ak.split_layout(64, 16) == (256, 4)
+    q, kp, vp, tables, lens = _decode_inputs(32, 16, 128, 16, 64,
+                                             SPLIT_EDGE_LENS, 11)
+    dec = [_t(a, dev) for a in (q, kp, vp, tables, lens)]
+    # the same slots as flat tokens, each slot's last key positions also
+    # as a chunk: tokens of one slot with contexts around the boundaries
+    chunk_lens = np.arange(250, 262, dtype=np.int32)
+    sid = np.concatenate([np.arange(8), np.full(12, 6)]).astype(np.int32)
+    flat_lens = np.concatenate([lens, chunk_lens]).astype(np.int32)
+    fq = np.random.default_rng(12).standard_normal(
+        (20, 32, 128)).astype(np.float32)
+    flat = [_t(a, dev) for a in (fq, kp, vp, tables, sid, flat_lens)]
+    for softcap in (0.0, 30.0):
+        for fn, args in ((ops.paged_attention_forward, dec),
+                         (ops.paged_prefill_attention_forward, flat)):
+            y_k = fn(*args, softcap=softcap, window=window)
+            y_p = fn(*[a.cpu() for a in args], softcap=softcap,
+                     window=window)
+            assert torch.isfinite(y_k).all()
+            assert float((y_k.cpu() - y_p).abs().max()) < 2e-5, fn
+
+
+def test_attention_wrappers_do_not_synchronise(dev):
+    """Neither wrapper reads a device tensor on the host: under the sync
+    debug mode "error" a synchronising call would raise."""
+    dec = [_t(a, dev) for a in _gemma_decode_inputs(6)]
+    mixed = [_t(a, dev) for a in _gemma_mixed_inputs(7)]
+    from repro_torch.kernels import paged_attention as ak
+    ak.paged_attention(*dec)          # built and loaded outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ak.paged_attention(*dec, window=1000)
+        ak.paged_prefill_attention(*mixed, softcap=30.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("s,v", [(8, 50257), (9, 515), (3, 64), (1, 1000)])
