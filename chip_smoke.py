@@ -462,21 +462,55 @@ def check_decode(dev, cases, rng, report):
     return worst
 
 
+def _tie_rows(rng, s, v):
+    """Rows of the sampling edge cases: even rows greedy, with their max on
+    both sides of the first split edge (the first occurrence must win);
+    odd rows at temperature 0.7 and top-k 3 with five entries tied above
+    the rest (every tied entry kept). Returns (logits, temperature, top_k,
+    u) as numpy arrays."""
+    from repro_torch.kernels import sampling as sk
+    _, _, per, _ = sk.split_layout(s, v)
+    edge = min(per * sk.BLOCK, v - 1)
+    logits = rng.standard_normal((s, v)).astype(np.float32)
+    greedy = np.arange(s) % 2 == 0
+    logits[np.ix_(greedy, [edge - 1, edge])] = 9.0
+    ties = np.linspace(0, v - 1, 5).astype(int)
+    logits[np.ix_(~greedy, ties)] = 8.0
+    return (logits, np.where(greedy, 0.0, 0.7).astype(np.float32),
+            np.where(greedy, 0, 3).astype(np.int32),
+            rng.random(s).astype(np.float32))
+
+
 def check_sampling(dev, cases, rng, report):
+    """cases: (label, S, V, ties). Random rows, half greedy, half at
+    temperature 0.8 and top-k 40, or ``_tie_rows``; tokens equal to the
+    plain version's with and without probs and through ``ops``, probs
+    within TOL_PROBS. Unless ragged: times the kernel, the plain version
+    and the serving call (``ops.topk_mask_sample_forward`` with per-row
+    top-k, the threshold sort included)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import sampling as sk
     worst = 0.0
-    for label, s, v in cases:
-        logits = torch.as_tensor((rng.standard_normal((s, v)) * 3)
-                                 .astype(np.float32), device=dev)
-        temp = torch.as_tensor(np.where(np.arange(s) % 2, 0.8, 0.0)
-                               .astype(np.float32), device=dev)
-        top_k = torch.as_tensor(np.where(np.arange(s) % 2, 40, 0)
-                                .astype(np.int32), device=dev)
-        u = torch.as_tensor(rng.random(s).astype(np.float32), device=dev)
+    for label, s, v, ties in cases:
+        if ties:
+            arrays = _tie_rows(rng, s, v)
+        else:
+            arrays = ((rng.standard_normal((s, v)) * 3).astype(np.float32),
+                      np.where(np.arange(s) % 2, 0.8, 0.0).astype(
+                          np.float32),
+                      np.where(np.arange(s) % 2, 40, 0).astype(np.int32),
+                      rng.random(s).astype(np.float32))
+        logits, temp, top_k, u = (torch.as_tensor(a, device=dev)
+                                  for a in arrays)
         z = logits / torch.clamp(temp, min=1e-30)[:, None]
-        for thr in (ref.topk_threshold_ref(z, top_k),
-                    torch.full((s,), -math.inf, device=dev)):
+        # the tie rows only under their top-k threshold, where every kept
+        # weight is exactly 1: untruncated, their draw crosses among ~2.6e5
+        # weights near 3e-5, where two summation orders (the kernel's and
+        # torch's) can put u * total on either side of a token
+        thresholds = [ref.topk_threshold_ref(z, top_k)]
+        if not ties:
+            thresholds.append(torch.full((s,), -math.inf, device=dev))
+        for thr in thresholds:
             tok, probs = sk.topk_mask_sample(logits, temp, thr, u,
                                              return_probs=True)
             tok_only = sk.topk_mask_sample(logits, temp, thr, u)
@@ -502,6 +536,10 @@ def check_sampling(dev, cases, rng, report):
         ms = device_ms([lambda a=a: sk.topk_mask_sample(*a) for a in sets])
         plain_ms = device_ms([lambda a=a: ref.topk_mask_sample_ref(
             *a, return_probs=False) for a in sets])
+        serve_ms = device_ms([lambda a=a: ops.topk_mask_sample_forward(
+            a[0], temp, top_k, u) for a in sets])
+        log(f"# topk_mask_sample [{label}]: the serving call (threshold "
+            f"sort included) {serve_ms:.4f} ms, the kernel {ms:.4f} ms")
         work = nbytes(logits, temp, thr, u) + s * 4
         b, by = bound_ms(work, 12 * s * v)
         report.append(dict(kernel="topk_mask_sample", shape=label, ms=ms,
@@ -1238,11 +1276,16 @@ def main() -> int:
         ("ragged B=3 GQA 6/2 D=18 BS=5", (3, 6, 2, 18, 5, 4, 1, 20),
          (0.0,), (None, 7)),
     ], rng, report)
-    samp_err = check_sampling(dev, [("S=8 V=50257", 8, 50257),
-                                    ("S=4 V=50257", 4, 50257),
-                                    ("S=8 V=262144", 8, 262144),
-                                    ("ragged S=9 V=515", 9, 515),
-                                    ("ragged S=3 V=64", 3, 64)], rng, report)
+    samp_err = check_sampling(dev, [("S=8 V=50257", 8, 50257, False),
+                                    ("S=4 V=50257", 4, 50257, False),
+                                    ("S=8 V=262144", 8, 262144, False),
+                                    ("ragged S=9 V=515", 9, 515, False),
+                                    ("ragged S=3 V=64", 3, 64, False),
+                                    ("ragged S=5 V=1025", 5, 1025, False),
+                                    ("ragged ties S=8 V=262144", 8, 262144,
+                                     True),
+                                    ("ragged ties S=6 V=1025", 6, 1025,
+                                     True)], rng, report)
     last = table.table.shape[0] - 1
     lr_cases = []
     for k in (0, last):

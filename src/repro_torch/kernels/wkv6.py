@@ -2,10 +2,11 @@
 
 Replaces the JAX package's Pallas ``wkv6``
 (``src/repro/kernels/rwkv6_wkv.py``): one launch runs the recurrence of
-every (batch, head) from a zero state, one block each, with the (N, N)
-state in registers. It reads the (B, S, H, N) layout in place, where the
-reference's wrapper flattened to (B H, S, N) and padded S to a chunk
-multiple. Bound on the card: bytes; see the source note. The plain
+every (batch, head) from a zero state, one block of 128 threads each, the
+(N, N) state in registers as an 8-row by 4-column tile a thread. It reads
+the (B, S, H, N) layout in place, where the reference's wrapper flattened
+to (B H, S, N) and padded S to a chunk multiple. Bound on the card: bytes,
+held back by the latency of a step; see the source note. The plain
 versions are ``models.rwkv.wkv_chunked`` (what ``ops.wkv6_forward`` runs
 on the CPU) and the sequential ``ref.wkv6_ref``.
 """
@@ -21,7 +22,7 @@ from repro_torch.kernels import build
 # launches of the CUDA kernel since the last reset (see gar_matmul.launches)
 launches = 0
 
-HEAD_SIZE = 64             # N, fixed in the kernel (one thread a channel)
+HEAD_SIZE = 64             # N, fixed in the kernel (its lane tiles)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -400,6 +400,126 @@ def test_sampling_kernel_matches_plain(dev, s, v):
         np.testing.assert_array_equal(t_only.cpu().numpy(), t_p.numpy())
 
 
+def _sampling_call(logits, temps, topk, u, dev):
+    """Card tensors (logits, temperature, threshold, u) of a call whose
+    threshold is the rows' top-k cutoff (-inf where top-k is 0)."""
+    args = [_t(a, dev) for a in (logits, temps)]
+    z = args[0] / torch.clamp(args[1], min=1e-30)[:, None]
+    thr = ref.topk_threshold_ref(z, _t(topk, dev))
+    return (*args, thr, _t(u, dev))
+
+
+def _random_rows(s, v, seed):
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((s, v)) * 3).astype(np.float32)
+    temps = np.where(rng.random(s) < 0.3, 0.0,
+                     rng.uniform(0.2, 2.5, s)).astype(np.float32)
+    topk = np.where(rng.random(s) < 0.5, 0,
+                    rng.integers(1, min(v, 64) + 1, s)).astype(np.int64)
+    return logits, temps, topk, rng.random(s).astype(np.float32)
+
+
+@pytest.mark.parametrize("s,v", [(8, 50257), (8, 262144), (4, 50257)])
+def test_sampling_kernel_repeatable_in_three_launches(dev, s, v):
+    """The smoke's main shapes: two calls give the same bits, tokens and
+    probs, and a call is three launches (split maxima, block sums, draw)."""
+    from repro_torch.kernels import sampling as sk
+    args = _sampling_call(*_random_rows(s, v, s + v), dev)
+    before = sk.launches
+    t1, p1 = sk.topk_mask_sample(*args, return_probs=True)
+    t2, p2 = sk.topk_mask_sample(*args, return_probs=True)
+    t3 = sk.topk_mask_sample(*args)
+    assert sk.launches - before == 9
+    assert torch.equal(t1, t2) and torch.equal(t1, t3)
+    assert torch.equal(p1, p2)
+
+
+@pytest.mark.parametrize("v", [262144, 50257, 1025, 515, 3000])
+def test_sampling_tokens_equal_plain_over_seeds(dev, v):
+    """20 seeds of 8 rows (greedy, sampled, top-k or none): tokens equal
+    to the plain version's on the card, probs within 1e-5."""
+    from repro_torch.kernels import sampling as sk
+    for seed in range(20):
+        args = _sampling_call(*_random_rows(8, v, 1000 * seed + v), dev)
+        tok, probs = sk.topk_mask_sample(*args, return_probs=True)
+        t_ref, p_ref = ref.topk_mask_sample_ref(*args)
+        assert torch.equal(tok, t_ref), (seed, tok.tolist(), t_ref.tolist())
+        assert float((probs - p_ref).abs().max()) < 1e-5
+        assert torch.equal(sk.topk_mask_sample(*args), t_ref)
+
+
+def _edge_rows(v, s):
+    """The cases of ``tests/test_torch_sampling_splits.py`` on one batch:
+    greedy rows with their max on both sides of a split edge, and on two
+    entries of one split and one of the next; a flat greedy row; top-k 1;
+    five entries tied at top-k 3 (all kept); two tied at top-k 1; u = 0 and
+    1 - 2^-24 on rows whose kept weights are all exactly 1. Returns the
+    arrays and the tokens these rows must give."""
+    from repro_torch.kernels import sampling as sk
+    _, _, per, _ = sk.split_layout(s, v)
+    edge = per * sk.BLOCK
+    rng = np.random.default_rng(v)
+    logits = rng.standard_normal((s, v)).astype(np.float32)
+    temps = np.full(s, 0.7, np.float32)
+    topk = np.zeros(s, np.int64)
+    u = rng.random(s).astype(np.float32)
+    one_less = np.float32(1 - 2.0**-24)
+    ties = [7, edge - 1, edge, (edge + v) // 2, v - 1]
+    want = {}
+    logits[0, [edge - 1, edge]] = 9.0
+    logits[1, [3, edge - 5, edge]] = 9.0
+    logits[2, :] = 2.0
+    temps[:3] = 0.0
+    want.update({0: edge - 1, 1: 3, 2: 0})
+    topk[3], u[3] = 1, 0.999
+    want[3] = int(logits[3].argmax())
+    for row, uu, tok in ((4, 0.1, ties[0]), (5, 0.9, ties[4]),
+                         (6, 0.0, ties[0]), (7, one_less, ties[4])):
+        logits[row, ties] = 8.0
+        topk[row], u[row] = 3, uu
+        want[row] = tok
+    second = min(edge + 6, v - 1)
+    logits[8, [10, second]] = 9.0
+    topk[8], u[8] = 1, 0.7
+    want[8] = second
+    return (logits, temps, topk, u), want
+
+
+@pytest.mark.parametrize("v", [1025, 5000, 262144])
+def test_sampling_edge_cases(dev, v):
+    from repro_torch.kernels import sampling as sk
+    arrays, want = _edge_rows(v, 9)
+    args = _sampling_call(*arrays, dev)
+    tok, probs = sk.topk_mask_sample(*args, return_probs=True)
+    t_ref, p_ref = ref.topk_mask_sample_ref(*args)
+    assert torch.equal(tok, t_ref), (tok.tolist(), t_ref.tolist())
+    assert float((probs - p_ref).abs().max()) < 1e-5
+    assert {r: int(tok[r]) for r in want} == want
+    t_cpu = ops.topk_mask_sample_forward(*(torch.as_tensor(a)
+                                           for a in arrays))
+    np.testing.assert_array_equal(
+        ops.topk_mask_sample_forward(*(_t(a, dev) for a in arrays)).cpu(),
+        t_cpu)
+
+
+def test_sampling_and_wkv6_do_not_synchronise(dev):
+    """Neither wrapper waits for the card: no host synchronisation under
+    the sync debug mode "error"."""
+    from repro_torch.kernels import sampling as sk
+    from repro_torch.kernels import wkv6 as wk
+    args = _sampling_call(*_random_rows(8, 262144, 3), dev)
+    rec = [_t(a, dev) for a in _wkv_arrays(2, 40, 3, 4)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sk.topk_mask_sample(*args, return_probs=True)
+        sk.topk_mask_sample(*args)
+        wk.wkv6(*rec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def _wkv_arrays(b, s, h, seed):
     """r/k/v/u standard normal, w log-uniform over (1e-14, 1): some decays
     fall below the kernel's clamp of 1e-12."""
@@ -430,6 +550,54 @@ def test_wkv6_kernel_matches_plain(dev, b, s, h):
     y_s = ref.wkv6_ref(*flat, torch.as_tensor(arrays[4]).repeat(b, 1))
     y_s = y_s.reshape(b, h, s, 64).transpose(1, 2)
     assert float((y_k - y_s).abs().max()) / scale < 1e-4
+
+
+def _wkv_seq(arrays, dev):
+    """The sequential recurrence on the card, (B, S, H, N) in and out."""
+    b, s, h, n = arrays[0].shape
+    flat = [_t(a, dev).transpose(1, 2).reshape(b * h, s, n)
+            for a in arrays[:4]]
+    y = ref.wkv6_ref(*flat, _t(arrays[4], dev).repeat(b, 1))
+    return y.reshape(b, h, s, n).transpose(1, 2)
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 64, 70, 200])
+def test_wkv6_kernel_across_chunk_edges(dev, s):
+    """S on both sides of the kernel's 32-step chunks (the double-buffered
+    staging): within 2e-5 of the sequential recurrence and 2e-4 of the
+    chunked plain version (``chip_smoke.py``'s TOL_RECUR_SEQ and
+    TOL_RECUR_CHUNKED), relative to the output's max; one launch a call."""
+    from repro_torch.kernels import wkv6 as wk
+    arrays = _wkv_arrays(2, s, 3, s)
+    ts = [_t(a, dev) for a in arrays]
+    before = wk.launches
+    y = wk.wkv6(*ts)
+    assert wk.launches == before + 1
+    y_s = _wkv_seq(arrays, dev)
+    scale = float(y_s.abs().max()) + 1e-6
+    assert float((y - y_s).abs().max()) / scale < 2e-5
+    y_c = ops._wkv_plain(*ts, 64)
+    assert float((y - y_c).abs().max()) / scale < 2e-4
+
+
+def test_wkv6_kernel_repeatable_and_unaligned(dev):
+    """At rwkv6's training shape two calls give the same bits; operands
+    off the 16-byte grid take the kernel's 4-byte copies and give the same
+    bits as aligned ones."""
+    from repro_torch.kernels import wkv6 as wk
+    ts = [_t(a, dev) for a in _wkv_arrays(8, 128, 40, 1)]
+    y1 = wk.wkv6(*ts)
+    assert torch.equal(y1, wk.wkv6(*ts))
+    small = [_t(a, dev) for a in _wkv_arrays(2, 45, 3, 2)]
+    shifted = []
+    for t in small:
+        buf = torch.empty(t.numel() + 1, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        shifted.append(view)
+    assert torch.equal(wk.wkv6(*small[:4], small[4]),
+                       wk.wkv6(*shifted[:4], small[4]))
 
 
 def _ssd_arrays(b, s, h, g, seed):
