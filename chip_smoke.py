@@ -8,7 +8,9 @@ Phases, each fatal on failure:
                parallel) and print the build seconds;
   2. kernels - hold each kernel against its plain PyTorch version on the
                card, at the main paths' shapes (windowed attention and
-               GAR at gemma3's widths among them) and at ragged ones, and
+               GAR at gemma3's widths among them) and at ragged ones (ssd
+               also over three chunks and at steps whose sums pass
+               float32's exponent range), and
                time kernel, plain version and (where one exists) one
                PyTorch library call with CUDA events; log the attention
                kernels' split scratch at gemma3's T 264;
@@ -34,8 +36,9 @@ Phases, each fatal on failure:
   8. zamba2  - the same for zamba2-7b at full width cut to one
                ``zamba_unit`` (5 Mamba2 layers, the shared attention block,
                the unit's FFN) and one trailing Mamba2 layer, 5 steps;
-               ``ssd`` and ``lowrank_matmul`` launched; the card-vs-CPU step
-               at 2 Mamba2 layers (one in the unit, one trailing);
+               ``ssd`` (two launches a call, counted in whole calls) and
+               ``lowrank_matmul`` launched; the card-vs-CPU step at 2
+               Mamba2 layers (one in the unit, one trailing);
   9. decode  - the pure-decode path on gpt2-small: 8 prompts of 90-159
                tokens fill a ``PagedKVCache`` through ``paged_mixed_step``,
                then 32 greedy steps of ``paged_decode_step`` over
@@ -177,6 +180,8 @@ def kernel_line(e: dict) -> str:
              else f"{e['ms'] / e['library_ms']:.2f}")
     fp32 = (f", float32 bound {e['bound_fp32_ms']:.4f} ms"
             if "bound_fp32_ms" in e else "")
+    if "flops_form" in e:
+        fp32 += f" (flops of the {e['flops_form']} form)"
     return (f"# kernel {e['kernel']} [{e['shape']}]: {e['ms']:.4f} ms, "
             f"plain {e['plain_ms']:.4f} ms, library {lib} ms, kernel / "
             f"library {ratio}, bound {e['bound_ms']:.4f} ms "
@@ -549,13 +554,14 @@ def check_sampling(dev, cases, rng, report):
 
 
 def _check_recurrence(name, dev, label, kernel, plain, op, seq, arrays,
-                      chunk, work, flops, report):
+                      chunk, work, flops, report, bounds=None):
     """Hold ``kernel`` (the wrapper) against the sequential recurrence
     ``seq`` and the op's chunked plain version ``plain`` on the card; time
     kernel, chunked plain version, and a forward and backward through the
     training path's ``op`` (the kernel, then the chunked recompute under
     autograd) unless the shape is ragged. Returns the max abs error
-    against the sequential recurrence."""
+    against the sequential recurrence. ``bounds``: the row's bound keys
+    (default ``bound_ms`` of ``work`` bytes and ``flops`` in float32)."""
     ts = [torch.as_tensor(a, device=dev) for a in arrays]
     y = kernel(*ts)
     y_seq = seq(*ts)
@@ -570,7 +576,7 @@ def _check_recurrence(name, dev, label, kernel, plain, op, seq, arrays,
     if not err_chunked / scale < TOL_RECUR_CHUNKED:
         fail(f"{name} {label}: rel err {err_chunked / scale:.3e} against "
              "the chunked plain version")
-    if label.startswith("ragged"):
+    if label.startswith(("ragged", "large dt")):
         return err
     sets = [[t.clone() for t in ts]
             for _ in range(copies_for(nbytes(*ts)))]
@@ -581,10 +587,11 @@ def _check_recurrence(name, dev, label, kernel, plain, op, seq, arrays,
     train_ms = device_ms([lambda: op(*leaves, chunk=chunk).backward(dy)])
     log(f"# {name} [{label}]: forward and backward through the op "
         f"{train_ms:.4f} ms (the kernel, then the chunked recompute)")
-    b, by = bound_ms(work, flops)
+    if bounds is None:
+        b, by = bound_ms(work, flops)
+        bounds = dict(bound_ms=b, bound_by=by)
     report.append(dict(kernel=name, shape=label, ms=ms, plain_ms=plain_ms,
-                       library_ms=None, bound_ms=b, bound_by=by,
-                       max_abs_err=err))
+                       library_ms=None, max_abs_err=err, **bounds))
     return err
 
 
@@ -616,10 +623,32 @@ def check_wkv6(dev, cases, rng, report):
     return worst
 
 
+def ssd_chunked_flops(b, s, h, g, q=128) -> int:
+    """Flops of the ssd kernel's chunked form on these shapes (chunks of
+    q steps, the last ragged): the scores C B^T once per (batch, group,
+    chunk) and (G o L)(X dt) per head, over the triangles i >= j; C S per
+    head in every chunk after the first and the state update in every
+    chunk before the last (P = N = 64)."""
+    n = p = 64
+    total = 0
+    for c0 in range(0, s, q):
+        qc = min(q, s - c0)
+        tri = qc * (qc + 1) // 2
+        total += 2 * b * g * tri * n + 2 * b * h * tri * p
+        if c0 > 0:
+            total += 2 * b * h * qc * n * p
+        if c0 + q < s:
+            total += 2 * b * h * n * qc * p
+    return total
+
+
 def check_ssd(dev, cases, rng, report):
-    """cases: (label, B, S, H, G). x, b, c standard normal, dt the softplus
-    of a standard normal, a = -exp(0.3 N(0, 1)), P = N = 64, chunk 128 as
-    zamba2."""
+    """cases: (label, B, S, H, G, dt_scale). x, b, c standard normal; dt
+    the softplus of a standard normal and a = -exp(0.3 N(0, 1)), or with
+    dt_scale |N(0, 1)| x dt_scale and a = -|N(0, 1)| (a chunk's log-decay
+    then passes -88.7); P = N = 64, chunk 128 as zamba2. The bound: bytes
+    beside the chunked form's products in 3xTF32 (float32 after the
+    slash)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd as sk
 
@@ -634,17 +663,24 @@ def check_ssd(dev, cases, rng, report):
         return y.reshape(b, h, s, p).transpose(1, 2)
 
     worst = 0.0
-    for label, b, s, h, g in cases:
+    for label, b, s, h, g, dt_scale in cases:
         x = rng.standard_normal((b, s, h, 64)).astype(np.float32)
-        dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(
-            np.float32)
-        a = -np.exp(0.3 * rng.standard_normal(h)).astype(np.float32)
+        if dt_scale is None:
+            dt = np.log1p(np.exp(rng.standard_normal((b, s, h))))
+            a = -np.exp(0.3 * rng.standard_normal(h))
+        else:
+            dt = np.abs(rng.standard_normal((b, s, h))) * dt_scale
+            a = -np.abs(rng.standard_normal(h))
+        dt, a = dt.astype(np.float32), a.astype(np.float32)
         bb, cc = (rng.standard_normal((b, s, g, 64)).astype(np.float32)
                   for _ in range(2))
         work = 4 * (2 * b * s * h * 64 + b * s * h + h + 2 * b * s * g * 64)
+        flops = ssd_chunked_flops(b, s, h, g, sk.CHUNK)
         worst = max(worst, _check_recurrence(
             "ssd", dev, label, sk.ssd, ops._ssd_plain, ops.ssd_forward, seq,
-            (x, dt, a, bb, cc), 128, work, 5 * b * s * h * 64 * 64, report))
+            (x, dt, a, bb, cc), 128, work, flops, report,
+            dict(tf32x3_bounds(work, flops),
+                 flops_form=f"chunked Q={sk.CHUNK}, triangles")))
     return worst
 
 
@@ -1322,10 +1358,17 @@ def main() -> int:
     wkv_err = check_wkv6(dev, [("B=8 S=128 H=40 N=64", 8, 128, 40),
                                ("ragged B=3 S=70 H=5", 3, 70, 5),
                                ("ragged B=1 S=1 H=1", 1, 1, 1)], rng, report)
-    ssd_err = check_ssd(dev, [("B=8 S=128 H=112 G=1 P=N=64", 8, 128, 112, 1),
-                              ("ragged B=3 S=70 H=5 G=1", 3, 70, 5, 1),
-                              ("ragged B=1 S=33 H=6 G=2", 1, 33, 6, 2)],
-                        rng, report)
+    ssd_err = check_ssd(dev, [
+        ("B=8 S=128 H=112 G=1 P=N=64", 8, 128, 112, 1, None),
+        ("ragged B=3 S=70 H=5 G=1", 3, 70, 5, 1, None),
+        ("ragged B=1 S=33 H=6 G=2", 1, 33, 6, 2, None)], rng, report)
+    # three chunks with two heads a group, and steps whose sums pass
+    # float32's exponent range, from their own generator (the later
+    # phases' draws stay as they were)
+    ssd_err = max(ssd_err, check_ssd(dev, [
+        ("ragged B=2 S=257 H=8 G=2", 2, 257, 8, 2, None),
+        ("large dt B=2 S=200 H=4 G=2 (dt |N| x 4)", 2, 200, 4, 2, 4.0)],
+        np.random.default_rng(18), report))
     for e in report:
         log(kernel_line(e))
 
@@ -1421,6 +1464,12 @@ def main() -> int:
         (ssd, lowrank_matmul), dev, profiling)
     counts["wkv6"] = rwkv_counts["wkv6"]
     counts["ssd"] = zamba_counts["ssd"]
+    if counts["ssd"] % ssd.LAUNCHES_A_CALL:
+        fail(f"zamba2: {counts['ssd']} ssd launches, not a whole number of "
+             f"calls of {ssd.LAUNCHES_A_CALL} launches")
+    log(f"# zamba2: {counts['ssd']} ssd launches, "
+        f"{counts['ssd'] // ssd.LAUNCHES_A_CALL} calls of "
+        f"{ssd.LAUNCHES_A_CALL}")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -617,10 +617,113 @@ def test_ssd_kernel_matches_plain(dev, b, s, h, g):
     arrays = _ssd_arrays(b, s, h, g, b * s + h + g)
     before = sk.launches
     y_k = ops.ssd_forward(*(_t(a, dev) for a in arrays), chunk=128).cpu()
-    assert sk.launches == before + 1
+    assert sk.launches == before + sk.LAUNCHES_A_CALL
     y_p = ops.ssd_forward(*map(torch.as_tensor, arrays), chunk=128)
     scale = float(y_p.abs().max()) + 1e-6
     assert float((y_k - y_p).abs().max()) / scale < 1e-4
+
+
+def _ssd_seq(arrays, dev):
+    """The sequential recurrence on the card, (B, S, H, P) in and out."""
+    x, dt, a, bb, cc = (_t(t, dev) for t in arrays)
+    b, s, h, p = x.shape
+    rep = h // bb.shape[2]
+    bf, cf = (t.repeat_interleave(rep, 2).transpose(1, 2).reshape(
+        b * h, s, 64) for t in (bb, cc))
+    y = ref.ssd_ref(x.transpose(1, 2).reshape(b * h, s, p),
+                    dt.transpose(1, 2).reshape(b * h, s), a.repeat(b), bf,
+                    cf)
+    return y.reshape(b, h, s, p).transpose(1, 2)
+
+
+def _ssd_within_tolerance(arrays, dev):
+    """One call of the kernel: LAUNCHES_A_CALL launches, finite, within
+    2e-5 of the sequential recurrence and 2e-4 of the chunked plain
+    version (``chip_smoke.py``'s TOL_RECUR_SEQ and TOL_RECUR_CHUNKED),
+    relative to the output's max."""
+    from repro_torch.kernels import ssd as sk
+    ts = [_t(a, dev) for a in arrays]
+    before = sk.launches
+    y = sk.ssd(*ts)
+    assert sk.launches == before + sk.LAUNCHES_A_CALL
+    assert bool(torch.isfinite(y).all())
+    y_s = _ssd_seq(arrays, dev)
+    scale = float(y_s.abs().max()) + 1e-6
+    assert float((y - y_s).abs().max()) / scale < 2e-5
+    y_c = ops._ssd_plain(*ts, 128)
+    assert float((y - y_c).abs().max()) / scale < 2e-4
+
+
+@pytest.mark.parametrize("s", [127, 128, 129, 257])
+def test_ssd_kernel_across_chunk_edges(dev, s):
+    """S on both sides of the kernel's chunk of 128 steps (Q - 1, Q, Q + 1,
+    2Q + 1): the ragged tail masked, the state carried across chunks."""
+    _ssd_within_tolerance(_ssd_arrays(2, s, 4, 2, s), dev)
+
+
+@pytest.mark.parametrize("s,h,g", [(70, 8, 2), (200, 12, 4), (33, 6, 2),
+                                   (130, 7, 1)])
+def test_ssd_kernel_groups_of_several_heads(dev, s, h, g):
+    """G 2 and 4 with 4, 3 and 3 heads a group (a block takes two heads of
+    one group, so an odd group leaves a block of one), and H 7 in one
+    group."""
+    _ssd_within_tolerance(_ssd_arrays(2, s, h, g, s + h), dev)
+
+
+def test_ssd_kernel_large_steps(dev):
+    """dt = |N(0, 1)| x 4 and a = -|N(0, 1)|: a chunk's log-decay passes
+    -88.7, where the reference's masked exponent overflows; y stays
+    finite and within tolerance."""
+    rng = np.random.default_rng(21)
+    x, _, _, bb, cc = _ssd_arrays(2, 257, 4, 2, 21)
+    dt = (np.abs(rng.standard_normal((2, 257, 4))) * 4.0).astype(np.float32)
+    a = -np.abs(rng.standard_normal(4)).astype(np.float32)
+    assert float(np.cumsum(dt[0, :128] * a, 0).min()) < -88.7
+    _ssd_within_tolerance((x, dt, a, bb, cc), dev)
+
+
+def test_ssd_scan_reads_the_scores_of_its_own_call(dev):
+    """The scan launch waits for the scores launch before it reads them:
+    back to back at zamba2's shape, a call with other b and c (whose
+    scratch takes the memory the previous call's had) matches the
+    sequential recurrence on its own inputs."""
+    from repro_torch.kernels import ssd as sk
+    first = [_t(a, dev) for a in _ssd_arrays(8, 128, 112, 1, 3)]
+    arrays = _ssd_arrays(8, 128, 112, 1, 4)
+    second = [_t(a, dev) for a in arrays]
+    for _ in range(3):
+        sk.ssd(*first)
+        y = sk.ssd(*second)
+    y_s = _ssd_seq(arrays, dev)
+    scale = float(y_s.abs().max()) + 1e-6
+    assert float((y - y_s).abs().max()) / scale < 2e-5
+
+
+def test_ssd_kernel_repeatable_unaligned_and_sync_free(dev):
+    """At zamba2's training shape two calls give the same bits; operands off
+    the 16-byte grid take the kernel's 4-byte copies and give the same bits
+    as aligned ones; the wrapper never waits for the card."""
+    from repro_torch.kernels import ssd as sk
+    ts = [_t(a, dev) for a in _ssd_arrays(8, 128, 112, 1, 1)]
+    y1 = sk.ssd(*ts)
+    assert torch.equal(y1, sk.ssd(*ts))
+    small = [_t(a, dev) for a in _ssd_arrays(2, 150, 4, 2, 2)]
+    shifted = []
+    for t in small:
+        buf = torch.empty(t.numel() + 1, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        shifted.append(view)
+    assert torch.equal(sk.ssd(*small), sk.ssd(*shifted))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sk.ssd(*ts)
+        sk.ssd(*small)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_recurrences_backward_on_card_match_cpu(dev):
