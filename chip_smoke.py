@@ -54,7 +54,23 @@ Phases, each fatal on failure:
                max_batch=8, max_len=2048)`` at budgets 0.4 and 1.0; the
                decode check of phase 9; one greedy request card vs CPU on
                the 0.4 row cut to 2 layers; every kernel of the path
-               launched.
+               launched; then the spec check of phase 11 on the same
+               engine and requests, with the draft rank that makes row 0
+               (already deployed) the top row's draft row;
+  11. spec   - nested self-speculative decoding of gpt2-small on phase 3's
+               engine and requests: served plain, then with
+               ``SpecConfig(draft_rank=0.7, spec_len=4)``, then with
+               ``stochastic=False``, then the greedy half at budget 1.0 (the
+               greedy requests sit on the bottom row, which has no draft
+               row) plain and speculative, and the top row drafting for
+               itself (greedy drafts all accepted but at near ties: the
+               draft path's own check, since random weights leave the
+               prefix rows' acceptance near 0). Every speculative round is
+               queued under the sync debug mode "error" up to the read of
+               its commit; ``gar_matmul``, ``paged_prefill_attention`` and
+               ``topk_mask_sample`` (and its probs variant) launched; each
+               greedy and verify-only stream equals the plain one or parts
+               from it at a near tie (``TOL_SPEC_TIE``).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
@@ -67,6 +83,7 @@ gemma3-27b's requests twice more as it does gpt2-small's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -94,6 +111,19 @@ TOL_PROBS = 1e-5               # warped probs, absolute; tokens identical
 # same rows; float32 sums of other launch shapes at most)
 TOL_DECODE = 1e-5
 GEMMA_DECODE_STEPS = 32        # decode-check steps on gemma3, each row
+# a speculative stream may part from the plain engine's only where the
+# plain run's choice is a near tie: greedy, the top two logits within this
+# of the logits' max; sampled, the uniform within this of an edge of the
+# drawn token's CDF interval. Verify runs and draft steps give the kernels
+# other token counts than plain decode (GAR's token tile and split-K, the
+# attention kernel's query tiles), so a row's logits can move in their last
+# bits, which phase 9's constant bounds for one launch shape
+TOL_SPEC_TIE = TOL_DECODE
+SPEC_LEN = 4
+# the top row drafting for itself proposes the target's own argmax, so a
+# greedy draft is rejected only at a near tie between a draft step's logits
+# and the verify run's: the acceptance rate must reach this
+SELF_DRAFT_ACCEPT = 0.95
 TOL_LOWRANK = 2e-4             # low-rank linear, relative to the output's max
 # WKV6 and SSD, relative to the output's max: against the sequential
 # recurrences (the kernel's own order of operations), and against the
@@ -808,6 +838,233 @@ def decode_check(cfg, rows, prompts, steps, dev, max_len):
     return launches, worst, med_dec, med_mix
 
 
+def prefix_logits(params, cfg, tokens, dev, max_len) -> np.ndarray:
+    """The plain model's next-token logits after ``tokens`` (float64 on the
+    host), from one ``paged_mixed_step`` over the whole prefix."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.kv_cache import PagedKVCache
+    n = len(tokens)
+    i32 = torch.int32
+    cache = PagedKVCache(cfg, max_batch=1, max_len=max_len, block_size=16,
+                         prefix_cache=False, device=dev)
+    cache.open_slot(0)
+    cache.extend_slot(0, n)
+    logits, _ = tfm.paged_mixed_step(params, cfg, {
+        "slot_ids": torch.zeros(n, dtype=i32, device=dev),
+        "positions": torch.arange(n, dtype=i32, device=dev),
+        "block_tables": cache.device_tables(null_rows=1),
+        "segments": cache.pools,
+        "sample_ids": torch.tensor([n - 1], device=dev)},
+        torch.as_tensor(tokens, dtype=i32, device=dev)[None])
+    return logits[0, -1].double().cpu().numpy()
+
+
+def spec_divergences(label, engine, reqs, plain, spec, dev, max_len,
+                     req_ids=None) -> int:
+    """Hold each speculative stream to the plain one: equal, or parting at
+    a near tie of the plain run (``TOL_SPEC_TIE``). ``req_ids``: each
+    request's id in the plain run (its keyed draws), default its index.
+    Returns the count of near-tie partings; fails on any other."""
+    from repro_torch.serving import SamplerState
+    from repro_torch.serving import device_sampling as dsamp
+    from repro_torch.serving.sampling import DRAW_TARGET
+    ties = 0
+    for i, (rq, a, b) in enumerate(zip(reqs, plain, spec)):
+        rid = i if req_ids is None else req_ids[i]
+        if len(a.tokens) != len(b.tokens):
+            fail(f"{label}: request {rid} returned {len(b.tokens)} tokens, "
+                 f"the plain engine {len(a.tokens)}")
+        if np.array_equal(a.tokens, b.tokens):
+            continue
+        j = int(np.flatnonzero(a.tokens != b.tokens)[0])
+        z = prefix_logits(engine._realize(a.budget_row), engine.cfg,
+                          a.tokens[:j], dev, max_len)
+        if rq.sampling is None:
+            top = np.argsort(-z)[:2]
+            gap = float(z[top[0]] - z[top[1]]) / float(np.abs(z).max())
+            ok = (gap <= TOL_SPEC_TIE
+                  and {int(a.tokens[j]), int(b.tokens[j])}
+                  <= set(top.tolist()))
+            what = f"top-2 gap {gap:.3e} of the logits' max"
+        else:
+            # the plain engine drew token j with the keyed DRAW_TARGET
+            # uniform at position j
+            p = SamplerState(rq.sampling, rid).probs(z)
+            seed = np.int64(rq.sampling.seed).astype(np.uint32).view(
+                np.int32)
+            u = float(dsamp.keyed_uniform(
+                *[torch.tensor([x], dtype=torch.int32)
+                  for x in (seed, rid, DRAW_TARGET, j)])[0])
+            cdf = np.cumsum(p)
+            tok = int(a.tokens[j])
+            lo = float(cdf[tok - 1]) if tok else 0.0
+            dist = min(abs(u - lo), abs(float(cdf[tok]) - u))
+            ok = dist <= TOL_SPEC_TIE
+            what = f"uniform {dist:.3e} from its CDF interval's edge"
+        log(f"# {label}: request {rid} parts from the plain stream at token "
+            f"{j}: plain {int(a.tokens[j])}, spec {int(b.tokens[j])}, "
+            f"{what}")
+        if not ok:
+            fail(f"{label}: request {rid} parts from the plain stream at "
+                 f"token {j} beyond a near tie ({what}, tolerance "
+                 f"{TOL_SPEC_TIE})")
+        ties += 1
+    return ties
+
+
+@contextlib.contextmanager
+def sync_free_rounds():
+    """Queue every speculative round under the sync debug mode "error":
+    any host synchronisation before the round's commit is read raises."""
+    from repro_torch.spec.decoder import SpecDecoder
+    queue = SpecDecoder._enqueue_round
+
+    def checked(self, plans, chunks):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return queue(self, plans, chunks)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    SpecDecoder._enqueue_round = checked
+    try:
+        yield
+    finally:
+        SpecDecoder._enqueue_round = queue
+
+
+def serve_timed(engine, reqs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.generate(reqs, mode="continuous")
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, engine.last_metrics.summary()
+
+
+def spec_phase(label, engine, reqs, plain, plain_s, draft_rank, dev,
+               max_len, prefix_cache=False) -> dict:
+    """Phase 11 (and the spec part of phase 10) on ``engine``, whose plain
+    run of ``reqs`` gave ``plain`` (summary ``plain_s``): speculative,
+    verify-only and greedy-at-the-top-row runs, each held to the plain
+    streams. ``prefix_cache`` turns the engine's prefix caching on for
+    these runs, so that each draft slot aliases its target's full prompt
+    blocks instead of warming its cache ``gap_chunk`` (32) prompt tokens a
+    round (the requests share no prompt, so no run hits the index).
+    Returns the launches of the serving kernels in the speculative run."""
+    from repro_torch.kernels import gar_matmul, paged_attention, sampling
+    from repro_torch.serving import Request
+    from repro_torch.spec import SpecConfig
+    cfg = engine.cfg
+    new = reqs[0].max_new_tokens
+    engine.prefix_cache = prefix_cache
+    engine.spec = SpecConfig(draft_rank=draft_rank, spec_len=SPEC_LEN)
+    drafts = {r: engine.spec_draft_row(r)
+              for r in range(engine.table.table.shape[0])}
+    served = sorted({engine._budget_row(r.budget) for r in reqs}
+                    | {engine._budget_row(1.0)})
+    for r in served:                    # deploys are set-up, not serving
+        if drafts[r] is not None:
+            engine._realize(drafts[r])
+    log(f"# {label} spec: draft_rank {draft_rank:.6f}, spec_len {SPEC_LEN}, "
+        f"gap_chunk {engine.spec.gap_chunk}, prefix cache "
+        f"{'on' if prefix_cache else 'off'}; draft row of each target row "
+        f"{drafts}; rows served {served}")
+    for k in (gar_matmul, paged_attention, sampling):
+        k.launches = 0
+    sampling.probs_launches = 0
+    with sync_free_rounds():
+        spec, wall, s = serve_timed(engine, reqs)
+    counts = {"gar_matmul": gar_matmul.launches,
+              "paged_prefill_attention": paged_attention.launches,
+              "topk_mask_sample": sampling.launches,
+              "topk_mask_sample_probs": sampling.probs_launches}
+    for rq, rs in zip(reqs, spec):
+        gen = rs.tokens[len(rq.prompt):]
+        if len(gen) != new or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+            fail(f"{label} spec: a request returned {len(gen)} new tokens "
+                 "or one out of the vocabulary")
+    log(f"# {label} spec: {s['spec_rounds']:.0f} rounds, "
+        f"{s['spec_draft_tokens']:.0f} drafted, "
+        f"{s['spec_accepted_tokens']:.0f} accepted, acceptance rate "
+        f"{s['spec_acceptance_rate']:.4f}, mean accepted tokens "
+        f"{s['spec_mean_accepted_len']:.4f} a drafting sequence's round; "
+        f"{s['mixed_iterations']:.0f} rounds and plain iterations in all")
+    log(f"# {label} spec vs plain: {s['tokens_per_s']:.1f} vs "
+        f"{plain_s['tokens_per_s']:.1f} tok/s, ttft mean "
+        f"{s['ttft_mean_s'] * 1e3:.1f} vs {plain_s['ttft_mean_s'] * 1e3:.1f}"
+        f" ms, wall {wall:.2f} s, dispatch {s['dispatch_ms_mean']:.2f} ms / "
+        f"host {s['host_ms_mean']:.2f} ms an iteration or round")
+    log(f"# {label} spec kernels: launches in the speculative run "
+        f"{json.dumps(counts)}; no host sync in any round before its "
+        "commit was read")
+    if min(counts.values()) <= 0:
+        fail(f"{label} spec: a kernel of the speculative path never "
+             f"launched: {counts}")
+    greedy = [i for i, r in enumerate(reqs) if r.sampling is None]
+    ties = spec_divergences(f"{label} spec greedy", engine,
+                            [reqs[i] for i in greedy],
+                            [plain[i] for i in greedy],
+                            [spec[i] for i in greedy], dev, max_len, greedy)
+
+    # verify-only: sampled requests run k = 0 rounds, token-identical to
+    # the plain engine's draws (all served again, so the req_ids match)
+    engine.spec = SpecConfig(draft_rank=draft_rank, spec_len=SPEC_LEN,
+                             stochastic=False)
+    with sync_free_rounds():
+        vo, _, s_vo = serve_timed(engine, reqs)
+    ties += spec_divergences(f"{label} verify-only", engine, reqs, plain, vo,
+                             dev, max_len)
+    log(f"# {label} verify-only (stochastic=False): {s_vo['spec_rounds']:.0f}"
+        f" rounds, {s_vo['spec_draft_tokens']:.0f} drafted, "
+        f"{s_vo['tokens_per_s']:.1f} tok/s; streams held to the plain "
+        "engine's")
+
+    # the greedy half at the top row, plain then speculative
+    top = [Request(prompt=reqs[i].prompt, max_new_tokens=new, budget=1.0)
+           for i in greedy]
+    engine.spec = None
+    top_plain, _, s_tp = serve_timed(engine, top)
+    engine.spec = SpecConfig(draft_rank=draft_rank, spec_len=SPEC_LEN)
+    with sync_free_rounds():
+        top_spec, _, s_ts = serve_timed(engine, top)
+    ties += spec_divergences(f"{label} greedy top row", engine, top,
+                             top_plain, top_spec, dev, max_len)
+    log(f"# {label} greedy at the top row: {s_ts['spec_rounds']:.0f} rounds,"
+        f" acceptance rate {s_ts['spec_acceptance_rate']:.4f}, mean accepted"
+        f" tokens {s_ts['spec_mean_accepted_len']:.4f}; "
+        f"{s_ts['tokens_per_s']:.1f} vs {s_tp['tokens_per_s']:.1f} tok/s "
+        f"plain, ttft mean {s_ts['ttft_mean_s'] * 1e3:.1f} vs "
+        f"{s_tp['ttft_mean_s'] * 1e3:.1f} ms")
+
+    # the draft path itself: the top row drafting for itself must accept
+    # its greedy drafts (random weights leave the prefix rows' acceptance
+    # near 0, where a fault in the drafts would not show)
+    top_row = engine._budget_row(1.0)
+    engine.spec_draft_row = lambda r: r if r == top_row else None
+    try:
+        with sync_free_rounds():
+            top_self, _, s_self = serve_timed(engine, top)
+    finally:
+        del engine.spec_draft_row
+    engine.spec = None
+    engine.prefix_cache = False
+    ties += spec_divergences(f"{label} self-draft", engine, top, top_plain,
+                             top_self, dev, max_len)
+    log(f"# {label} self-draft (row {top_row} drafting for itself, greedy): "
+        f"{s_self['spec_rounds']:.0f} rounds, "
+        f"{s_self['spec_draft_tokens']:.0f} drafted, acceptance rate "
+        f"{s_self['spec_acceptance_rate']:.4f}, mean accepted tokens "
+        f"{s_self['spec_mean_accepted_len']:.4f}; "
+        f"{s_self['tokens_per_s']:.1f} vs {s_tp['tokens_per_s']:.1f} tok/s "
+        "plain")
+    if s_self["spec_acceptance_rate"] < SELF_DRAFT_ACCEPT:
+        fail(f"{label}: the top row drafting for itself accepted "
+             f"{s_self['spec_acceptance_rate']:.4f} of its greedy drafts "
+             f"(at least {SELF_DRAFT_ACCEPT})")
+    log(f"# {label} spec streams: greedy, verify-only, top-row greedy and "
+        f"self-draft held to the plain engine's; near-tie partings {ties}")
+    return counts
+
+
 def gemma_phase(dev, rng, report, profiling):
     """Phase 10: gemma3-27b at full width cut to 6 of its 62 layers (one
     period of the 5:1 local:global pattern): the serving launcher's state,
@@ -915,6 +1172,19 @@ def gemma_phase(dev, rng, report, profiling):
     if profiling:
         profile_main_path(engine, reqs)
 
+    # speculation on the same engine and requests: a draft rank halfway
+    # between rows 0 and 1's costs makes row 0 (deployed) the top row's
+    # draft row; the draft slots alias the prompts' blocks (prompts of
+    # 1100-1500 tokens would take some 40 rounds of 32-token warmup feeds,
+    # longer than the 32 new tokens)
+    cost = engine._cost_table
+    draft_rank = float(cost[0] + cost[1]) / 2 / float(cost[-1])
+    if FR.nested_prefix_row(table, rows[1], draft_rank, cost) != rows[0]:
+        fail(f"gemma3: draft_rank {draft_rank} does not resolve row "
+             f"{rows[0]} for row {rows[1]}")
+    spec_counts = spec_phase("gemma3", engine, reqs, results, s, draft_rank,
+                             dev, 2048, prefix_cache=True)
+
     # the decode check on the served rows, 8 prompts past the window
     prompts = [prng.integers(0, cfg.vocab_size, int(prng.integers(1100, 1501))
                              ).astype(np.int32) for _ in range(8)]
@@ -943,6 +1213,8 @@ def gemma_phase(dev, rng, report, profiling):
                 fail(f"gemma3: card and CPU part at step {i}: top-2 margin "
                      f"{marg_gpu[i]:.3e} on the card, {marg_cpu[i]:.3e} on "
                      "the CPU")
+    for k in ("gar_matmul", "paged_prefill_attention", "topk_mask_sample"):
+        counts[k] += spec_counts[k]
     return counts, gar_err
 
 
@@ -1441,7 +1713,7 @@ def main() -> int:
 
     # 5. training path, 6. one training step card vs CPU
     profiling = "--profile" in sys.argv[1:]
-    del engine, deployed, params_fact
+    del deployed, params_fact
     res, trained, _ = train_phase(cfg, dense, 20, (lowrank_matmul,))
     counts.update(trained)
     if profiling:
@@ -1497,6 +1769,17 @@ def main() -> int:
     for e in report:
         if e["shape"].startswith("gemma3 mlp"):
             log(kernel_line(e))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11. speculative decoding of gpt2-small on phase 3's engine: the same
+    # requests plain (again, beside the speculative run), then speculative
+    plain, _, plain_s = serve_timed(engine, reqs)
+    spec_counts = spec_phase("gpt2", engine, reqs, plain, plain_s, 0.7, dev,
+                             256)
+    counts["gar_matmul"] += spec_counts["gar_matmul"]
+    counts["paged_attention"] += spec_counts["paged_prefill_attention"]
+    counts["sampling"] += spec_counts["topk_mask_sample"]
 
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {

@@ -23,8 +23,10 @@ import torch
 from repro_torch.kernels import build
 
 # launches of the CUDA kernels since the last reset (see
-# gar_matmul.launches), three a call
+# gar_matmul.launches), three a call; ``probs_launches`` counts those of
+# the calls that also write the warped probs (a speculative draft's q)
 launches = 0
+probs_launches = 0
 
 # the block of the reference's two-level CDF (``ref.sample_cdf_ref``)
 BLOCK = 1024
@@ -69,7 +71,7 @@ def topk_mask_sample(logits, temperature, threshold, u, *,
     """logits (S, V), temperature/threshold/u (S,), float32 on one CUDA
     device. Returns tokens (S,) int32, plus probs (S, V) float32 when
     ``return_probs``."""
-    global launches
+    global launches, probs_launches
     tensors = (logits, temperature, threshold, u)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("topk_mask_sample launches on CUDA tensors only")
@@ -104,4 +106,6 @@ def topk_mask_sample(logits, temperature, threshold, u, *,
             scratch.data_ptr(), build.stream_ptr(logits.device))
         build.check(rc, "topk_mask_sample")
         launches += 3
+        if return_probs:
+            probs_launches += 3
     return (tokens, probs) if return_probs else tokens

@@ -3,10 +3,17 @@ init (calibration on the synthetic source, DataSVD and DP through
 ``launch.train.build_flexrank_state``, as the JAX package's launcher does),
 then serve a stream of requests at mixed budgets through the GAR-deployed
 submodels with the continuous-batching engine (paged KV cache, chunked
-prefill fused into decode iterations with ``--prefill-chunk``).
+prefill fused into decode iterations with ``--prefill-chunk``;
+``--spec-draft-rank`` nested self-speculative decoding: a low-rank prefix
+row drafts up to ``--spec-len`` tokens a round, the full row verifies them
+in one multi-token forward; with ``--temperature`` the rounds accept and
+resample stochastically unless ``--spec-no-stochastic`` keeps the
+verify-only fallback, and ``--spec-adaptive-k`` adapts each sequence's
+draft length).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
-      --requests 6 --budgets 0.4,1.0 --engine continuous --prefill-chunk 64
+      --requests 6 --budgets 0.4,1.0 --engine continuous --prefill-chunk 64 \
+      --spec-draft-rank 0.7 --spec-len 4
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead (use ``--smoke`` there). The flags are those of
@@ -24,6 +31,7 @@ from repro_torch.data import make_source
 from repro_torch.launch.train import build_flexrank_state, dense_init
 from repro_torch.obs import make_tracer
 from repro_torch.serving import ElasticEngine, Request, SamplingParams
+from repro_torch.spec import SpecConfig
 
 
 def serving_state(cfg, dense_params, seed: int, *, timings=None):
@@ -58,10 +66,25 @@ def main(argv=None):
                     help="prompt tokens per chunk for mixed prefill/decode "
                          "iterations (0 = full-prompt chunks)")
     ap.add_argument("--token-budget", type=int, default=0,
-                    help="total tokens per mixed iteration "
+                    help="total tokens per mixed or speculative iteration "
                          "(0 = max_batch + prefill_chunk)")
     ap.add_argument("--prefill-order", default="fifo",
                     choices=["fifo", "srpf"])
+    ap.add_argument("--spec-draft-rank", type=float, default=0.0,
+                    help="budget fraction of the speculative draft row "
+                         "(0 = speculation off); drafts run on the nested "
+                         "low-rank prefix submodel, the full row verifies")
+    ap.add_argument("--spec-len", type=int, default=4,
+                    help="max draft tokens proposed per speculative round")
+    ap.add_argument("--spec-adaptive-k", action="store_true",
+                    help="adapt each sequence's draft length to its "
+                         "trailing acceptance-rate EWMA within "
+                         "[0, --spec-len]")
+    ap.add_argument("--spec-no-stochastic", action="store_true",
+                    help="verify-only fallback for sampled requests "
+                         "(k = 0 rounds, token-identical to the "
+                         "non-speculative engine) instead of stochastic "
+                         "accept/resample")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature for all requests "
                          "(0 = greedy argmax)")
@@ -88,12 +111,18 @@ def main(argv=None):
           f"decompose {setup['decompose']:.2f} s, DP {setup['dp']:.2f} s "
           f"({table.table.shape[0]} rows)", flush=True)
     del dense
+    spec = (SpecConfig(draft_rank=args.spec_draft_rank,
+                       spec_len=args.spec_len,
+                       stochastic=not args.spec_no_stochastic,
+                       adaptive_k=args.spec_adaptive_k)
+            if args.spec_draft_rank else None)
     engine = ElasticEngine(cfg, params_fact, table, infos,
                            max_batch=args.max_batch, max_len=args.max_len,
                            block_size=args.block_size,
                            prefill_chunk=args.prefill_chunk or None,
                            token_budget=args.token_budget or None,
                            prefill_order=args.prefill_order,
+                           spec=spec,
                            device_sampling=not args.host_sampling,
                            prefix_cache=True if args.prefix_cache else None,
                            tracer=make_tracer(True) if args.trace_out else None,
@@ -139,6 +168,17 @@ def main(argv=None):
     if engine.prefix_cache:
         print(f"# prefix cache: {s['prefix_hits']:.0f} hits, "
               f"{s['prefix_hit_tokens']:.0f} prompt tokens reused")
+    if args.spec_draft_rank and s["spec_rounds"]:
+        mode = ("verify-only" if args.temperature > 0
+                and args.spec_no_stochastic
+                else "stochastic" if args.temperature > 0 else "greedy")
+        k_mode = ("adaptive<=" if args.spec_adaptive_k else "") \
+            + str(args.spec_len)
+        print(f"# spec decode ({mode}): "
+              f"draft_rank={args.spec_draft_rank}, k={k_mode}, "
+              f"{s['spec_rounds']:.0f} rounds, "
+              f"acceptance {s['spec_acceptance_rate']:.2f}, "
+              f"mean accepted len {s['spec_mean_accepted_len']:.2f}")
     return results
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -279,15 +280,23 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
     return (y * (1.0 + scale.float())).to(dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freq(half: int, base: float, device: torch.device) -> torch.Tensor:
+    """``base ** -(i / half)`` for ``i < half``, float32 on ``device``; made
+    once per key, since building ``base`` as a device tensor is a pageable
+    host-to-device copy that waits for the stream."""
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(base, dtype=torch.float32, device=device),
+                     exps)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.0,
          dims: Optional[int] = None) -> torch.Tensor:
     """Rotary embedding, half-split layout. x: (B, S, H, D); positions:
     (B, S) or (S,)."""
     d = x.shape[-1] if dims is None else dims
     half = d // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(base, dtype=torch.float32,
-                                  device=x.device), exps)
+    freq = _rope_freq(half, float(base), x.device)
     if positions.dim() == 1:
         positions = positions[None, :]
     angle = positions[..., None].float() * freq

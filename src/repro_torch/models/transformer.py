@@ -372,3 +372,25 @@ def paged_mixed_step(params: Dict, cfg: ModelConfig, caches: Dict,
         x = x[:, caches["sample_ids"]]
         new_caches["sample_ids"] = caches["sample_ids"]
     return lm_logits(params, x, cfg), new_caches
+
+
+def paged_verify_step(params: Dict, cfg: ModelConfig, caches: Dict,
+                      tokens: torch.Tensor, *,
+                      ranks: Optional[Dict] = None):
+    """Full-row verification forward of nested self-speculative decoding:
+    ``k+1`` scored positions per sequence in one call over the paged cache.
+
+    The layout is ``paged_mixed_step``'s flat-token layout: each verifying
+    sequence contributes a run of ``k+1`` consecutive tokens (its last
+    committed token, then ``k`` draft proposals) routed to its target
+    cache slot by ``slot_ids``/``positions``; target prefill chunks of
+    other sequences may ride the same batch. Every run's K/V lands in the
+    target slot's blocks before attention, so position ``i`` of a run
+    attends over exactly the context target-only decoding would have seen,
+    and rejected suffixes are rolled back host-side with
+    ``PagedKVCache.truncate_slot``. Returns the logits rows named by
+    ``caches['sample_ids']`` (all ``(1, T, V)`` without it). It is the
+    mixed step's computation (the same ``_run_paged_segments`` loop and
+    flat-token attention kernel), under the name the decoder calls.
+    """
+    return paged_mixed_step(params, cfg, caches, tokens, ranks=ranks)

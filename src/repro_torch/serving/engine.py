@@ -16,12 +16,18 @@ sample positions for the LM head and draws with the keyed
 back int32 ids only. ``device_sampling=False`` keeps the host sampler (the
 oracle path).
 
+With ``spec`` (a ``repro_torch.spec.SpecConfig``) a row that has a nested
+prefix row within ``spec.draft_rank`` is served by nested self-speculative
+decoding (``repro_torch.spec.SpecDecoder``): the prefix row drafts up to
+``spec_len`` tokens a round and the full row verifies them in one
+flat-token forward. Per-request override via ``Request.spec_len``.
+
 This is the synchronous loop of the JAX package's engine, ported plan
 for plan: operand layouts, width buckets and event order match it, so the
-two engines emit identical token streams. Speculative decoding, the
-lookahead pipeline, streaming sessions, the drain engine and the live
-telemetry plane are not ported yet; asking for them raises
-``NotImplementedError`` naming the ROADMAP item.
+two engines emit identical token streams. The lookahead pipeline,
+streaming sessions, the drain engine and the live telemetry plane are not
+ported yet; asking for them raises ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -108,9 +114,6 @@ class ElasticEngine:
                  tracer=None, registry=None,
                  watchdog=None, costaudit=None,
                  device=None):
-        if spec is not None:
-            raise _not_ported("speculative decoding (spec=)",
-                              "nested self-speculative decoding")
         if lookahead is None:
             lookahead = os.environ.get("REPRO_ASYNC", "0") == "1"
         if lookahead:
@@ -149,6 +152,7 @@ class ElasticEngine:
         self.token_budget = token_budget
         self._mixed_budget = (token_budget if token_budget is not None
                               else max_batch + self._chunk)
+        self.spec = spec
         # REPRO_DEVICE_SAMPLING / REPRO_PREFIX_CACHE flip the defaults, as
         # in the JAX engine
         if device_sampling is None:
@@ -189,6 +193,16 @@ class ElasticEngine:
                 torch.cuda.synchronize(self.device)
             self.deploy_seconds[row] = time.perf_counter() - t0
         return self._deployed[row]
+
+    def spec_draft_row(self, row: int) -> Optional[int]:
+        """Draft row for serving ``row`` speculatively: the largest nested
+        prefix row within ``spec.draft_rank`` of the full model, strictly
+        below the target. ``None`` (speculation off for this row) when spec
+        is unset or no smaller prefix row fits."""
+        if self.spec is None:
+            return None
+        return FR.nested_prefix_row(self.table, row, self.spec.draft_rank,
+                                    self._cost_table)
 
     def cancel(self, req_id: int) -> None:
         """Best-effort client cancellation, applied at the next plan
@@ -241,14 +255,22 @@ class ElasticEngine:
             self._seq_index[seq.req_id] = seq
             submitted.append(seq)
         results: Dict[int, Result] = {}
-        if self.prefill_chunk is None:
+        if self.prefill_chunk is None and self.spec is None:
             warnings.warn(
                 "continuous serving without prefill_chunk runs mixed "
                 "iterations with a full-prompt-sized chunk (set "
                 "prefill_chunk explicitly to silence this)",
                 DeprecationWarning, stacklevel=3)
         while sched.has_waiting():
-            self._serve_row_mixed(sched.next_row(), sched, metrics, results)
+            row = sched.next_row()
+            draft_row = self.spec_draft_row(row)
+            if draft_row is not None:
+                from repro_torch.spec import SpecDecoder
+                SpecDecoder(self, row=row, draft_row=draft_row,
+                            spec=self.spec, sched=sched, metrics=metrics,
+                            results=results).serve()
+            else:
+                self._serve_row_mixed(row, sched, metrics, results)
         return [results[s.req_id] for s in submitted]
 
     def _finish(self, seq: Sequence, metrics, results, *,
@@ -588,9 +610,12 @@ class ElasticEngine:
             purpose[i] = pur
             pos[i] = p
         dev = self.device
+        # queued without waiting for the stream (a pageable copy is staged
+        # before the call returns)
         return {
-            "temperature": torch.from_numpy(temp).to(dev),
-            "top_k": torch.from_numpy(topk).to(dev) if topk.any() else None,
+            "temperature": torch.from_numpy(temp).to(dev, non_blocking=True),
+            "top_k": (torch.from_numpy(topk).to(dev, non_blocking=True)
+                      if topk.any() else None),
             "seed": torch.from_numpy(seed),
             "req_id": torch.from_numpy(req),
             "purpose": torch.from_numpy(purpose),
@@ -636,8 +661,8 @@ class ElasticEngine:
         if metas is not None:
             sampling = self._pack_sampling(metas, rows)
             with torch.profiler.record_function("paged_sample_step"):
-                tokens, new_caches = dsamp.paged_sample_step(
-                    params, self.cfg, caches, tok, sampling)
+                tokens, new_caches = self._sample(params, caches, tok,
+                                                  sampling)
             cache.update_pools(new_caches)
             return tokens.cpu().numpy()
         with torch.profiler.record_function("paged_mixed_step"):
@@ -645,6 +670,21 @@ class ElasticEngine:
                                                       caches, tok)
         cache.update_pools(new_caches)
         return logits
+
+    # the fused device steps (the JAX engine's ``_sample_jit``,
+    # ``_sample_probs_jit`` and ``_verify_accept_jit``), as plain calls
+
+    def _sample(self, params, caches, tok, sampling):
+        return dsamp.paged_sample_step(params, self.cfg, caches, tok,
+                                       sampling)
+
+    def _sample_probs(self, params, caches, tok, sampling):
+        return dsamp.paged_sample_step(params, self.cfg, caches, tok,
+                                       sampling, return_probs=True)
+
+    def _verify_accept(self, params, caches, tok, accept, chunk_sampling):
+        return dsamp.paged_verify_accept_step(params, self.cfg, caches, tok,
+                                              accept, chunk_sampling)
 
     def _unstick(self, sched, cache, batcher, metrics):
         """No decode token and no chunk could be scheduled: every block is

@@ -39,5 +39,7 @@ def test_scan_covers_the_package():
                  "src/repro_torch/kernels/wkv6.py",
                  "src/repro_torch/kernels/ssd.py",
                  "src/repro_torch/models/rwkv.py",
-                 "src/repro_torch/models/ssm.py"):
+                 "src/repro_torch/models/ssm.py",
+                 "src/repro_torch/spec/config.py",
+                 "src/repro_torch/spec/decoder.py"):
         assert must in names

@@ -29,8 +29,12 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def states():
+    return build_states()
+
+
+def build_states():
     """The JAX suite's smoke fixture (tests/test_chunked_prefill.py), and
-    the same state bridged into the port."""
+    the same state bridged into the port (also ``test_torch_spec.py``'s)."""
     from repro.data import make_source
     from repro.launch.train import build_flexrank_state
     from repro.models import common as jcm
@@ -270,9 +274,6 @@ def test_unported_engine_features_raise(states):
     _, (tcfg, tpf, ttable, tinfos) = states
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ElasticEngine(tcfg, tpf, ttable, tinfos, device="cpu",
-                      spec=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ElasticEngine(tcfg, tpf, ttable, tinfos, device="cpu",
                       lookahead=True)
     eng = ElasticEngine(tcfg, tpf, ttable, tinfos, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -288,3 +289,12 @@ def test_launcher_runs_on_cpu(capsys):
     assert [len(r.tokens) for r in res] == [11, 11, 11]
     out = capsys.readouterr().out
     assert "# serving:" in out and "DataSVD" in out
+
+
+def test_launcher_spec_decode_on_cpu(capsys):
+    from repro_torch.launch import serve
+    res = serve.main(["--device", "cpu", "--smoke", "--spec-draft-rank",
+                      "0.9", "--spec-len", "3"])
+    assert [len(r.tokens) for r in res] == [16] * 6
+    out = capsys.readouterr().out
+    assert "# spec decode (greedy): draft_rank=0.9, k=3" in out
