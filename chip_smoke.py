@@ -70,7 +70,27 @@ Phases, each fatal on failure:
                its commit; ``gar_matmul``, ``paged_prefill_attention`` and
                ``topk_mask_sample`` (and its probs variant) launched; each
                greedy and verify-only stream equals the plain one or parts
-               from it at a near tie (``TOL_SPEC_TIE``).
+               from it at a near tie (``TOL_SPEC_TIE``);
+  12. stream - the one-iteration lookahead pipeline and the streaming
+               front door on phase 3's engine and requests: (a) served with
+               lookahead, timed in turns with the synchronous loop (sync,
+               lookahead, lookahead, sync, sync, lookahead), streams
+               identical to phase 3's
+               and the three serving kernels launched; (b) with forced
+               rollbacks every third iteration, in turns with plain
+               lookahead runs, identical, rollbacks > 0;
+               (c) a ``StreamSession`` on a worker thread, Poisson arrivals
+               at 20 requests/s, every third request cancelled after 2
+               tokens: the others equal phase 3's streams (the arrivals
+               change the batches, so a parting is allowed at a near tie
+               only), cancelled Results prefixes of them, the caches empty
+               at the end; TTFT on the client's and the engine's clocks and
+               the lag from the engine's emit to the client; (d) every
+               pipelined iteration planned, dispatched and advanced under
+               the sync debug mode "error". Phase 10 serves its requests
+               with prefix caching, lookahead and sync in turns (lookahead,
+               sync, sync, lookahead; the lookahead runs under the same
+               mode): streams identical to its plain run.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
@@ -1065,6 +1085,266 @@ def spec_phase(label, engine, reqs, plain, plain_s, draft_rank, dev,
     return counts
 
 
+@contextlib.contextmanager
+def sync_free_lookahead():
+    """Run every pipelined iteration's planning, dispatch and predicted
+    advance under the sync debug mode "error": any host synchronisation
+    between the read of one iteration's tokens and the next raises."""
+    from repro_torch.serving.engine import ElasticEngine
+    saved = {name: getattr(ElasticEngine, name)
+             for name in ("_plan_iteration", "_dispatch_mixed_async",
+                          "_advance_predicted")}
+
+    def checked(fn):
+        def run(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+    for name, fn in saved.items():
+        setattr(ElasticEngine, name, checked(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ElasticEngine, name, fn)
+
+
+def stream_session(engine, reqs, rate: float, cancel_nth: int, seed: int,
+                   wait_s: float = 300.0):
+    """Serve ``reqs`` through a ``StreamSession`` on a worker thread, as the
+    launcher's ``--stream`` does: Poisson arrivals at ``rate`` requests/s
+    from ``seed``, every ``cancel_nth``-th request cancelled after 2
+    tokens. Returns per request a dict of the streamed tokens, their
+    arrival times on the client, the submit time, the req_id and the
+    Result, and the session (whose ``emit_t`` holds when the engine emitted
+    each token), and the caches the engine served from."""
+    import asyncio
+    import threading
+    from repro_torch.serving.session import StreamSession
+
+    class TimedSession(StreamSession):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.emit_t = {}
+
+        def emit(self, req_id, index, token):
+            self.emit_t.setdefault((req_id, index), time.perf_counter())
+            super().emit(req_id, index, token)
+
+    caches, errors = [], []
+    drive = engine._serve_row_pipelined
+
+    def recording(row, params, sched, cache, *a):
+        caches.append(cache)
+        return drive(row, params, sched, cache, *a)
+
+    def serve(session):
+        try:
+            engine.serve_session(session)
+        except BaseException as e:
+            errors.append(e)
+            raise
+
+    async def client(session, i, rq):
+        cancel_after = 2 if (i + 1) % cancel_nth == 0 else None
+        out = {"t_submit": time.perf_counter(), "toks": [], "recv": []}
+        h = session.submit(rq)
+        async for tok in h.tokens():
+            out["recv"].append(time.perf_counter())
+            out["toks"].append(tok)
+            if cancel_after is not None and len(out["toks"]) >= cancel_after:
+                h.cancel()
+        out["result"] = await h.wait_result()
+        out["req_id"] = h.req_id
+        return out
+
+    async def main():
+        session = TimedSession(stream_buffer=8)
+        session.loop = asyncio.get_running_loop()
+        worker = threading.Thread(target=serve, args=(session,), daemon=True)
+        worker.start()
+        rng = np.random.default_rng(seed)
+        tasks = []
+        try:
+            for i, rq in enumerate(reqs):
+                if i:
+                    await asyncio.sleep(rng.exponential(1.0 / rate))
+                tasks.append(asyncio.create_task(client(session, i, rq)))
+            outs = await asyncio.wait_for(asyncio.gather(*tasks), wait_s)
+        finally:
+            session.close()
+        await asyncio.wait_for(session.join(), wait_s)
+        worker.join(wait_s)
+        if worker.is_alive():
+            fail("stream: the engine thread did not finish")
+        return outs, session
+
+    engine._serve_row_pipelined = recording
+    try:
+        outs, session = asyncio.run(main())
+    finally:
+        del engine._serve_row_pipelined
+    if errors:
+        fail(f"stream: the engine thread raised {errors[0]!r}")
+    return outs, session, caches
+
+
+def stream_phase(engine, reqs, plain, dev, max_len) -> dict:
+    """Phase 12 on phase 3's engine: (a) the requests through the
+    lookahead pipeline, timed in turns with the synchronous loop; (b) with
+    forced rollbacks; (c) a streaming session with Poisson arrivals and
+    cancels; (d) every pipelined iteration queued under the sync debug
+    mode "error". ``plain`` holds phase 3's Results. Returns the launches
+    of the serving kernels in (a)."""
+    from repro_torch.kernels import gar_matmul, paged_attention, sampling
+    kernels = {"gar_matmul": gar_matmul,
+               "paged_prefill_attention": paged_attention,
+               "topk_mask_sample": sampling}
+
+    def same(label, res):
+        for i, (a, b) in enumerate(zip(plain, res)):
+            if not np.array_equal(a.tokens, b.tokens):
+                fail(f"stream {label}: request {i} returned {b.tokens[-8:]}"
+                     f", phase 3 {a.tokens[-8:]}")
+
+    # (a) synchronous and lookahead in turns: sync, lookahead, lookahead,
+    # sync, sync, lookahead; the launches are those of the first lookahead
+    # run
+    runs = {}
+    for turn, look in enumerate((False, True, True, False, False, True)):
+        engine.lookahead = look
+        if turn == 1:
+            for k in kernels.values():
+                k.launches = 0
+        res, wall, s = serve_timed(engine, reqs)
+        if turn == 1:
+            counts = {n: k.launches for n, k in kernels.items()}
+        same(f"(a) {'lookahead' if look else 'sync'} turn {turn}", res)
+        runs.setdefault(look, []).append((wall, s))
+    for look, label in ((False, "sync"), (True, "lookahead")):
+        def each(key, scale=1.0, fmt=".1f"):
+            return ", ".join(f"{s[key] * scale:{fmt}}" for _, s in runs[look])
+        tps = [s["tokens_per_s"] for _, s in runs[look]]
+        ttft = [s["ttft_mean_s"] * 1e3 for _, s in runs[look]]
+        log(f"# stream (a) {label}: tokens/s {each('tokens_per_s')} (mean "
+            f"{statistics.mean(tps):.1f}), ttft mean "
+            f"{each('ttft_mean_s', 1e3)} ms (mean "
+            f"{statistics.mean(ttft):.1f}), dispatch "
+            f"{each('dispatch_ms_mean', fmt='.2f')} ms / host "
+            f"{each('host_ms_mean', fmt='.2f')} ms an iteration")
+    s_look = runs[True][0][1]
+    ratio = (statistics.mean(s["tokens_per_s"] for _, s in runs[True])
+             / statistics.mean(s["tokens_per_s"] for _, s in runs[False]))
+    log(f"# stream (a): lookahead / sync tokens/s {ratio:.4f}; lookahead "
+        f"iterations {s_look['lookahead_iterations']}, rollbacks "
+        f"{s_look['rollbacks']}, overlap share "
+        f"{s_look['overlap_fraction']:.4f} (overlap "
+        f"{s_look['overlap_ms_mean']:.2f} ms an iteration); streams "
+        "identical to phase 3's")
+    log(f"# stream (a) kernels: launches in the lookahead run "
+        f"{json.dumps(counts)}")
+    if min(counts.values()) <= 0:
+        fail(f"stream: a kernel of the pipelined path never launched: "
+             f"{counts}")
+    if s_look["lookahead_iterations"] <= 0:
+        fail("stream: the lookahead run queued no speculative iteration")
+
+    # (b) forced rollbacks, in turns with plain lookahead runs (faulted,
+    # plain, plain, faulted): a rollback abandons one queued dispatch
+    engine.lookahead = True
+    fault = lambda it: it % 3 == 0  # noqa: E731
+    turns = {True: [], False: []}
+    try:
+        for faulted in (True, False, False, True):
+            engine.lookahead_fault = fault if faulted else None
+            res, _, s = serve_timed(engine, reqs)
+            same(f"(b) {'forced rollbacks' if faulted else 'lookahead'}", res)
+            turns[faulted].append(s)
+    finally:
+        engine.lookahead_fault = None
+    s = turns[True][0]
+    ratio = (statistics.mean(t["tokens_per_s"] for t in turns[True])
+             / statistics.mean(t["tokens_per_s"] for t in turns[False]))
+    log(f"# stream (b) forced rollbacks (every 3rd iteration): "
+        f"{s['rollbacks']} rollbacks of {s['lookahead_iterations']} "
+        f"lookahead iterations, {s['mixed_iterations'] + s['rollbacks']:.0f}"
+        f" forwards for {s['mixed_iterations']:.0f} iterations; tokens/s "
+        + ", ".join(f"{t['tokens_per_s']:.1f}" for t in turns[True])
+        + " against "
+        + ", ".join(f"{t['tokens_per_s']:.1f}" for t in turns[False])
+        + f" without faults, ratio {ratio:.4f}; streams identical to "
+        "phase 3's")
+    if min(t["rollbacks"] for t in turns[True]) <= 0:
+        fail("stream (b): no rollback")
+
+    # (c) a streaming session: Poisson arrivals at 20 requests/s, every
+    # 3rd request cancelled after 2 tokens
+    outs, session, caches = stream_session(engine, reqs, 20.0, 3, 12)
+    s = engine.last_metrics.summary()
+    cut, full = [], []
+    for i, o in enumerate(outs):
+        res = o["result"]
+        cancelled = (i + 1) % 3 == 0
+        if o["req_id"] != i:
+            fail(f"stream (c): request {i} drained as req_id {o['req_id']}")
+        if res is None or res.cancelled != cancelled:
+            fail(f"stream (c): request {i} finished "
+                 f"{'cancelled' if res and res.cancelled else 'whole'}")
+        gen = res.tokens[len(reqs[i].prompt):]
+        if list(gen[:len(o['toks'])]) != o["toks"]:
+            fail(f"stream (c): request {i} streamed other tokens than its "
+                 "Result holds")
+        (cut if cancelled else full).append(i)
+        if cancelled and len(gen) >= len(plain[i].tokens) - len(
+                reqs[i].prompt):
+            fail(f"stream (c): cancelled request {i} ran to its end")
+    # the session's batches are not phase 3's (the arrivals spread), so the
+    # kernels see other token counts: a stream may part only at a near tie
+    ties = spec_divergences(
+        "stream (c)", engine, [reqs[i] for i in full + cut],
+        [plain[i] for i in full]
+        + [dataclasses.replace(plain[i],
+                               tokens=plain[i].tokens[:len(
+                                   outs[i]["result"].tokens)])
+           for i in cut],
+        [outs[i]["result"] for i in full + cut], dev, max_len,
+        [outs[i]["req_id"] for i in full + cut])
+    occupancy = [c.occupancy() for c in caches]
+    if not caches or any(o != 0 for o in occupancy):
+        fail(f"stream (c): cache occupancy at the end {occupancy}")
+    lags = [o["recv"][j] - session.emit_t[(o["req_id"], j)]
+            for o in outs for j in range(len(o["toks"]))]
+    ttft_client = [o["recv"][0] - o["t_submit"] for o in outs if o["recv"]]
+    generated = [len(outs[i]["result"].tokens) - len(reqs[i].prompt)
+                 for i in cut]
+    log(f"# stream (c) session: 8 requests at 20/s (Poisson, seed 12), "
+        f"requests {cut} cancelled after 2 tokens ({generated} "
+        f"generated); {len(full)} streams equal phase 3's, near-tie "
+        f"partings {ties}; cache occupancy at the end {occupancy}")
+    log(f"# stream (c) ttft: client clock mean "
+        f"{statistics.mean(ttft_client) * 1e3:.1f} ms, engine clock mean "
+        f"{s['ttft_mean_s'] * 1e3:.1f} ms (generate's, (a) sync turn 0: "
+        f"{runs[False][0][1]['ttft_mean_s'] * 1e3:.1f} ms); delivery lag "
+        f"emit -> client mean {statistics.mean(lags) * 1e3:.3f} ms, max "
+        f"{max(lags) * 1e3:.3f} ms over {len(lags)} tokens; "
+        f"{s['tokens_per_s']:.1f} tokens/s, {s['lookahead_iterations']} "
+        f"lookahead iterations, {s['rollbacks']} rollbacks, "
+        f"{s['cancellations']} cancellations")
+
+    # (d) every pipelined iteration queued without a host sync
+    with sync_free_lookahead():
+        res, _, s = serve_timed(engine, reqs)
+    same("(d) sync debug", res)
+    engine.lookahead = False
+    log(f"# stream (d): {s['mixed_iterations']:.0f} iterations planned, "
+        "dispatched and advanced under the sync debug mode \"error\": no "
+        "host sync")
+    return counts
+
+
 def gemma_phase(dev, rng, report, profiling):
     """Phase 10: gemma3-27b at full width cut to 6 of its 62 layers (one
     period of the 5:1 local:global pattern): the serving launcher's state,
@@ -1169,6 +1449,46 @@ def gemma_phase(dev, rng, report, profiling):
     log(f"# gemma3 kernels: launches serving {json.dumps(counts)}")
     if min(counts.values()) <= 0:
         fail(f"gemma3: a kernel of the serving path never launched: {counts}")
+
+    # the same requests through the lookahead pipeline and the synchronous
+    # loop in turns (lookahead, sync, sync, lookahead), with prefix caching
+    # on (windows, GQA, chunks of 256 and the prefix index under lookahead;
+    # the prompts share nothing, so every stream stays the plain run's);
+    # the lookahead turns plan, dispatch and advance under the sync debug
+    # mode "error"
+    engine.prefix_cache = True
+    turns = {True: [], False: []}
+    try:
+        for look in (True, False, False, True):
+            engine.lookahead = look
+            with (sync_free_lookahead() if look
+                  else contextlib.nullcontext()):
+                res, _, s_turn = serve_timed(engine, reqs)
+            for i, (a, b) in enumerate(zip(results, res)):
+                if not np.array_equal(a.tokens, b.tokens):
+                    fail(f"gemma3 {'lookahead' if look else 'sync'}: "
+                         f"request {i} differs from the plain run")
+            turns[look].append(s_turn)
+    finally:
+        engine.lookahead, engine.prefix_cache = False, False
+    for look, label in ((False, "sync"), (True, "lookahead")):
+        log(f"# gemma3 {label} turns: tokens/s "
+            + ", ".join(f"{t['tokens_per_s']:.1f}" for t in turns[look])
+            + ", ttft mean "
+            + ", ".join(f"{t['ttft_mean_s'] * 1e3:.1f}" for t in turns[look])
+            + " ms, dispatch "
+            + ", ".join(f"{t['dispatch_ms_mean']:.2f}" for t in turns[look])
+            + " ms / host "
+            + ", ".join(f"{t['host_ms_mean']:.2f}" for t in turns[look])
+            + " ms an iteration, overlap share "
+            + ", ".join(f"{t['overlap_fraction']:.4f}" for t in turns[look]))
+    ratio = (statistics.mean(t["tokens_per_s"] for t in turns[True])
+             / statistics.mean(t["tokens_per_s"] for t in turns[False]))
+    log(f"# gemma3 lookahead / sync tokens/s {ratio:.4f}; "
+        f"{turns[True][0]['lookahead_iterations']} lookahead iterations, "
+        f"{turns[True][0]['rollbacks']} rollbacks a run; streams identical "
+        "to the plain run's, no host sync in any planned, dispatched and "
+        "advanced iteration")
     if profiling:
         profile_main_path(engine, reqs)
 
@@ -1780,6 +2100,13 @@ def main() -> int:
     counts["gar_matmul"] += spec_counts["gar_matmul"]
     counts["paged_attention"] += spec_counts["paged_prefill_attention"]
     counts["sampling"] += spec_counts["topk_mask_sample"]
+
+    # 12. the lookahead pipeline and the streaming front door on phase 3's
+    # engine and requests
+    stream_counts = stream_phase(engine, reqs, results, dev, 256)
+    counts["gar_matmul"] += stream_counts["gar_matmul"]
+    counts["paged_attention"] += stream_counts["paged_prefill_attention"]
+    counts["sampling"] += stream_counts["topk_mask_sample"]
 
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {

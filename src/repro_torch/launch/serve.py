@@ -9,11 +9,18 @@ row drafts up to ``--spec-len`` tokens a round, the full row verifies them
 in one multi-token forward; with ``--temperature`` the rounds accept and
 resample stochastically unless ``--spec-no-stochastic`` keeps the
 verify-only fallback, and ``--spec-adaptive-k`` adapts each sequence's
-draft length).
+draft length). ``--stream`` serves through the asyncio front door
+(``serving.session``): open-loop arrivals (Poisson at ``--arrival-rate``),
+every token echoed as it streams, every ``--cancel-nth`` request cancelled
+after two tokens; ``--lookahead`` turns on the one-iteration lookahead
+pipeline.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
       --requests 6 --budgets 0.4,1.0 --engine continuous --prefill-chunk 64 \
       --spec-draft-rank 0.7 --spec-len 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
+      --prefill-chunk 64 --stream --lookahead --arrival-rate 20 \
+      --cancel-nth 3
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead (use ``--smoke`` there). The flags are those of
@@ -22,6 +29,8 @@ kernels instead (use ``--smoke`` there). The flags are those of
 from __future__ import annotations
 
 import argparse
+import asyncio
+import threading
 
 import numpy as np
 
@@ -31,6 +40,7 @@ from repro_torch.data import make_source
 from repro_torch.launch.train import build_flexrank_state, dense_init
 from repro_torch.obs import make_tracer
 from repro_torch.serving import ElasticEngine, Request, SamplingParams
+from repro_torch.serving.session import StreamSession
 from repro_torch.spec import SpecConfig
 
 
@@ -41,6 +51,54 @@ def serving_state(cfg, dense_params, seed: int, *, timings=None):
     table, infos); ``timings`` as for ``build_flexrank_state``."""
     source = make_source(cfg.vocab_size, 64, 4, seed=seed)
     return build_flexrank_state(cfg, dense_params, source, timings=timings)
+
+
+def _run_stream(engine, reqs, args):
+    """Asyncio front door: submit ``reqs`` open-loop (Poisson gaps when
+    ``--arrival-rate`` is set), echo every token as it streams, cancel
+    every ``--cancel-nth`` request after its second token. The engine
+    serves on a worker thread (``serve_session`` enters ``torch.no_grad``
+    there). Returns per-request Results in submission order, cancelled
+    ones included."""
+
+    async def _drive():
+        session = StreamSession(stream_buffer=8)
+        session.loop = asyncio.get_running_loop()
+        worker = threading.Thread(target=engine.serve_session,
+                                  args=(session,), daemon=True)
+        worker.start()
+        rng = np.random.default_rng(args.seed + 1)
+
+        async def client(i, rq):
+            cancel_after = (2 if args.cancel_nth
+                            and (i + 1) % args.cancel_nth == 0 else None)
+            h = session.submit(rq)
+            toks = []
+            async for tok in h.tokens():
+                toks.append(tok)
+                print(f"req {i} token[{len(toks) - 1}] = {tok}", flush=True)
+                if cancel_after is not None and len(toks) >= cancel_after:
+                    print(f"req {i}: cancelling mid-stream", flush=True)
+                    h.cancel()
+            result = await h.wait_result()
+            state = "cancelled" if (result is not None
+                                    and result.cancelled) else "done"
+            print(f"req {i}: {state}, {len(toks)} tokens streamed",
+                  flush=True)
+            return result
+
+        tasks = []
+        for i, rq in enumerate(reqs):
+            if args.arrival_rate > 0 and i:
+                await asyncio.sleep(rng.exponential(1.0 / args.arrival_rate))
+            tasks.append(asyncio.create_task(client(i, rq)))
+        results = await asyncio.gather(*tasks)
+        session.close()
+        await session.join()
+        worker.join()
+        return list(results)
+
+    return asyncio.run(_drive())
 
 
 def main(argv=None):
@@ -92,6 +150,23 @@ def main(argv=None):
                     help="top-k truncation when sampling (0 = off)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="automatic prefix caching of full prompt blocks")
+    ap.add_argument("--stream", action="store_true",
+                    help="serve through the asyncio streaming front door "
+                         "(open-loop arrivals, per-token streaming) instead "
+                         "of the closed-batch generate() call")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="with --stream: mean Poisson request arrival rate "
+                         "in req/s (0 = submit everything at once)")
+    ap.add_argument("--cancel-nth", type=int, default=0,
+                    help="with --stream: cancel every Nth request after 2 "
+                         "streamed tokens (0 = never)")
+    ap.add_argument("--lookahead", action="store_true",
+                    help="one-iteration lookahead pipelining: queue "
+                         "iteration i+1 from speculatively advanced state "
+                         "before reading i's tokens (default follows the "
+                         "REPRO_ASYNC env knob, off otherwise)")
+    ap.add_argument("--no-lookahead", action="store_true",
+                    help="force lookahead off regardless of REPRO_ASYNC")
     ap.add_argument("--host-sampling", action="store_true",
                     help="sample on the host (the oracle path) instead of "
                          "the default device-resident fused sampling")
@@ -125,6 +200,8 @@ def main(argv=None):
                            spec=spec,
                            device_sampling=not args.host_sampling,
                            prefix_cache=True if args.prefix_cache else None,
+                           lookahead=(True if args.lookahead else False
+                                      if args.no_lookahead else None),
                            tracer=make_tracer(True) if args.trace_out else None,
                            device=device)
     budgets = [float(b) for b in args.budgets.split(",")]
@@ -138,7 +215,10 @@ def main(argv=None):
         reqs.append(Request(prompt=prompt, max_new_tokens=args.max_new,
                             budget=budgets[i % len(budgets)],
                             sampling=sampling))
-    results = engine.generate(reqs, mode=args.engine)
+    if args.stream:
+        results = _run_stream(engine, reqs, args)
+    else:
+        results = engine.generate(reqs, mode=args.engine)
     if args.trace_out:
         if args.trace_out.endswith(".jsonl"):
             engine.tracer.export_jsonl(args.trace_out)
@@ -161,6 +241,10 @@ def main(argv=None):
           f"/ host {s['host_ms_mean']:.2f} ms "
           f"({'host' if args.host_sampling else 'device'} sampling, "
           f"{device})")
+    if engine.lookahead:
+        print(f"# lookahead: {s['lookahead_iterations']:.0f} speculative "
+              f"iterations, {s['rollbacks']:.0f} rollbacks, overlap share "
+              f"{s['overlap_fraction']:.3f}")
     if args.prefill_chunk:
         print(f"# chunked prefill: chunk={args.prefill_chunk}, "
               f"budget={engine.token_budget}, "

@@ -22,12 +22,19 @@ decoding (``repro_torch.spec.SpecDecoder``): the prefix row drafts up to
 ``spec_len`` tokens a round and the full row verifies them in one
 flat-token forward. Per-request override via ``Request.spec_len``.
 
-This is the synchronous loop of the JAX package's engine, ported plan
-for plan: operand layouts, width buckets and event order match it, so the
-two engines emit identical token streams. The lookahead pipeline,
-streaming sessions, the drain engine and the live telemetry plane are not
-ported yet; asking for them raises ``NotImplementedError`` naming the
-ROADMAP item.
+With ``lookahead`` (or ``REPRO_ASYNC=1``) and device sampling, a row runs
+the one-iteration lookahead pipeline: iteration i+1 is planned and queued
+on the card from speculatively advanced host state before iteration i's
+tokens are read, and a lost speculation rolls the host state back for a
+replan. ``serve_session`` serves a live ``serving.session.StreamSession``:
+requests arrive on an event loop, tokens stream back as they commit, and
+clients may cancel.
+
+This is the JAX package's engine, ported plan for plan: operand layouts,
+width buckets and event order match it, so the two engines emit identical
+token streams, with or without lookahead. The drain engine and the live
+telemetry plane are not ported yet; asking for them raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -64,7 +71,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 class _ImmediateLog:
     """Plan log of the synchronous engine: every emission fires the moment
-    planning records it."""
+    planning records it. ``emit``/``finish``/``cancel_finish`` are the
+    surface the planner writes against; the pipelined engine swaps in
+    ``_DeferredLog`` and nothing in the planner changes."""
+
+    deferred = False
 
     def __init__(self, engine, metrics, results):
         self.engine = engine
@@ -78,15 +89,60 @@ class _ImmediateLog:
         self.engine._finish(seq, self.metrics, self.results)
 
     def cancel_finish(self, seq):
-        self.engine._finish(seq, self.metrics, self.results, cancelled=True)
+        self.engine._finish_cancelled(seq, self.metrics, self.results)
+
+
+class _DeferredLog:
+    """Plan log of the pipelined engine: emissions buffer as
+    ``(fn, args, kwargs)``, every argument captured by value at plan time,
+    and fire in plan order when the iteration commits. A rolled-back plan's
+    log is dropped whole, so no metric, trace event, result or stream
+    emission of an abandoned speculation escapes. Deferred finishes read
+    the sequence's ``generated`` list at flush time, after the commit
+    patched the plan's placeholder tokens with the sampled values."""
+
+    deferred = True
+
+    def __init__(self, engine, metrics, results):
+        self.engine = engine
+        self.metrics = metrics
+        self.results = results
+        self._buf: list = []
+
+    def emit(self, fn, *args, **kw):
+        self._buf.append((fn, args, kw))
+
+    def finish(self, seq):
+        self._buf.append((self.engine._finish,
+                          (seq, self.metrics, self.results), {}))
+
+    def cancel_finish(self, seq):
+        self._buf.append((self.engine._finish_cancelled,
+                          (seq, self.metrics, self.results), {}))
+
+    def flush(self):
+        buf, self._buf = self._buf, []
+        for fn, args, kw in buf:
+            fn(*args, **kw)
 
 
 class _MixedPlan:
-    """One mixed iteration's decision record: decode slots, prompt chunks,
-    sample rows and their sampler metas."""
+    """One mixed iteration's decision record: what the planner decided
+    (decode slots, prompt chunks, sample rows), the patch lists the
+    pipelined commit uses to swap the sampled values in for the
+    placeholders its predicted advance wrote, the deferred emissions
+    (``plog``), the admissions the commit re-probes for prefix-hit drift,
+    and the iteration's timing. ``tokens_dev`` is the dispatch's (S,) token
+    vector on the engine's device; ``tokens_host`` the host tensor its copy
+    lands in, ready once ``ready`` (a CUDA event, None on the CPU) has
+    passed; ``sampled`` the committed numpy values."""
 
     __slots__ = ("plog", "empty", "decode_slots", "decode_seqs", "chunks",
-                 "sample_ids", "metas", "finish_rows", "total_chunk")
+                 "sample_ids", "metas", "finish_rows", "gen_patches",
+                 "feed_rows", "admissions", "cancel_cursor", "total_chunk",
+                 "host_s", "commit_s", "sync_s", "overlap_s",
+                 "t_enqueue", "t_sync_end", "tokens_dev", "tokens_host",
+                 "ready", "sampled")
 
     def __init__(self, plog):
         self.plog = plog
@@ -97,7 +153,21 @@ class _MixedPlan:
         self.sample_ids: list = []
         self.metas: list = []
         self.finish_rows: dict = {}
+        self.gen_patches: list = []     # (seq, generated index, sample row)
+        self.feed_rows: dict = {}       # slot -> (seq, sample row)
+        self.admissions: list = []      # (seq, prefix-hit tokens at plan)
+        self.cancel_cursor = 0
         self.total_chunk = 0
+        self.host_s = 0.0
+        self.commit_s = 0.0
+        self.sync_s = 0.0
+        self.overlap_s = 0.0
+        self.t_enqueue = 0.0
+        self.t_sync_end = 0.0
+        self.tokens_dev = None
+        self.tokens_host = None
+        self.ready = None
+        self.sampled = None
 
 
 class ElasticEngine:
@@ -114,11 +184,6 @@ class ElasticEngine:
                  tracer=None, registry=None,
                  watchdog=None, costaudit=None,
                  device=None):
-        if lookahead is None:
-            lookahead = os.environ.get("REPRO_ASYNC", "0") == "1"
-        if lookahead:
-            raise _not_ported("the one-iteration lookahead pipeline",
-                              "lookahead pipeline")
         for name, value in (("registry", registry), ("watchdog", watchdog),
                             ("costaudit", costaudit)):
             if value is not None:
@@ -162,12 +227,29 @@ class ElasticEngine:
         if prefix_cache is None:
             prefix_cache = os.environ.get("REPRO_PREFIX_CACHE", "0") == "1"
         self.prefix_cache = bool(prefix_cache)
-        # client cancellations: req_ids appended by any thread, applied at
-        # the next plan boundary up to ``_cancel_cursor``
+        # one-iteration lookahead: plan and queue iteration i+1 from
+        # speculatively advanced host state before reading iteration i's
+        # tokens. It needs device sampling (the host sampler reads logits
+        # between dispatch and commit, the very wait the pipeline removes);
+        # an engine without it runs the serial loop. REPRO_ASYNC flips the
+        # default, as in the JAX engine.
+        if lookahead is None:
+            lookahead = os.environ.get("REPRO_ASYNC", "0") == "1"
+        self.lookahead = bool(lookahead)
+        # fault injection for the rollback tests: called at every
+        # speculative plan's validation with the committed iteration count;
+        # True forces a rollback and replan (the replan is not validated)
+        self.lookahead_fault = None
+        # client cancellations: a monotone, lock-guarded log of req_ids.
+        # A plan records the log length it consumed; the committed cursor
+        # advances only when that plan commits, so a rolled-back plan's
+        # replan applies the same entries again
         self._cancel_list: List[int] = []
         self._cancel_lock = threading.Lock()
         self._cancel_cursor = 0
         self._seq_index: Dict[int, Sequence] = {}
+        self._session = None
+        self._iterations = 0
         self.tracer = tracer if tracer is not None else make_tracer()
         self._deployed: Dict[int, object] = {}
         # seconds each budget row's GAR deploy took (device time included)
@@ -207,8 +289,10 @@ class ElasticEngine:
     def cancel(self, req_id: int) -> None:
         """Best-effort client cancellation, applied at the next plan
         boundary: a waiting request leaves its queue, a seated one frees its
-        slot and blocks; it finishes with ``Result.cancelled = True``.
-        Thread-safe; unknown or finished ids are ignored."""
+        slot and blocks, and an in-flight lookahead that assumed the request
+        rolls back. Tokens generated before it takes effect stay delivered;
+        the request finishes with ``Result.cancelled = True``. Thread-safe;
+        unknown or finished ids are ignored."""
         with self._cancel_lock:
             self._cancel_list.append(int(req_id))
 
@@ -232,9 +316,71 @@ class ElasticEngine:
         with torch.no_grad():
             return self._generate_continuous(requests, metrics=metrics)
 
-    def serve_session(self, session, **kw):
-        raise _not_ported("streaming sessions (serve_session)",
-                          "stream front door")
+    def serve_session(self, session, *,
+                      metrics: Optional[ServingMetrics] = None,
+                      idle_wait_s: float = 0.02) -> Dict[int, Result]:
+        """Serve a live ``serving.session.StreamSession`` until it closes:
+        requests arrive open-loop on the session's event loop, are drained
+        into a persistent scheduler at commit boundaries, and every
+        committed token streams back through the submitting client's
+        ``StreamHandle`` as it lands. Runs on the caller's (worker) thread,
+        whose grad mode is its own, so it enters ``torch.no_grad()`` here;
+        returns the req_id -> Result map once the session has closed and
+        the last request drained."""
+        metrics = metrics or ServingMetrics(tracer=self.tracer)
+        self.last_metrics = metrics
+        sched = Scheduler(self.router, tracer=self.tracer)
+        with self._cancel_lock:
+            self._cancel_list = []
+        self._cancel_cursor = 0
+        self._seq_index = {}
+        results: Dict[int, Result] = {}
+        self._session = session
+        session.bind(self)
+        try:
+            with torch.no_grad():
+                while True:
+                    self._drain_intake(sched, metrics)
+                    if not sched.has_waiting():
+                        if session.closed:
+                            break
+                        session.wait_for_work(idle_wait_s)
+                        continue
+                    self._serve_row(sched.next_row(), sched, metrics,
+                                    results)
+        finally:
+            self._session = None
+            session.mark_done()
+        return results
+
+    def _drain_intake(self, sched: Scheduler, metrics: ServingMetrics
+                      ) -> None:
+        """Pull newly submitted session requests into the scheduler. Called
+        at commit boundaries and in the idle loop only, never inside a
+        speculative plan, so a rollback's snapshot never races an
+        arrival."""
+        if self._session is None:
+            return
+        for request, handle in self._session.drain_new():
+            if len(request.prompt) == 0:
+                raise ValueError("empty prompt")
+            seq = sched.submit(request)
+            metrics.on_submit(seq.req_id)
+            self._seq_index[seq.req_id] = seq
+            self._session.register(handle, seq.req_id)
+
+    def _serve_row(self, row: int, sched: Scheduler, metrics: ServingMetrics,
+                   results: Dict[int, Result]) -> None:
+        """Serve one budget row until its queue drains: speculatively when
+        the row has a draft row, else through the mixed loop."""
+        draft_row = self.spec_draft_row(row)
+        if draft_row is not None:
+            from repro_torch.spec import SpecDecoder
+            SpecDecoder(self, row=row, draft_row=draft_row, spec=self.spec,
+                        sched=sched, metrics=metrics,
+                        results=results).serve()
+        else:
+            self._serve_row_mixed(row, sched, metrics, results)
 
     def _generate_continuous(self, requests: List[Request], *,
                              metrics: Optional[ServingMetrics] = None
@@ -262,19 +408,13 @@ class ElasticEngine:
                 "prefill_chunk explicitly to silence this)",
                 DeprecationWarning, stacklevel=3)
         while sched.has_waiting():
-            row = sched.next_row()
-            draft_row = self.spec_draft_row(row)
-            if draft_row is not None:
-                from repro_torch.spec import SpecDecoder
-                SpecDecoder(self, row=row, draft_row=draft_row,
-                            spec=self.spec, sched=sched, metrics=metrics,
-                            results=results).serve()
-            else:
-                self._serve_row_mixed(row, sched, metrics, results)
+            self._serve_row(sched.next_row(), sched, metrics, results)
         return [results[s.req_id] for s in submitted]
 
     def _finish(self, seq: Sequence, metrics, results, *,
                 cancelled: bool = False) -> None:
+        """Close out a request: its Result holds the prompt and what was
+        generated, and goes to the session's stream when one is served."""
         if cancelled:
             metrics.on_cancel(seq.req_id)
         else:
@@ -286,6 +426,14 @@ class ElasticEngine:
             deployed_params=self.router.deployed_params(seq.row),
             ttft_s=metrics.traces[seq.req_id].ttft, cancelled=cancelled)
         seq.state = "finished"
+        if self._session is not None:
+            self._session.finish(seq.req_id, results[seq.req_id])
+
+    def _finish_cancelled(self, seq: Sequence, metrics, results) -> None:
+        """Close out a cancelled request: the planner already unwound its
+        slot or queue position; the Result keeps the prompt and whatever
+        was generated (and streamed) before the cancel took effect."""
+        self._finish(seq, metrics, results, cancelled=True)
 
     def _block_holders(self, cache, batcher):
         """Seated sequences that actually own blocks — the only useful
@@ -294,23 +442,31 @@ class ElasticEngine:
                 if cache.slots[batcher.slot_of(s)].blocks]
 
     def _evict(self, victim, sched, cache, batcher, metrics,
-               reason: str = "cache_pressure") -> int:
+               reason: str = "cache_pressure", plog=None) -> int:
         """Preempt one sequence: free its slot + blocks, re-queue at the row
-        front for recompute. Returns the vacated slot."""
+        front for recompute. Returns the vacated slot. ``reason`` is the
+        trace's why: ``cache_pressure`` (a decoding slot could not reserve
+        its next token), ``prefill_pinned`` (half-prefilled sequences held
+        every block) or ``rollback_recompute`` (an abandoned speculative
+        dispatch wrote K/V into a block this sequence holds after the
+        rollback). With a ``plog`` the metric and trace emissions wait for
+        the plan's commit; the state change is immediate either way."""
         vslot = batcher.slot_of(victim)
         vstate = victim.state                # requeue resets it to waiting
         batcher.leave(vslot)
         cache.free_slot(vslot)
         sched.requeue_front(victim)
-        metrics.on_preempt(victim.req_id)
+        emit = (plog.emit if plog is not None
+                else lambda fn, *a, **kw: fn(*a, **kw))
+        emit(metrics.on_preempt, victim.req_id)
         if self.tracer.enabled:
-            self.tracer.instant(
-                "preempt", CAT_SCHED,
-                args={"req": victim.req_id, "slot": vslot, "reason": reason,
-                      "policy": "youngest_first", "state": vstate})
+            emit(self.tracer.instant,
+                 "preempt", CAT_SCHED,
+                 args={"req": victim.req_id, "slot": vslot, "reason": reason,
+                       "policy": "youngest_first", "state": vstate})
         return vslot
 
-    def _reserve_or_preempt(self, sched, cache, batcher, metrics):
+    def _reserve_or_preempt(self, sched, cache, batcher, metrics, plog=None):
         """Reserve next-token room for every decoding slot; under cache
         pressure evict the youngest block-holding sequence (decoding OR
         mid-prefill) until the rest fit."""
@@ -324,7 +480,7 @@ class ElasticEngine:
                     raise CacheOOM(
                         f"sequence {victim.req_id} alone exceeds the pool")
                 vslot = self._evict(victim, sched, cache, batcher, metrics,
-                                    reason="cache_pressure")
+                                    reason="cache_pressure", plog=plog)
                 if vslot == slot:
                     break                      # the appender itself was evicted
             seq = batcher.slots[slot]
@@ -346,7 +502,10 @@ class ElasticEngine:
     def _serve_row_mixed(self, row: int, sched: Scheduler,
                          metrics: ServingMetrics,
                          results: Dict[int, Result]) -> None:
-        """One budget row's chunked-prefill loop over a fresh paged cache."""
+        """One budget row's chunked-prefill loop over a fresh paged cache.
+        Two loops share one planner (``_plan_iteration``): the serial
+        loop (plan, dispatch, sync, commit) and, with ``lookahead`` and
+        device sampling, the one-iteration pipeline."""
         params = self._realize(row)
         cache = PagedKVCache(self.cfg, max_batch=self.max_batch,
                              max_len=self.max_len, block_size=self.block_size,
@@ -355,13 +514,20 @@ class ElasticEngine:
                              device=self.device)
         cache.tracer = self.tracer
         batcher = ContinuousBatcher(self.max_batch)
-        self._serve_row_sync(row, params, sched, cache, batcher, metrics,
-                             results)
+        drive = (self._serve_row_pipelined
+                 if self.lookahead and self.device_sampling
+                 else self._serve_row_sync)
+        drive(row, params, sched, cache, batcher, metrics, results)
 
-    def _apply_cancellations(self, sched, cache, batcher, plog) -> None:
-        """Apply every not yet applied cancellation entry: a waiting
-        request leaves its row queue, a seated one frees its slot and
-        blocks; unknown or already finished ids are ignored."""
+    def _apply_cancellations(self, sched, cache, batcher, plog) -> int:
+        """Apply every cancellation entry past the committed cursor: a
+        waiting request leaves its row queue, a seated one frees its slot
+        and blocks; unknown or already finished ids are ignored. Entries
+        apply idempotently: a deferred (speculative) plan's consumption
+        commits with the plan, so a rolled-back or still in-flight plan's
+        entries are applied again by the next plan and no-op the second
+        time. Returns the log length consumed (the plan's
+        ``cancel_cursor``)."""
         with self._cancel_lock:
             n = len(self._cancel_list)
             entries = self._cancel_list[self._cancel_cursor: n]
@@ -378,18 +544,24 @@ class ElasticEngine:
                     cache.free_slot(slot)
                     plog.cancel_finish(seq)
                     break
-        self._cancel_cursor = n
+        if not plog.deferred:
+            self._cancel_cursor = n
+        return n
 
     def _plan_iteration(self, row: int, sched, cache, batcher,
                         metrics, plog) -> _MixedPlan:
-        """One mixed iteration's scheduling half: apply cancellations, seat
-        waiting requests (probing the prefix cache), reserve decode room
-        (preempting under pressure), plan the FIFO prompt chunks, and pick
-        the sample rows. Returns an ``empty`` plan when the row drained."""
+        """One mixed iteration's scheduling half, shared by both loops:
+        apply cancellations, seat waiting requests (probing the prefix
+        cache), reserve decode room (preempting under pressure), plan the
+        FIFO prompt chunks, and pick the sample rows. Emissions go through
+        ``plog``; state changes apply at once, and the pipelined loop
+        snapshots around this call to roll them back. Returns an ``empty``
+        plan when the row drained."""
         tr = self.tracer
         plan = _MixedPlan(plog)
         while True:
-            self._apply_cancellations(sched, cache, batcher, plog)
+            plan.cancel_cursor = self._apply_cancellations(
+                sched, cache, batcher, plog)
             for slot in batcher.free_slots():
                 if not sched.has_waiting(row):
                     break
@@ -412,12 +584,14 @@ class ElasticEngine:
                     seq.prefill_pos = hit
                     plog.emit(metrics.on_prefix_hit, seq.req_id, hit,
                               cache.cached_blocks)
+                plan.admissions.append((seq, hit))
                 batcher.seat_prefill(slot, seq)
             if batcher.num_active == 0:
                 return plan                  # row drained (all slots free)
 
             # decode priority: reserve next-token room before any prefill
-            self._reserve_or_preempt(sched, cache, batcher, metrics)
+            self._reserve_or_preempt(sched, cache, batcher, metrics,
+                                     plog=plog)
             decode_slots = batcher.decode_slots()
 
             budget_left = self._mixed_budget - len(decode_slots)
@@ -434,7 +608,7 @@ class ElasticEngine:
             if not decode_slots and not chunks:
                 if batcher.num_active == 0:
                     continue                 # everyone was preempted
-                self._unstick(sched, cache, batcher, metrics)
+                self._unstick(sched, cache, batcher, metrics, plog=plog)
                 continue
             break
 
@@ -471,6 +645,7 @@ class ElasticEngine:
         plog = _ImmediateLog(self, metrics, results)
         while True:
             it0 = metrics.now()
+            self._drain_intake(sched, metrics)
             plan = self._plan_iteration(row, sched, cache, batcher,
                                         metrics, plog)
             if plan.empty:
@@ -505,6 +680,9 @@ class ElasticEngine:
                         logits[0, i].cpu().numpy())
                 sampled_b[slot] = sampled[i]
                 metrics.on_token(seq.req_id)
+                if self._session is not None:
+                    self._session.emit(seq.req_id, len(seq.generated),
+                                       int(sampled[i]))
             for slot in batcher.advance(sampled_b):
                 seq = batcher.leave(slot)
                 cache.free_slot(slot)
@@ -526,6 +704,9 @@ class ElasticEngine:
                     if logits is not None and not seq.sampler.greedy:
                         first = seq.sampler.sample(
                             logits[0, ri].cpu().numpy())
+                    if self._session is not None:
+                        self._session.emit(seq.req_id, len(seq.generated),
+                                           first)
                     seq.generated.append(first)
                     metrics.on_first_token(seq.req_id)
                     if seq.done:             # max_new_tokens == 1
@@ -544,6 +725,282 @@ class ElasticEngine:
                 tr.complete("commit", CAT_ITER, disp0 + disp_s, it1,
                             args={"decode": len(decode_slots),
                                   "prefill": total_chunk})
+            self._iterations += 1
+
+    # ------------------------------------- one-iteration-lookahead pipeline
+
+    def _session_emit(self, seq: Sequence, idx: int) -> None:
+        """Deferred per-token stream emission: runs at the owning plan's
+        commit, after ``_commit_apply`` patched the placeholder at
+        ``generated[idx]`` with the sampled value."""
+        if self._session is not None:
+            self._session.emit(seq.req_id, idx, int(seq.generated[idx]))
+
+    def _advance_predicted(self, plan: _MixedPlan, cache, batcher,
+                           metrics) -> None:
+        """Apply the planned iteration's commit to host state now, with
+        placeholder token 0 wherever a sampled value goes, and record the
+        patch lists for the real commit. The prediction is exact in control
+        flow: finishes count tokens (``max_new_tokens``; no stop tokens),
+        preemption and block accounting never depend on token values, and
+        prefix registration hashes prompt tokens only."""
+        plog = plan.plog
+        sampled_b = np.zeros(self.max_batch, np.int32)
+        for i, slot in enumerate(plan.decode_slots):
+            seq = plan.decode_seqs[i]
+            plan.gen_patches.append((seq, len(seq.generated), i))
+            plog.emit(metrics.on_token, seq.req_id)
+            plog.emit(self._session_emit, seq, len(seq.generated))
+        for slot in batcher.advance(sampled_b):
+            seq = batcher.leave(slot)
+            cache.free_slot(slot)
+            plog.finish(seq)
+        # surviving decode slots were fed placeholder 0 by ``advance``: the
+        # next dispatch patches its copy from this iteration's device token
+        # vector (``_feed_fixups``) and the commit feeds the real value
+        for i, slot in enumerate(plan.decode_slots):
+            if batcher.slots[slot] is plan.decode_seqs[i]:
+                plan.feed_rows[slot] = (plan.decode_seqs[i], i)
+
+        for slot, seq, start, n in plan.chunks:
+            seq.prefill_pos = start + n
+            plog.emit(metrics.on_prefill_chunk, n)
+            # registration hashes prompt tokens, so it is exact at plan
+            # time; the block's K/V lands when the already queued dispatch
+            # runs, before any later dispatch can read it through a hit
+            cache.register_prefix(slot, seq.request.prompt, seq.prefill_pos)
+            if seq.prefill_pos == seq.prompt_len:
+                plog.emit(metrics.on_prefill_end, seq.req_id)
+                ri = plan.finish_rows[slot]
+                idx = len(seq.generated)
+                plan.gen_patches.append((seq, idx, ri))
+                plog.emit(self._session_emit, seq, idx)
+                seq.generated.append(0)      # placeholder first token
+                plog.emit(metrics.on_first_token, seq.req_id)
+                if seq.done:                 # max_new_tokens == 1
+                    batcher.leave(slot)
+                    cache.free_slot(slot)
+                    plog.finish(seq)
+                else:
+                    batcher.to_decoding(slot, 0)
+                    plan.feed_rows[slot] = (seq, ri)
+        plog.emit(metrics.on_mixed_step, len(plan.decode_slots),
+                  plan.total_chunk, cache.occupancy())
+
+    @staticmethod
+    def _feed_fixups(plan: _MixedPlan, pending: _MixedPlan) -> List[tuple]:
+        """Token patches for ``plan``'s dispatch: every decode entry whose
+        host feed is still ``pending``'s placeholder takes its value from
+        ``pending``'s token vector on the device. Returns ``(flat position
+        in plan's token batch, sample row in pending's token vector)``
+        pairs; decode entries sit at flat positions ``0..len(decode_slots)
+        - 1`` in dispatch order."""
+        fixups = []
+        for i, slot in enumerate(plan.decode_slots):
+            pf = pending.feed_rows.get(slot)
+            if pf is not None and pf[0] is plan.decode_seqs[i]:
+                fixups.append((i, pf[1]))
+        return fixups
+
+    def _snapshot_row(self, sched, cache, batcher) -> dict:
+        """Host state for one speculative plan: scheduler queues (all rows:
+        a cancellation can touch any), cache bookkeeping (pools excluded;
+        see ``PagedKVCache.snapshot``), batcher seats, and every reachable
+        Sequence's mutable fields."""
+        seqs = {s.req_id: s for s in batcher.active_sequences()}
+        for q in sched.queues.values():
+            for s in q:
+                seqs[s.req_id] = s
+        return {"sched": sched.snapshot(), "cache": cache.snapshot(),
+                "batcher": batcher.snapshot(),
+                "seqs": [(s, s.snapshot()) for s in seqs.values()]}
+
+    def _restore_row(self, snap: dict, sched, cache, batcher) -> None:
+        sched.restore(snap["sched"])
+        cache.restore(snap["cache"])
+        batcher.restore(snap["batcher"])
+        for s, ss in snap["seqs"]:
+            s.restore(ss)
+
+    def _commit_apply(self, plan: _MixedPlan, batcher) -> None:
+        """Patch the committed iteration's sampled values into host state:
+        ``generated`` placeholders and next-token feeds. Idempotent under
+        replay after a rollback restored older state: a patch applies only
+        where its placeholder still exists (an index past ``generated``
+        means the sequence was reset for recompute; a slot holding another
+        sequence means it was unwound)."""
+        sampled = plan.sampled
+        for seq, idx, row in plan.gen_patches:
+            if idx < len(seq.generated):
+                seq.generated[idx] = int(sampled[row])
+        for slot, (seq, row) in plan.feed_rows.items():
+            if batcher.slots[slot] is seq and seq.state == "decoding":
+                batcher.feed(slot, int(sampled[row]))
+
+    def _commit_iteration(self, pending: _MixedPlan, batcher,
+                          metrics: ServingMetrics) -> None:
+        """Read the pending iteration's tokens (the pipeline's only wait
+        for the card) and commit it: patch the values in, advance the
+        committed cancellation cursor, flush the deferred emissions. On the
+        card the wait is for the event recorded after the tokens' copy,
+        not for the stream, which already holds the next iteration."""
+        t_sync0 = metrics.now()
+        if pending.ready is not None:
+            pending.ready.synchronize()
+        pending.sampled = pending.tokens_host.numpy()
+        pending.t_sync_end = metrics.now()
+        pending.sync_s = pending.t_sync_end - t_sync0
+        pending.overlap_s = max(0.0, t_sync0 - pending.t_enqueue)
+        c0 = metrics.now()
+        self._commit_apply(pending, batcher)
+        self._cancel_cursor = max(self._cancel_cursor, pending.cancel_cursor)
+        pending.plog.flush()
+        pending.commit_s = metrics.now() - c0
+
+    def _validate_speculation(self, plan: _MixedPlan,
+                              cache) -> Optional[str]:
+        """Did the just-committed iteration invalidate the in-flight
+        speculative plan? Returns a rollback reason or None: forced fault
+        injection (the test hook), cancellation entries that arrived after
+        the plan consumed the log (rolling back applies them one iteration
+        sooner), or prefix-hit drift (an admission that would hit more
+        cached prompt blocks if probed now; registration is eager at plan
+        time, so drift needs an index change outside the planner)."""
+        if (self.lookahead_fault is not None
+                and self.lookahead_fault(self._iterations)):
+            return "fault_injection"
+        with self._cancel_lock:
+            n = len(self._cancel_list)
+        if n > plan.cancel_cursor:
+            return "cancellation"
+        for seq, hit in plan.admissions:
+            if (seq.state == "prefilling"
+                    and cache.peek_prefix(seq.request.prompt) > hit):
+                return "prefix_drift"
+        return None
+
+    def _rollback(self, snap: dict, touched: List[int],
+                  pending: Optional[_MixedPlan], sched, cache, batcher,
+                  metrics: ServingMetrics, reason: str) -> None:
+        """Unwind a lost speculation: restore the pre-plan snapshot, then
+        repair what a restore cannot. The pools change in place and the
+        abandoned dispatch stays queued, so it writes K/V at positions past
+        each restored ``num_tokens`` and into every block its plan
+        allocated (``touched``; a copy-on-write's private copy among them):
+        those blocks leave the prefix index, and a restored sequence that
+        holds one is evicted for recompute (recompute replays the same
+        tokens). Every later write is queued behind the abandoned dispatch
+        on the same stream. Finally replay the committed iteration's value
+        patches, which the restore undid (its emissions already flushed)."""
+        self._restore_row(snap, sched, cache, batcher)
+        for b in touched:
+            cache._unregister_block(b)
+        if touched:
+            tset = set(touched)
+            for slot, seq in enumerate(batcher.slots):
+                st = cache.slots[slot]
+                if (seq is not None and st is not None
+                        and not tset.isdisjoint(st.blocks)):
+                    self._evict(seq, sched, cache, batcher, metrics,
+                                reason="rollback_recompute")
+        if pending is not None:
+            self._commit_apply(pending, batcher)
+        metrics.on_rollback(reason)
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "rollback", CAT_ITER,
+                args={"reason": reason, "iter": self._iterations,
+                      "touched": len(touched)})
+
+    def _finalize_iteration(self, pending: _MixedPlan,
+                            metrics: ServingMetrics) -> None:
+        """Per-committed-iteration bookkeeping of the pipelined loop: the
+        dispatch/host split (``dispatch_s`` is the visible wait only; host
+        work that ran under the in-flight dispatch is ``overlap_s``) and
+        trace spans anchored at the real enqueue and sync times."""
+        tr = self.tracer
+        metrics.on_iteration_timing(pending.sync_s,
+                                    pending.host_s + pending.commit_s,
+                                    overlap_s=pending.overlap_s)
+        if tr.enabled:
+            tr.complete("dispatch", CAT_ITER, pending.t_enqueue,
+                        pending.t_sync_end,
+                        args={"sample_rows": len(pending.sample_ids),
+                              "overlap_s": round(pending.overlap_s, 6)})
+            tr.complete("commit", CAT_ITER, pending.t_sync_end,
+                        pending.t_sync_end + pending.commit_s,
+                        args={"decode": len(pending.decode_slots),
+                              "prefill": pending.total_chunk})
+        self._iterations += 1
+
+    def _serve_row_pipelined(self, row: int, params, sched, cache, batcher,
+                             metrics: ServingMetrics,
+                             results: Dict[int, Result]) -> None:
+        """The one-iteration-lookahead loop. Each turn plans and queues
+        iteration ``i+1`` from speculatively advanced host state while the
+        card still runs iteration ``i``, then reads and commits ``i`` and
+        validates the speculation:
+
+            plan i+1  ->  dispatch i+1 (fed i's tokens on the device)
+                      ->  predicted advance of host state (placeholders)
+                      ->  read + commit i  ->  validate i+1
+                      ->  [rollback + replan on a lost race]
+
+        Token streams equal the serial loop's: the planner is shared,
+        control flow never depends on token values, and the keyed draws
+        depend only on (seed, req, purpose, position). Session arrivals
+        are drained at commit boundaries only, after validation, so a
+        rollback never loses one."""
+        tr = self.tracer
+        pending: Optional[_MixedPlan] = None
+        snap = None
+        while True:
+            speculating = pending is not None
+            if speculating:
+                snap = self._snapshot_row(sched, cache, batcher)
+                cache.allocator.begin_alloc_log()
+                metrics.on_lookahead()
+            plog = _DeferredLog(self, metrics, results)
+            t0 = metrics.now()
+            plan = self._plan_iteration(row, sched, cache, batcher,
+                                        metrics, plog)
+            if not plan.empty:
+                fixups = (self._feed_fixups(plan, pending)
+                          if speculating else [])
+                self._dispatch_mixed_async(
+                    params, cache, batcher, plan,
+                    pending.tokens_dev if speculating else None, fixups)
+                plan.t_enqueue = metrics.now()
+                self._advance_predicted(plan, cache, batcher, metrics)
+            plan.host_s = metrics.now() - t0
+            if tr.enabled:
+                # every "lookahead" span ends in exactly one
+                # "lookahead_commit" or "rollback" instant
+                tr.complete("lookahead" if speculating else "plan",
+                            CAT_ITER, t0, t0 + plan.host_s,
+                            args={"decode": len(plan.decode_slots),
+                                  "chunks": len(plan.chunks),
+                                  "empty": plan.empty})
+            if speculating:
+                self._commit_iteration(pending, batcher, metrics)
+                reason = self._validate_speculation(plan, cache)
+                touched = cache.allocator.end_alloc_log()
+                if reason is not None:
+                    self._rollback(snap, touched, pending, sched, cache,
+                                   batcher, metrics, reason)
+                elif tr.enabled:
+                    tr.instant("lookahead_commit", CAT_ITER,
+                               args={"iter": self._iterations})
+                self._finalize_iteration(pending, metrics)
+                pending = None
+                if reason is not None:
+                    self._drain_intake(sched, metrics)
+                    continue                 # replan from committed state
+            self._drain_intake(sched, metrics)
+            if plan.empty:
+                plan.plog.flush()            # cancel/zero-token finishes
+                break
+            pending = plan
 
     # --------------------------------------------------- operand packing
 
@@ -609,13 +1066,9 @@ class ElasticEngine:
                 self._sampler_fields(sampler, temp, topk, seed, req, i)
             purpose[i] = pur
             pos[i] = p
-        dev = self.device
-        # queued without waiting for the stream (a pageable copy is staged
-        # before the call returns)
         return {
-            "temperature": torch.from_numpy(temp).to(dev, non_blocking=True),
-            "top_k": (torch.from_numpy(topk).to(dev, non_blocking=True)
-                      if topk.any() else None),
+            "temperature": self._upload(temp),
+            "top_k": self._upload(topk) if topk.any() else None,
             "seed": torch.from_numpy(seed),
             "req_id": torch.from_numpy(req),
             "purpose": torch.from_numpy(purpose),
@@ -637,17 +1090,25 @@ class ElasticEngine:
         width = self._bucket_tokens(used)
         tok, sid, pos = self._pack_flat(entries, width, self.max_batch)
         rows = self._bucket_rows(len(sample_ids))
-        dev = self.device
         caches = {
-            "slot_ids": torch.from_numpy(sid).to(dev),
-            "positions": torch.from_numpy(pos).to(dev),
+            "slot_ids": self._upload(sid),
+            "positions": self._upload(pos),
             "block_tables": cache.device_tables(cache.active_max_blocks(),
                                                 null_rows=1),
             "segments": cache.pools,
-            "sample_ids": torch.from_numpy(
-                self._pack_sample_ids(sample_ids, rows)).to(dev),
+            "sample_ids": self._upload(self._pack_sample_ids(sample_ids,
+                                                             rows)),
         }
-        return torch.from_numpy(tok[None]).to(dev), caches, rows
+        return self._upload(tok[None]), caches, rows
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host operand on the engine's device, queued without waiting
+        for the stream: a blocking copy would wait for every iteration
+        already queued, and lookahead queues the next one before the last
+        is read. A pageable source is staged before the call returns, so
+        the array may be reused at once."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, non_blocking=True)
 
     def _dispatch_mixed(self, params, cache, batcher, decode_slots, chunks,
                         sample_ids, metas=None):
@@ -671,6 +1132,38 @@ class ElasticEngine:
         cache.update_pools(new_caches)
         return logits
 
+    def _dispatch_mixed_async(self, params, cache, batcher,
+                              plan: _MixedPlan, prev_tokens, fixups) -> None:
+        """Pipelined dispatch: queue the planned iteration's fused forward
+        and draw without waiting for the card, into ``plan.tokens_dev``.
+        Decode entries whose host feed is still the previous iteration's
+        placeholder take their tokens from ``prev_tokens`` (its token
+        vector, on the device and not yet read) by ``fixups``, an indexed
+        write on the device. On the card the tokens are then copied into a
+        pinned host tensor of the plan, and an event recorded right after
+        the copy marks them ready; the commit waits for that event only,
+        not for the iterations queued behind it. On the CPU the tokens are
+        already on the host."""
+        tok, caches, rows = self._build_mixed_operands(
+            cache, batcher, plan.decode_slots, plan.chunks, plan.sample_ids)
+        if fixups:
+            at = self._upload(np.asarray([i for i, _ in fixups], np.int64))
+            src = self._upload(np.asarray([r for _, r in fixups], np.int64))
+            tok[0, at] = prev_tokens[src]
+        sampling = self._pack_sampling(plan.metas, rows)
+        with torch.profiler.record_function("paged_sample_step"):
+            tokens, new_caches = self._sample(params, caches, tok, sampling)
+        cache.update_pools(new_caches)
+        plan.tokens_dev = tokens
+        if self.device.type == "cuda":
+            plan.tokens_host = torch.empty(tokens.shape, dtype=tokens.dtype,
+                                           pin_memory=True)
+            plan.tokens_host.copy_(tokens, non_blocking=True)
+            plan.ready = torch.cuda.Event()
+            plan.ready.record()
+        else:
+            plan.tokens_host = tokens
+
     # the fused device steps (the JAX engine's ``_sample_jit``,
     # ``_sample_probs_jit`` and ``_verify_accept_jit``), as plain calls
 
@@ -686,7 +1179,7 @@ class ElasticEngine:
         return dsamp.paged_verify_accept_step(params, self.cfg, caches, tok,
                                               accept, chunk_sampling)
 
-    def _unstick(self, sched, cache, batcher, metrics):
+    def _unstick(self, sched, cache, batcher, metrics, plog=None):
         """No decode token and no chunk could be scheduled: every block is
         pinned by half-prefilled sequences. Evict the youngest block-holding
         sequence so the head of the line can make progress."""
@@ -697,4 +1190,4 @@ class ElasticEngine:
             raise CacheOOM(f"sequence {holders[0].req_id} alone exceeds "
                            "the pool")
         self._evict(Scheduler.pick_victim(holders), sched, cache, batcher,
-                    metrics, reason="prefill_pinned")
+                    metrics, reason="prefill_pinned", plog=plog)

@@ -515,12 +515,16 @@ class PagedKVCache:
 
     def snapshot(self) -> dict:
         """Copy of the *host* bookkeeping: allocator, slot states, tables,
-        prefix index, stats. The device pools are deliberately excluded —
-        donated buffers cannot be un-donated, and stale K/V writes from an
-        abandoned speculative dispatch are harmless (attention masks by
-        context length and every live position is written before it is
-        read), so rollback restores the host view and leaves the device
-        pools wherever the in-flight dispatch chain put them."""
+        prefix index, stats. The device pools are deliberately excluded:
+        they change in place, and an abandoned speculative dispatch stays
+        queued and writes its K/V all the same. Those writes are harmless
+        where they land past a restored slot's ``num_tokens`` (attention
+        masks by context length, and every live position is written before
+        it is read, by dispatches queued after it on the same stream); the
+        blocks the speculative plan allocated, a copy-on-write's private
+        copy among them, are repaired by the engine's ``_rollback``. So a
+        rollback restores the host view and leaves the pools as the queued
+        dispatches leave them."""
         return {
             "allocator": self.allocator.snapshot(),
             "slots": [None if s is None else (list(s.blocks), s.num_tokens)
@@ -752,8 +756,11 @@ class PagedKVCache:
         of ``max_len`` (the whole point of paging). ``null_rows`` appends
         rows of null blocks: the mixed-iteration path points pad tokens at
         such a row so their reads/writes never touch a live sequence."""
+        # queued without waiting for the stream (a pageable copy is staged
+        # before the call returns)
         return torch.from_numpy(
-            self.host_tables(max_blocks, null_rows=null_rows)).to(self.device)
+            self.host_tables(max_blocks, null_rows=null_rows)).to(
+                self.device, non_blocking=True)
 
     def device_positions(self) -> torch.Tensor:
         """(B,) 0-based index of the token being decoded this step per slot.
@@ -765,7 +772,8 @@ class PagedKVCache:
         """
         pos = [0 if s is None else max(0, s.num_tokens - 1)
                for s in self.slots]
-        return torch.tensor(pos, dtype=torch.int32, device=self.device)
+        return torch.from_numpy(np.asarray(pos, np.int32)).to(
+            self.device, non_blocking=True)
 
     def model_caches(self, max_blocks: Optional[int] = None) -> Dict:
         """Cache pytree consumed by ``transformer.paged_decode_step``."""

@@ -176,6 +176,7 @@ class SpecDecoder:
             prefix_cache=engine.prefix_cache, device=self.device)
         self.cache.tracer = self.tracer
         self.batcher = ContinuousBatcher(engine.max_batch)
+        self._upload = engine._upload  # queued uploads, no wait
         self._round_tables = None    # device block tables, valid per round
         self._disp_s = 0.0           # per-round device-dispatch seconds
         self._zero_row = None        # (1, V) zero q row (padding), cached
@@ -199,12 +200,6 @@ class SpecDecoder:
                                          device=self.device)
         return self._zero_row
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host operand on the engine's device, queued without waiting for
-        the stream (a pageable copy is staged before the call returns)."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device, non_blocking=True)
-
     def _free_pair(self, seat: int) -> None:
         """Free both of a seat's cache slots (a sequence never releases one
         side without the other)."""
@@ -223,16 +218,26 @@ class SpecDecoder:
             if seq is None or seq.state == "finished":
                 continue
             if self.sched.remove_waiting(seq):
-                eng._finish(seq, self.metrics, self.results, cancelled=True)
+                eng._finish_cancelled(seq, self.metrics, self.results)
                 continue
             for seat, s in enumerate(self.batcher.slots):
                 if s is seq:
                     self.batcher.leave(seat)
                     self._free_pair(seat)
-                    eng._finish(seq, self.metrics, self.results,
-                                cancelled=True)
+                    eng._finish_cancelled(seq, self.metrics, self.results)
                     break
         eng._cancel_cursor = n
+
+    def _stream_commit(self, seq: Sequence, commit) -> None:
+        """Stream a round's committed tokens to the session, indexed by
+        their positions in ``seq.generated``: call before extending the
+        list. The decoder is commit-serial, so the values are final."""
+        sess = self.engine._session
+        if sess is None:
+            return
+        base = len(seq.generated)
+        for j, tok in enumerate(commit):
+            sess.emit(seq.req_id, base + j, int(tok))
 
     def _block_holders(self) -> List[Sequence]:
         """Seated sequences holding blocks in either slot of their pair."""
@@ -267,6 +272,7 @@ class SpecDecoder:
         while True:
             it0 = self.metrics.now()
             self._disp_s = 0.0
+            eng._drain_intake(sched, self.metrics)
             self._apply_cancellations()
             # admission: seat waiting requests with a slot pair each
             for seat in self.batcher.free_slots():
@@ -810,6 +816,7 @@ class SpecDecoder:
             verified += p.k + 1
             accepted_total += m
             committed_total += len(commit)
+            self._stream_commit(p.seq, commit)
             p.seq.generated.extend(commit)
             for _ in commit:
                 metrics.on_token(p.seq.req_id)
@@ -838,6 +845,7 @@ class SpecDecoder:
             if seq.prefill_pos == seq.prompt_len:
                 metrics.on_prefill_end(seq.req_id)
                 first = next(firsts)
+                self._stream_commit(seq, [first])
                 seq.generated.append(first)
                 metrics.on_first_token(seq.req_id)
                 if seq.done:                     # max_new_tokens == 1

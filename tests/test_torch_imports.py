@@ -41,5 +41,6 @@ def test_scan_covers_the_package():
                  "src/repro_torch/models/rwkv.py",
                  "src/repro_torch/models/ssm.py",
                  "src/repro_torch/spec/config.py",
-                 "src/repro_torch/spec/decoder.py"):
+                 "src/repro_torch/spec/decoder.py",
+                 "src/repro_torch/serving/session.py"):
         assert must in names

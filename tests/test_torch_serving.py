@@ -272,9 +272,11 @@ def test_engine_and_launcher_default_to_cuda(states, monkeypatch):
 
 def test_unported_engine_features_raise(states):
     _, (tcfg, tpf, ttable, tinfos) = states
+    # the live telemetry plane: the port has no metrics registry yet, so
+    # any object passed as one is refused
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ElasticEngine(tcfg, tpf, ttable, tinfos, device="cpu",
-                      lookahead=True)
+                      registry=object())
     eng = ElasticEngine(tcfg, tpf, ttable, tinfos, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.generate([], mode="drain")
