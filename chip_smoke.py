@@ -91,6 +91,33 @@ Phases, each fatal on failure:
                with prefix caching, lookahead and sync in turns (lookahead,
                sync, sync, lookahead; the lookahead runs under the same
                mode): streams identical to its plain run.
+  13. drain  - the drain engine and the carried decode states: (a) right
+               after phase 7, rwkv6-3b's trained factors, table and infos
+               (its optimizer state freed) served at full width (8 of 32
+               layers) through ``ElasticEngine(max_batch=8, max_len=256)
+               .generate`` with ``mode="auto"``, which must route to drain:
+               8 requests of 96-128 prompt tokens (each batch's longest
+               128, a multiple of rwkv6's chunk) and 32 new at budgets 0.4
+               and 1.0, greedy and temperature 0.8 / top-k 40 mixed in
+               each batch, every prefill, decode step and draw under the
+               sync debug mode "error"; ``gar_matmul`` and
+               ``topk_mask_sample`` launched; each shorter prompt's stream
+               holds its padding; tokens/s, TTFT, prefill and decode ms
+               (host clock and device time), deploy seconds and peak
+               memory; GAR at channel/k, row 0, T 1024; one greedy
+               request's prefill and decode logits against ``forward`` of
+               the whole sequence (TOL_DRAIN_FORWARD); the same request
+               card vs CPU on phase 7's 2-layer cut, identical or parting
+               at a near tie only, the logits of the steps fed the same
+               tokens within TOL_DRAIN_FORWARD. (b) the same for zamba2-7b right after
+               phase 8 (one unit and one Mamba2 layer; GAR at in_proj, row
+               0, m 14576, T 8 and 1024; card vs CPU on phase 8's cut).
+               (c) after phase 12, each of phase 3's requests alone
+               through the drain batch (keyed by its phase-3 index)
+               against its phase-3 stream, then the 8 through
+               ``generate(mode="drain")``: each batch's longest prompt
+               against its solo run; equal, or parting at a near tie only
+               (``TOL_SPEC_TIE``).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
@@ -145,6 +172,18 @@ SPEC_LEN = 4
 # and the verify run's: the acceptance rate must reach this
 SELF_DRAFT_ACCEPT = 0.95
 TOL_LOWRANK = 2e-4             # low-rank linear, relative to the output's max
+# phase 13: a greedy request's prefill + decode logits against ``forward``
+# of the whole sequence on the card, relative to the logits' max. The
+# stateful path runs the recurrences' chunked plain forms (the prompt in
+# 64-step chunks for rwkv6, one 128-step chunk for Mamba2, then single
+# steps), the forward the kernels' own orders; TOL_RECUR_CHUNKED bounds
+# one layer's difference, and the layers and the LM head carry it to the
+# logits: 1e-3, twenty times the reference's own 2e-2
+# (tests/test_models.py:test_decode_matches_forward, bfloat16 caches). The
+# same bound holds the request's logits card vs CPU on the 2-layer cut
+# (the same plain forms in other float32 orders, GAR within TOL_GAR)
+TOL_DRAIN_FORWARD = 1e-3
+DRAIN_NEW = 32                 # new tokens a phase-13 request
 # WKV6 and SSD, relative to the output's max: against the sequential
 # recurrences (the kernel's own order of operations), and against the
 # chunked forms the CPU runs, whose exponents (differences of cumulative
@@ -1745,7 +1784,7 @@ def recurrent_phase(name, layers, keep, kernels, dev, profiling):
     """Phases 7 and 8: ``train_phase`` on ``name`` at full width cut to
     the segments ``layers`` (5 steps), then the card-vs-CPU step on the
     trained factors cut to the segments ``keep``. Returns (launches by
-    kernel, median seconds per step)."""
+    kernel, median seconds per step, the run, its config)."""
     from repro_torch.configs import get_config
     from repro_torch.core import flexrank as FR
     from repro_torch.launch.train import dense_init
@@ -1775,7 +1814,315 @@ def recurrent_phase(name, layers, keep, kernels, dev, profiling):
     cross_train_phase(small, cut_depth(res.params, cfg, small), res.table,
                       FR.group_infos(small), cut_depth(dense, cfg, small),
                       dev)
-    return launches, med
+    return launches, med, res, cfg
+
+
+# ------------------------------------------------------------ drain
+
+def drain_requests(cfg, rng, budgets):
+    """Phase 13's 8 requests: prompts of 96-128 tokens, the first of each
+    budget 128 long (each batch's longest, a multiple of rwkv6's 64-step
+    chunk), DRAIN_NEW new tokens, budgets alternating, greedy and
+    temperature 0.8 / top-k 40 mixed within each budget's batch."""
+    from repro_torch.serving import Request, SamplingParams
+    reqs = []
+    for i in range(8):
+        plen = 128 if i < 2 else int(rng.integers(96, 129))
+        samp = (SamplingParams(temperature=0.8, top_k=40, seed=200 + i)
+                if i % 4 >= 2 else None)
+        reqs.append(Request(
+            prompt=rng.integers(0, cfg.vocab_size, plen).astype(np.int32),
+            max_new_tokens=DRAIN_NEW, budget=budgets[i % 2], sampling=samp))
+    return reqs
+
+
+@contextlib.contextmanager
+def sync_free_drain():
+    """Run every ``prefill``, ``decode_step`` and drain draw of the engine
+    under the sync debug mode "error": a host synchronisation inside one
+    raises. The drain loop's own reads (the first token, the batch's end)
+    lie outside them."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import ElasticEngine
+    saved = (tfm.prefill, tfm.decode_step, ElasticEngine._drain_sample)
+
+    def checked(fn):
+        def run(*args, **kw):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return run
+    tfm.prefill, tfm.decode_step, ElasticEngine._drain_sample = map(
+        checked, saved)
+    try:
+        yield
+    finally:
+        tfm.prefill, tfm.decode_step, ElasticEngine._drain_sample = saved
+
+
+def drain_greedy(params, cfg, prompt, new_tokens, device):
+    """Greedy decode of one prompt through ``prefill`` and
+    ``decode_step`` (float32 state). Returns (tokens, per-step top-2 gap
+    over the logits' max, the per-step logits (new_tokens, V) on the
+    device)."""
+    from repro_torch.models import transformer as tfm
+    state = tfm.init_decode_state(cfg, 1, len(prompt) + new_tokens,
+                                  dtype=torch.float32, device=device)
+    tok = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
+    logits, state = tfm.prefill(params, cfg, state, tok)
+    rows, toks, gaps = [logits[0, -1]], [], []
+    for t in range(new_tokens):
+        top = torch.topk(rows[-1].float(), 2)
+        toks.append(int(top.indices[0]))
+        gaps.append(float(top.values[0] - top.values[1])
+                    / float(rows[-1].abs().max()))
+        if t < new_tokens - 1:
+            nxt = torch.tensor([[toks[-1]]], dtype=torch.int32,
+                               device=device)
+            logits, state = tfm.decode_step(params, cfg, state, nxt)
+            rows.append(logits[0, 0])
+    return toks, gaps, torch.stack(rows)
+
+
+def parted_at_near_tie(label, a, b, gaps_a) -> int:
+    """Greedy streams ``a`` and ``b`` equal, or parting first where the
+    ``a`` run's top-2 gap is within TOL_SPEC_TIE of its logits' max (the
+    streams go their own ways after it). Returns the parting step, or -1;
+    fails on any other parting."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            if not gaps_a[i] <= TOL_SPEC_TIE:
+                fail(f"{label}: streams part at step {i} ({x} vs {y}) "
+                     f"beyond a near tie (top-2 gap {gaps_a[i]:.3e})")
+            log(f"# {label}: streams part at step {i} at a near tie "
+                f"(top-2 gap {gaps_a[i]:.3e})")
+            return i
+    return -1
+
+
+def drain_phase(label, cfg, res, small, dev, rng, report, smi):
+    """Phase 13 (a)/(b): serve ``res`` (a training phase's consolidated
+    factors, table and infos) at full width through
+    ``ElasticEngine.generate`` with ``mode="auto"``, which must route the
+    recurrent family to drain; the GAR rows of the family's new shapes;
+    the decode-vs-forward check on the card; one greedy request card vs
+    CPU on the cut ``small``. Returns (launches by kernel, worst GAR
+    error)."""
+    from repro_torch.kernels import gar_matmul, sampling
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ElasticEngine
+    if tfm.paged_compatible(cfg):
+        fail(f"{label}: expected a family the paged path does not cover")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = cm.tree_map(lambda t: t.detach(), res.params)
+    engine = ElasticEngine(cfg, params, res.table, res.infos, device=dev,
+                           max_batch=8, max_len=256)
+    budgets = (0.4, 1.0)
+    rows = [engine._budget_row(b) for b in budgets]
+    with torch.no_grad():
+        deployed = {r: engine._realize(r) for r in rows}
+    log(f"# drain {label}: deploy "
+        + ", ".join(f"row {r} (budget {b}) {engine.deploy_seconds[r]:.2f} s"
+                    for b, r in zip(budgets, rows)))
+    reqs = drain_requests(cfg, rng, budgets)
+    for k in (gar_matmul, sampling):
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sync_free_drain():
+        results = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"gar_matmul": gar_matmul.launches,
+              "topk_mask_sample": sampling.launches}
+    s = engine.last_metrics.summary()
+    if s["mixed_iterations"] or not s["decode_steps"]:
+        fail(f"{label}: generate(mode='auto') did not serve through drain")
+    longest = {}
+    for rq in reqs:
+        row = engine._budget_row(rq.budget)
+        longest[row] = max(longest.get(row, 0), len(rq.prompt))
+    for i, (rq, rs) in enumerate(zip(reqs, results)):
+        n, pad = len(rq.prompt), longest[rs.budget_row]
+        if len(rs.tokens) != n + DRAIN_NEW:
+            fail(f"{label}: request {i} of {n} tokens returned "
+                 f"{len(rs.tokens)}")
+        if rs.tokens[n:pad].any():
+            fail(f"{label}: request {i}'s stream lacks its padding")
+        gen = rs.tokens[pad:]
+        if gen.size and (gen.min() < 0 or gen.max() >= cfg.vocab_size):
+            fail(f"{label}: generated token out of the vocabulary")
+    if min(counts.values()) <= 0:
+        fail(f"{label}: a kernel of the drain path never launched: {counts}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # ms per decode step at the engine's batch of the first row
+    batch = [rq for rq in reqs if rq.budget == budgets[0]]
+    padded = np.zeros((len(batch), longest[rows[0]]), np.int32)
+    for i, rq in enumerate(batch):
+        padded[i, :len(rq.prompt)] = rq.prompt
+    step_ms = []
+    with torch.no_grad():
+        state = tfm.init_decode_state(cfg, len(batch), 256,
+                                      dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, state = tfm.prefill(deployed[rows[0]], cfg, state,
+                                    torch.as_tensor(padded, device=dev))
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        for _ in range(DRAIN_NEW - 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, state = tfm.decode_step(deployed[rows[0]], cfg, state,
+                                            tok)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            tok = torch.argmax(logits[:, 0], -1).to(torch.int32)[:, None]
+        # the card's own time for a step: its kernels' device time under
+        # torch.profiler (a step queues some thousand launches, more than
+        # the launch queue holds, so events behind a device sleep would
+        # time the host's enqueue instead)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                tfm.decode_step(deployed[rows[0]], cfg, state, tok)
+                torch.cuda.synchronize()
+        krows = kernel_rows(prof)
+        step_dev = sum(r[0] for r in krows) / 4e3
+        step_launches = sum(r[1] for r in krows) / 4
+    log(f"# drain {label}: {len(reqs)} requests (prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)}, {DRAIN_NEW} new each, budgets "
+        f"0.4/1.0 -> rows {rows}, half greedy), wall {wall:.2f} s: "
+        f"{s['tokens_per_s']:.1f} tok/s, ttft mean "
+        f"{s['ttft_mean_s'] * 1e3:.1f} ms, {s['decode_steps']:.0f} decode "
+        f"steps; prefill at B={len(batch)} x {padded.shape[1]} "
+        f"{prefill_ms:.2f} ms; decode_step at B={len(batch)} median "
+        f"{statistics.median(step_ms):.2f} ms on the host's clock, "
+        f"{step_dev:.3f} ms of kernel time in {step_launches:.0f} launches "
+        f"(busy {100 * step_dev / statistics.median(step_ms):.1f}%; most: "
+        + ", ".join(f"{k[:40]} {us / 4e3:.3f} ms" for us, _, k in krows[:3])
+        + f"); peak device memory "
+        f"{peak:.2f} GB; {smi}")
+    log(f"# drain {label}: launches {json.dumps(counts)}; every prefill, "
+        "decode step and draw queued under the sync debug mode \"error\"")
+
+    # GAR at the family's new shapes, from the deployed row 0
+    gar_shapes = []
+    with torch.no_grad():
+        layer = engine._realize(0)["segments"][0]
+    if cfg.segments[0].kind == "rwkv":
+        leaf = cm.tree_get(layer, "channel/k")
+        vt, uh, pi = leaf["v_tilde"][0], leaf["u_hat"][0], leaf["perm_inv"][0]
+        ts, what = (1024,), "rwkv6 channel/k"
+    else:
+        leaf = cm.tree_get(layer, "mambas/mamba/in_proj")
+        vt, uh, pi = (leaf["v_tilde"][0, 0], leaf["u_hat"][0, 0],
+                      leaf["perm_inv"][0, 0])
+        ts, what = (8, 1024), "zamba2 in_proj"
+    n, r = vt.shape
+    for t in ts:
+        gar_shapes.append((f"{what} row 0 T={t} n={n} r={r} "
+                           f"m={r + uh.shape[0]}", t, vt, uh, pi))
+    first = len(report)
+    gar_err = check_gar(dev, gar_shapes, rng, report)
+    for e in report[first:]:
+        log(kernel_line(e))
+
+    # decode vs forward on the card: the first request (greedy, 128
+    # tokens) at row 0
+    prompt = reqs[0].prompt
+    with torch.no_grad():
+        toks, gaps, dec = drain_greedy(deployed[rows[0]], cfg, prompt,
+                                       DRAIN_NEW, dev)
+        seq = torch.as_tensor(np.concatenate([prompt, toks[:-1]]),
+                              dtype=torch.int32, device=dev)[None]
+        full, _ = tfm.forward(deployed[rows[0]], cfg, seq)
+    full = full[0, len(prompt) - 1:]
+    rel = float((dec - full).abs().max()) / float(full.abs().max())
+    agree = bool(torch.equal(torch.argmax(full, -1),
+                             torch.as_tensor(toks, device=dev)))
+    log(f"# drain {label}: prefill {len(prompt)} + {DRAIN_NEW - 1} decode "
+        f"steps vs forward of the {seq.shape[1]} tokens: logits worst rel "
+        f"{rel:.2e} (tolerance {TOL_DRAIN_FORWARD}), greedy choices "
+        f"{'identical' if agree else 'differ'}")
+    if not (rel <= TOL_DRAIN_FORWARD and bool(torch.isfinite(dec).all())):
+        fail(f"{label}: decode vs forward logits rel {rel:.3e}")
+
+    # one greedy request card vs CPU on the cut
+    p_small = cut_depth(deployed[rows[0]], cfg, small)
+    with torch.no_grad():
+        t_gpu, g_gpu, l_gpu = drain_greedy(p_small, small, prompt, 8, dev)
+        t0 = time.perf_counter()
+        t_cpu, _, l_cpu = drain_greedy(cm.tree_map(lambda t: t.cpu(),
+                                                   p_small),
+                                       small, prompt, 8, torch.device("cpu"))
+        secs = time.perf_counter() - t0
+    cut = ", ".join(f"{g.kind} x{g.count}" + (
+        f" ({g.mamba_per_unit} Mamba2)" if g.kind == "zamba_unit" else "")
+        for g in small.segments)
+    log(f"# drain {label}: card vs CPU on the cut [{cut}], "
+        f"{len(prompt)}-token prompt, 8 greedy tokens: card {t_gpu}, CPU "
+        f"{t_cpu} ({secs:.1f} s on the CPU)")
+    part = parted_at_near_tie(f"drain {label} card vs CPU", t_gpu, t_cpu,
+                              g_gpu)
+    # the logits of the steps fed the same tokens on both sides
+    same = part + 1 if part >= 0 else len(t_gpu)
+    l_cpu = l_cpu[:same]
+    rel = float((l_gpu[:same].cpu() - l_cpu).abs().max()) / float(
+        l_cpu.abs().max())
+    log(f"# drain {label}: card vs CPU logits over {same} steps: worst rel "
+        f"{rel:.2e} (tolerance {TOL_DRAIN_FORWARD})")
+    if not rel <= TOL_DRAIN_FORWARD:
+        fail(f"{label}: card vs CPU logits rel {rel:.3e}")
+    log(f"# drain {label}: {time.perf_counter() - t_phase:.1f} s in all")
+    del engine, deployed, params
+    return counts, gar_err
+
+
+def drain_gpt2(engine, reqs, phase3, dev):
+    """Phase 13 (c): each of phase 3's requests alone through the drain
+    batch (its submission index keys its draws, as in phase 3) against
+    its phase-3 stream, then all 8 through ``generate(mode="drain")``:
+    each batch's longest prompt against its solo run. Equal, or parting
+    at a near tie only. Returns launches by kernel."""
+    from repro_torch.kernels import gar_matmul, sampling
+    t_phase = time.perf_counter()
+    for k in (gar_matmul, sampling):
+        k.launches = 0
+    with torch.no_grad():
+        solo = [engine._serve_batch(engine._realize(r.budget_row),
+                                    r.budget_row, [rq], [i])[0]
+                for i, (rq, r) in enumerate(zip(reqs, phase3))]
+    ties = spec_divergences("drain gpt2 solo vs phase 3", engine, reqs,
+                            phase3, solo, dev, 256)
+    with sync_free_drain():
+        together = engine.generate(reqs, mode="drain")
+    longest = {}
+    for i, rq in enumerate(reqs):
+        j = longest.get(phase3[i].budget_row)
+        if j is None or len(rq.prompt) > len(reqs[j].prompt):
+            longest[phase3[i].budget_row] = i
+    idx = sorted(longest.values())
+    ties += spec_divergences(
+        "drain gpt2 batched vs solo", engine, [reqs[i] for i in idx],
+        [solo[i] for i in idx], [together[i] for i in idx], dev, 256,
+        req_ids=idx)
+    counts = {"gar_matmul": gar_matmul.launches,
+              "topk_mask_sample": sampling.launches}
+    log(f"# drain gpt2: 8 solo runs against phase 3's streams, then the 8 "
+        f"batched by row (longest of each: requests {idx}); near-tie "
+        f"partings {ties}; launches {json.dumps(counts)}; "
+        f"{time.perf_counter() - t_phase:.1f} s in all")
+    return counts
 
 
 def _layer_count(segments) -> int:
@@ -2043,17 +2390,41 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 7. rwkv6-3b, 8. zamba2-7b: full width, cut in depth
-    rwkv_counts, _ = recurrent_phase(
+    # 7. rwkv6-3b, 8. zamba2-7b: full width, cut in depth; each then
+    # served through drain from its trained state (13 (a), (b))
+    drng = np.random.default_rng(13)
+    rwkv_counts, _, res, rcfg = recurrent_phase(
         "rwkv6-3b", (Segment("rwkv", 8),), (Segment("rwkv", 2),),
         (wkv6, lowrank_matmul), dev, profiling)
+    res.opt_state = None
     gc.collect()
     torch.cuda.empty_cache()
-    zamba_counts, _ = recurrent_phase(
+    drain_counts, err = drain_phase(
+        "rwkv6-3b", rcfg, res, dataclasses.replace(
+            rcfg, segments=(Segment("rwkv", 2),), num_layers=2),
+        dev, drng, report, smi)
+    gar_err = max(gar_err, err)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    zamba_counts, _, res, zcfg = recurrent_phase(
         "zamba2-7b", (Segment("zamba_unit", 1, mamba_per_unit=5),
                       Segment("mamba", 1)),
         (Segment("zamba_unit", 1, mamba_per_unit=1), Segment("mamba", 1)),
         (ssd, lowrank_matmul), dev, profiling)
+    res.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = (Segment("zamba_unit", 1, mamba_per_unit=1), Segment("mamba", 1))
+    zd_counts, err = drain_phase(
+        "zamba2-7b", zcfg, res, dataclasses.replace(
+            zcfg, segments=small, num_layers=_layer_count(small)),
+        dev, drng, report, smi)
+    gar_err = max(gar_err, err)
+    for c in (drain_counts, zd_counts):
+        counts["gar_matmul"] += c["gar_matmul"]
+        counts["sampling"] += c["topk_mask_sample"]
+    del res
     counts["wkv6"] = rwkv_counts["wkv6"]
     counts["ssd"] = zamba_counts["ssd"]
     if counts["ssd"] % ssd.LAUNCHES_A_CALL:
@@ -2107,6 +2478,11 @@ def main() -> int:
     counts["gar_matmul"] += stream_counts["gar_matmul"]
     counts["paged_attention"] += stream_counts["paged_prefill_attention"]
     counts["sampling"] += stream_counts["topk_mask_sample"]
+
+    # 13 (c). gpt2-small through drain on phase 3's engine and requests
+    gd_counts = drain_gpt2(engine, reqs, results, dev)
+    counts["gar_matmul"] += gd_counts["gar_matmul"]
+    counts["sampling"] += gd_counts["topk_mask_sample"]
 
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {

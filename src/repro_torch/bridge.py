@@ -8,7 +8,8 @@ package, int64 index tensors here. A numpy -> torch -> numpy round trip is
 exact. ``ProfileTable`` and ``GroupInfo`` are carried field by field into
 the port's own dataclasses; AdamW states (``step``, ``mu``, ``nu``) and
 calibration moment stores (``{tap_key: [moment, count]}``) go both ways,
-exactly. Nothing here imports JAX: the caller hands over the trees, and
+exactly, and so do contiguous decode states (``decode_state_to_torch``,
+``decode_state_to_numpy``). Nothing here imports JAX: the caller hands over the trees, and
 the bridge reads them by duck typing.
 """
 from __future__ import annotations
@@ -102,3 +103,58 @@ def moments_to_numpy(store) -> dict:
     JAX package's layout."""
     return {k: [m.detach().cpu().numpy(), float(c)]
             for k, (m, c) in store.items()}
+
+
+def _state_leaf_to_torch(leaf, device):
+    a = np.asarray(leaf)
+    if a.dtype.name == "bfloat16":       # the reference's default K/V type
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device or "cpu", torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device or "cpu")
+
+
+def decode_state_to_torch(tree, device=None) -> dict:
+    """The JAX package's contiguous decode state (``init_decode_state``,
+    numpy or JAX leaves) -> the port's: ``pos`` and every attention cache's
+    ``idx`` (an int32 array of one value per stacked block) become host
+    ints, the other leaves tensors on ``device`` (bfloat16 stays
+    bfloat16)."""
+    def conv(node, key=""):
+        if isinstance(node, dict):
+            return {k: conv(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        if node is None:
+            return None
+        if key in ("pos", "idx"):
+            a = np.asarray(node).reshape(-1)
+            if not (a == a[0]).all():
+                raise ValueError(f"{key} differs across blocks: {a}")
+            return int(a[0])
+        return _state_leaf_to_torch(node, device)
+    return conv(tree)
+
+
+def decode_state_to_numpy(state) -> dict:
+    """The port's decode state -> the reference's layout in numpy: ``pos``
+    an int32 scalar array, each ``idx`` an int32 array of one value per
+    stacked block (the length of its ``k``), tensors as numpy arrays
+    (bfloat16 ones as float32, which numpy lacks)."""
+    def conv(node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k == "pos":
+                    out[k] = np.asarray(v, np.int32)
+                elif k == "idx":
+                    out[k] = np.full((node["k"].shape[0],), v, np.int32)
+                else:
+                    out[k] = conv(v)
+            return out
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        if node is None:
+            return None
+        return node.detach().float().cpu().numpy() \
+            if node.dtype == torch.bfloat16 else node.detach().cpu().numpy()
+    return conv(state)

@@ -3,13 +3,16 @@ init (calibration on the synthetic source, DataSVD and DP through
 ``launch.train.build_flexrank_state``, as the JAX package's launcher does),
 then serve a stream of requests at mixed budgets through the GAR-deployed
 submodels with the continuous-batching engine (paged KV cache, chunked
-prefill fused into decode iterations with ``--prefill-chunk``;
-``--spec-draft-rank`` nested self-speculative decoding: a low-rank prefix
-row drafts up to ``--spec-len`` tokens a round, the full row verifies them
-in one multi-token forward; with ``--temperature`` the rounds accept and
-resample stochastically unless ``--spec-no-stochastic`` keeps the
-verify-only fallback, and ``--spec-adaptive-k`` adapts each sequence's
-draft length). ``--stream`` serves through the asyncio front door
+prefill fused into decode iterations with ``--prefill-chunk``), or with the
+drain engine (``--engine drain``, and what ``auto`` picks for the recurrent
+families rwkv6-3b and zamba2-7b: static batches through the contiguous
+prefill/decode with carried recurrent states). ``--spec-draft-rank`` turns
+on nested self-speculative decoding (a low-rank prefix row drafts up to
+``--spec-len`` tokens a round, the full row verifies them in one
+multi-token forward; with ``--temperature`` the rounds accept and resample
+stochastically unless ``--spec-no-stochastic`` keeps the verify-only
+fallback, and ``--spec-adaptive-k`` adapts each sequence's draft
+length). ``--stream`` serves through the asyncio front door
 (``serving.session``): open-loop arrivals (Poisson at ``--arrival-rate``),
 every token echoed as it streams, every ``--cancel-nth`` request cancelled
 after two tokens; ``--lookahead`` turns on the one-iteration lookahead
@@ -21,6 +24,8 @@ pipeline.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
       --prefill-chunk 64 --stream --lookahead --arrival-rate 20 \
       --cancel-nth 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+      --smoke --device cpu
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead (use ``--smoke`` there). The flags are those of
@@ -116,7 +121,10 @@ def main(argv=None):
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "continuous", "drain"],
                     help="continuous = paged cache + mid-decode joins; "
-                         "drain is not ported yet")
+                         "drain = static batches through the contiguous "
+                         "prefill/decode; auto = continuous where the "
+                         "family allows it (attention stacks), else drain "
+                         "(rwkv6, zamba2)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--block-size", type=int, default=16)
@@ -237,10 +245,11 @@ def main(argv=None):
           f"first-decode {s['ttft_first_decode_mean_s']*1e3:.1f}), "
           f"cache occupancy peak {s['cache_occupancy_peak']:.2f}, "
           f"preemptions {s['preemptions']}")
-    print(f"# iteration split: dispatch {s['dispatch_ms_mean']:.2f} ms "
-          f"/ host {s['host_ms_mean']:.2f} ms "
-          f"({'host' if args.host_sampling else 'device'} sampling, "
-          f"{device})")
+    if engine.last_metrics.timing_log:       # the drain engine times none
+        print(f"# iteration split: dispatch {s['dispatch_ms_mean']:.2f} ms "
+              f"/ host {s['host_ms_mean']:.2f} ms "
+              f"({'host' if args.host_sampling else 'device'} sampling, "
+              f"{device})")
     if engine.lookahead:
         print(f"# lookahead: {s['lookahead_iterations']:.0f} speculative "
               f"iterations, {s['rollbacks']:.0f} rollbacks, overlap share "

@@ -1,7 +1,7 @@
 """GQA self-attention (+RoPE, logit softcap) and FFN blocks: the paged
-serving forwards (decode and mixed) and the contiguous train/prefill
-forward (exact query-chunked attention), spec/apply pairs driven by
-``transformer``.
+serving forwards (decode and mixed), the contiguous train/prefill forward
+and the contiguous decode over a (B, T) K/V cache (exact query-chunked
+attention), spec/apply pairs driven by ``transformer``.
 
 Each projection names its activation tap ("q", "k", "v", "o", "gate",
 "up", "down") for the calibration pass."""
@@ -115,18 +115,19 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                ranks: Optional[Dict] = None, cache: Optional[Dict] = None,
                kv_source: Optional[torch.Tensor] = None,
                static_kv=None, causal: bool = True,
-               use_rope: bool = True) -> Tuple[torch.Tensor, None]:
-    """Self-attention with no cache (train/prefill): project, attend over
-    the sequence itself, project out. x: (B, S, d). Returns (y, None).
-    The decode cache branch of the reference raises until the contiguous
-    decode is ported (ROADMAP A.6, with A.12 for zamba2's shared block);
-    the cross-attention and ``static_kv`` branches until the audio and
-    vision families are (ROADMAP A.13, A.14)."""
-    if cache is not None:
-        raise NotImplementedError(
-            "attn_apply with a decode cache (the contiguous prefill/decode "
-            "path) is not ported yet: ROADMAP A.6, and A.12 for zamba2's "
-            "shared attention block")
+               use_rope: bool = True
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Self-attention: project, attend, project out. x: (B, S, d);
+    positions: (S,).
+
+    Without ``cache`` (train/prefill) the keys are the sequence itself;
+    returns (y, None). With ``cache`` = {'k', 'v': (B, T, Hkv, D), 'idx':
+    a host int} (the contiguous prefill/decode) the step's K/V are written
+    IN PLACE at rows ``idx .. idx + S - 1`` and the queries attend over all
+    T rows with key positions ``0 .. T - 1``: the causal mask hides the rows
+    not yet written, as in the reference. Returns (y, {'k', 'v', 'idx':
+    idx + S}). The cross-attention and ``static_kv`` branches raise until
+    the audio and vision families are ported (ROADMAP A.13, A.14)."""
     if kv_source is not None or static_kv is not None:
         raise NotImplementedError(
             "cross-attention (kv_source/static_kv) is not ported yet: "
@@ -135,12 +136,45 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     r = ranks or {}
     q, k, v = project_qkv(p, x, cfg, ranks=r, positions=positions,
                           rope=use_rope)
-    out = chunked_attend(q, k, v, q_positions=positions,
-                         k_positions=positions, window=window,
-                         softcap=cfg.attn_logit_softcap, causal=causal)
     b, s = x.shape[:2]
+    new_cache = None
+    if cache is not None:
+        idx = cache["idx"]
+        ck, cv = cache["k"], cache["v"]
+        t = ck.shape[1]
+        if idx + s > t:
+            raise ValueError(f"decode cache of {t} positions cannot take "
+                             f"{s} more at {idx}")
+        ck[:, idx:idx + s] = k.to(ck.dtype)
+        cv[:, idx:idx + s] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv, "idx": idx + s}
+        k_positions = torch.arange(t, device=x.device)
+        # the reference's einsum promotes a low-precision cache to the
+        # queries' type; torch's needs the cast
+        out = chunked_attend(q, ck.to(q.dtype), cv, q_positions=positions,
+                             k_positions=k_positions, window=window,
+                             softcap=cfg.attn_logit_softcap, causal=causal)
+    else:
+        out = chunked_attend(q, k, v, q_positions=positions,
+                             k_positions=positions, window=window,
+                             softcap=cfg.attn_logit_softcap, causal=causal)
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
-    return linear(p["o"], out, rank=r.get("o"), tap="o"), None
+    return linear(p["o"], out, rank=r.get("o"), tap="o"), new_cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                  dtype=torch.bfloat16, num_instances: int = 1,
+                  device=None) -> Dict:
+    """Zero K/V caches of ``num_instances`` stacked attention blocks:
+    {'k', 'v': (L, B, max_len, Hkv, D), 'idx': 0}. ``idx``, the next row to
+    write, is a host int shared by the L blocks (the reference keeps an
+    int32 array of L equal values): the drain loop knows it, so reading it
+    never waits for the card."""
+    shape = (num_instances, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "idx": 0}
 
 
 def paged_attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,

@@ -15,8 +15,13 @@ FlexRank: the r/k/v/g/o and channel-mix projections are dense leaves ->
 factorizable; the token-shift/decay LoRAs are already rank <= 64 and stay
 dense (``cfg.flexrank.exclude`` covers 'decay'/'mix').
 
-Only the stateless forward (train, calibration, eval) is ported: a carried
-decode state raises.
+With a carried decode state (``rwkv_apply(state=...)``, prefill and
+decode) the block runs the reference's stateful branch: the token shifts
+continue from the carried last inputs and the recurrence is ``wkv_chunked``
+from the carried WKV state. As in the reference, that branch is the plain
+chunked form on every device, not the ``wkv6`` kernel (which starts from a
+zero state and returns y only). Its steps must be a multiple of the chunk
+when they exceed it (the reference's contract).
 """
 from __future__ import annotations
 
@@ -70,18 +75,26 @@ def rwkv_spec(cfg: ModelConfig) -> Dict:
     }
 
 
-def _token_shift(x: torch.Tensor) -> torch.Tensor:
-    """x_{t-1}, zero at t = 0. x: (B, S, D)."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _token_shift(x: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x_{t-1}. x: (B, S, D); ``prev``: the input before x (B, D), zero
+    when None."""
+    if x.shape[1] == 1 and prev is not None:
+        return prev[:, None, :]
+    shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    if prev is not None:
+        shifted = torch.cat([prev[:, None, :], shifted[:, 1:]], dim=1)
+    return shifted
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                w: torch.Tensor, u: torch.Tensor, *, chunk: int
+                w: torch.Tensor, u: torch.Tensor, *, chunk: int,
+                initial_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunk-parallel WKV6 recurrence from a zero state (the reference's
-    ``wkv_chunked``): within a chunk a strictly lower-triangular decay
-    tensor from cumulative log-decays, across chunks a loop carries the
-    (N, N) state.
+    """Chunk-parallel WKV6 recurrence (the reference's ``wkv_chunked``)
+    from ``initial_state`` (B, H, N, N), float32, or zeros: within a chunk
+    a strictly lower-triangular decay tensor from cumulative log-decays,
+    across chunks a loop carries the (N, N) state.
 
     r/k/v: (B, S, H, N); w: (B, S, H, N) decays in (0, 1); u: (H, N) bonus.
     Returns (y (B, S, H, N), final_state (B, H, N, N)).
@@ -100,7 +113,8 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=r.device),
                      diagonal=-1)[None, :, :, None, None]
     uf = u.to(f32)
-    state = torch.zeros((bb, h, n, n), dtype=f32, device=r.device)
+    state = (initial_state if initial_state is not None
+             else torch.zeros((bb, h, n, n), dtype=f32, device=r.device))
     ys = []
     for c in range(nc):
         sl = slice(c * q, (c + 1) * q)
@@ -137,14 +151,15 @@ def _ddlerp(x: torch.Tensor, x_prev: torch.Tensor, p: Dict,
 
 def rwkv_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                ranks: Optional[Dict] = None,
-               state: Optional[Dict] = None) -> Tuple[torch.Tensor, None]:
-    """Full RWKV6 block (time-mix + channel-mix, each pre-norm residual)
-    with no carried state. x: (B, S, d). Returns (out, None)."""
-    if state is not None:
-        raise NotImplementedError(
-            "rwkv6 with a carried WKV/token-shift state (prefill/decode) is "
-            "not ported yet (ROADMAP A.12: the recurrent families' stateful "
-            "path)")
+               state: Optional[Dict] = None
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full RWKV6 block (time-mix + channel-mix, each pre-norm residual).
+    x: (B, S, d). Without ``state`` the recurrence is ``ops.wkv6_forward``
+    (the ``wkv6`` kernel on the card) and the result is (out, None). With
+    ``state`` = {'shift_t', 'shift_c': (B, d), 'wkv': (B, H, N, N)}
+    (prefill and decode) the shifts and the recurrence continue from the
+    carried state through ``wkv_chunked``, as the reference does; returns
+    (out, {'shift_t', 'shift_c', 'wkv'}) with new tensors."""
     rw = cfg.rwkv
     r_ = ranks or {}
     d = cfg.d_model
@@ -156,7 +171,9 @@ def rwkv_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     # ---- time mix ----
     x_res = x
     x = cm.rms_norm(x, p["ln_t"], eps=cfg.norm_eps)
-    mixed = _ddlerp(x, _token_shift(x), tp, rw)
+    shift_t_out = x[:, -1]
+    prev_t = None if state is None else state["shift_t"].to(x.dtype)
+    mixed = _ddlerp(x, _token_shift(x, prev_t), tp, rw)
 
     def proj(name):
         return linear(tp[name], mixed[name], rank=cm.rget(r_, "time", name),
@@ -173,7 +190,11 @@ def rwkv_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     w = torch.exp(-torch.exp(decay_in.float())).reshape(bsz, seqlen, h, n)
     u = tp["bonus"].reshape(h, n)
 
-    y = ops.wkv6_forward(rr, kk, vv, w.to(x.dtype), u, chunk=rw.chunk)
+    if state is None:
+        y = ops.wkv6_forward(rr, kk, vv, w.to(x.dtype), u, chunk=rw.chunk)
+    else:
+        y, new_wkv = wkv_chunked(rr, kk, vv, w.to(x.dtype), u,
+                                 chunk=rw.chunk, initial_state=state["wkv"])
     y = y.reshape(bsz, seqlen, d)
     y = cm.rms_norm(y, tp["ln_x"], eps=cfg.norm_eps)  # group-norm stand-in
     y = y * F.silu(gg)
@@ -184,7 +205,9 @@ def rwkv_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     cp = p["channel"]
     x_res = x
     x = cm.rms_norm(x, p["ln_c"], eps=cfg.norm_eps)
-    dxc = _token_shift(x) - x
+    shift_c_out = x[:, -1]
+    prev_c = None if state is None else state["shift_c"].to(x.dtype)
+    dxc = _token_shift(x, prev_c) - x
     xk = x + dxc * cp["mix_k"].to(x.dtype)
     xr = x + dxc * cp["mix_r"].to(x.dtype)
     kk_c = torch.square(F.relu(linear(cp["k"], xk,
@@ -195,4 +218,26 @@ def rwkv_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     out = x_res + rr_c * linear(cp["v"], kk_c,
                                 rank=cm.rget(r_, "channel", "v"),
                                 tap="channel/v")
-    return out, None
+    if state is None:
+        return out, None
+    return out, {"shift_t": shift_t_out, "shift_c": shift_c_out,
+                 "wkv": new_wkv}
+
+
+def init_rwkv_state(cfg: ModelConfig, batch: int, *, num_instances: int,
+                    dtype=torch.float32, device=None) -> Dict:
+    """Zero decode states of ``num_instances`` stacked RWKV6 blocks:
+    {'shift_t', 'shift_c': (L, B, d) in ``dtype``, 'wkv': (L, B, H, N, N)
+    float32}."""
+    rw = cfg.rwkv
+    d = cfg.d_model
+    h = d // rw.head_dim
+    return {
+        "shift_t": torch.zeros((num_instances, batch, d), dtype=dtype,
+                               device=device),
+        "shift_c": torch.zeros((num_instances, batch, d), dtype=dtype,
+                               device=device),
+        "wkv": torch.zeros((num_instances, batch, h, rw.head_dim,
+                            rw.head_dim), dtype=torch.float32,
+                           device=device),
+    }

@@ -11,8 +11,12 @@ FlexRank: in/out projections are ordinary dense leaves -> factorizable.
 The conv, decay (a_log, dt_bias) and skip (d_skip) params are excluded
 (not matmul weights).
 
-Only the stateless forward (train, calibration, eval) is ported: a carried
-decode state raises.
+With a carried decode state (``mamba_apply(state=...)``, prefill and
+decode) the block runs the reference's stateful branch: the conv continues
+from the last K-1 inputs and the scan is ``ssd_chunked`` as a single chunk
+of the whole step from the carried SSD state. As in the reference, that
+branch is the plain chunked form on every device, not the ``ssd`` kernel
+(which starts from a zero state and returns y only).
 """
 from __future__ import annotations
 
@@ -52,21 +56,29 @@ def mamba_spec(cfg: ModelConfig) -> Dict:
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv of width K from zero history, then SiLU.
-    x: (B, S, C); w: (K, C)."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv of width K, then SiLU. x: (B, S, C); w: (K, C);
+    ``state``: the K-1 inputs before x (B, K-1, C), zeros when None.
+    Returns (y, new_state) with new_state the last K-1 inputs (the decode
+    carry)."""
     k = w.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
     s = x.shape[1]
     y = sum(xp[:, i:i + s] * w[i] for i in range(k))
-    return F.silu(y)
+    return F.silu(y), xp[:, xp.shape[1] - (k - 1):]
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                b: torch.Tensor, c: torch.Tensor, *, chunk: int
+                b: torch.Tensor, c: torch.Tensor, *, chunk: int,
+                initial_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked selective-state-space scan from a zero state (the
-    reference's ``ssd_chunked``).
+    """Chunked selective-state-space scan (the reference's
+    ``ssd_chunked``), from ``initial_state`` (B, H, N, P) or zeros.
 
     x: (B, S, H, P) inputs per head; dt: (B, S, H) positive step sizes
     (post-softplus); a: (H,) negative decay rates (-exp(a_log)); b, c:
@@ -90,7 +102,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                                 device=x.device))[None, :, :, None]
     b_h = b.repeat_interleave(rep, dim=2)
     c_h = c.repeat_interleave(rep, dim=2)
-    state = torch.zeros((bb, h, n, p), dtype=x.dtype, device=x.device)
+    state = (initial_state if initial_state is not None
+             else torch.zeros((bb, h, n, p), dtype=x.dtype, device=x.device))
     ys = []
     for ci in range(nc):
         sl = slice(ci * q, (ci + 1) * q)
@@ -114,14 +127,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 def mamba_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 ranks: Optional[Dict] = None,
-                state: Optional[Dict] = None) -> Tuple[torch.Tensor, None]:
-    """Mamba2 block with no carried state. x: (B, S, d). Returns
-    (out, None)."""
-    if state is not None:
-        raise NotImplementedError(
-            "mamba2 with a carried conv/SSD state (prefill/decode) is not "
-            "ported yet (ROADMAP A.12: the recurrent families' stateful "
-            "path)")
+                state: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Mamba2 block. x: (B, S, d). Without ``state`` the scan is
+    ``ops.ssd_forward`` (the ``ssd`` kernel on the card) and the result is
+    (out, None). With ``state`` = {'conv': (B, K-1, C), 'ssd': (B, H, N,
+    P)} (prefill and decode) the conv continues from the carried inputs and
+    the scan runs ``ssd_chunked`` as one chunk of all S steps from the
+    carried SSD state, as the reference does; returns (out, {'conv',
+    'ssd'}) with new tensors."""
     s, d_inner, n_heads = _dims(cfg)
     r = ranks or {}
     bsz, seqlen, _ = x.shape
@@ -130,7 +144,8 @@ def mamba_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     zxbcdt = linear(p["in_proj"], x, rank=r.get("in_proj"), tap="in_proj")
     z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * gn, n_heads],
                              dim=-1)
-    xbc = _causal_conv(xbc, p["conv"])
+    xbc, new_conv = _causal_conv(xbc, p["conv"],
+                                 None if state is None else state["conv"])
     xs, b, c = torch.split(xbc, [d_inner, gn, gn], dim=-1)
 
     xs = xs.reshape(bsz, seqlen, n_heads, s.head_dim)
@@ -139,9 +154,29 @@ def mamba_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     dt = F.softplus(dt.float() + p["dt_bias"]).to(x.dtype)
     a = -torch.exp(p["a_log"].float()).to(x.dtype)
 
-    y = ops.ssd_forward(xs, dt, a, b, c, chunk=s.chunk)
+    if state is None:
+        y = ops.ssd_forward(xs, dt, a, b, c, chunk=s.chunk)
+        new_state = None
+    else:
+        y, final = ssd_chunked(xs, dt, a, b, c, chunk=seqlen,
+                               initial_state=state["ssd"])
+        new_state = {"conv": new_conv, "ssd": final}
     y = y + xs * p["d_skip"][:, None].to(y.dtype)
     y = y.reshape(bsz, seqlen, d_inner)
     y = cm.rms_norm(y * F.silu(z), p["gate_norm"], eps=cfg.norm_eps)
     return linear(p["out_proj"], y, rank=r.get("out_proj"),
-                  tap="out_proj"), None
+                  tap="out_proj"), new_state
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, *, num_instances: int,
+                     dtype=torch.float32, device=None) -> Dict:
+    """Zero decode states of ``num_instances`` stacked Mamba2 blocks:
+    {'conv': (L, B, K-1, C), 'ssd': (L, B, H, N, P)}."""
+    s, d_inner, n_heads = _dims(cfg)
+    conv_dim = d_inner + 2 * s.num_groups * s.state_dim
+    return {
+        "conv": torch.zeros((num_instances, batch, s.conv_width - 1,
+                             conv_dim), dtype=dtype, device=device),
+        "ssd": torch.zeros((num_instances, batch, n_heads, s.state_dim,
+                            s.head_dim), dtype=dtype, device=device),
+    }

@@ -18,6 +18,8 @@ per factorized group, shared by the group's layers.
 Public API:
   model_spec(cfg)                                 -> ParamSpec tree
   forward(params, cfg, tokens, ranks=)            -> (logits, aux)
+  init_decode_state(cfg, batch, max_len)          -> contiguous decode state
+  decode_step / prefill(params, cfg, state, tok)  -> (logits, state)
   paged_decode_step(params, cfg, caches, tokens)  -> (logits, caches)
   paged_mixed_step(params, cfg, caches, tokens)   -> (logits, caches)
 """
@@ -166,82 +168,125 @@ def rget_tree(ranks, key):
     return ranks.get(key)
 
 
-def _apply_attn_block(p, x, cfg, *, positions, window, ranks):
+def _apply_attn_block(p, x, cfg, *, positions, window, ranks, cache=None):
     """rms_norm -> self-attention -> residual -> rms_norm -> FFN ->
-    residual (the non-MoE, non-MLA block, no cache)."""
+    residual (the non-MoE, non-MLA block). Returns (x, the attention
+    cache or None)."""
     h = cm.rms_norm(x, p["ln_attn"], eps=cfg.norm_eps)
     with cm.tap_scope("attn"):
-        y, _ = attn.attn_apply(p["attn"], h, cfg, positions=positions,
-                               window=window, ranks=rget_tree(ranks, "attn"))
+        y, new_cache = attn.attn_apply(p["attn"], h, cfg,
+                                       positions=positions, window=window,
+                                       ranks=rget_tree(ranks, "attn"),
+                                       cache=cache)
     x = x + y
     h = cm.rms_norm(x, p["ln_mlp"], eps=cfg.norm_eps)
     with cm.tap_scope("mlp"):
         y = attn.ffn_apply(p["mlp"], h, ranks=rget_tree(ranks, "mlp"))
-    return x + y
+    return x + y, new_cache
 
 
-def _apply_mamba_block(p, x, cfg, *, ranks):
+def _apply_mamba_block(p, x, cfg, *, ranks, state=None):
     h = cm.rms_norm(x, p["ln"], eps=cfg.norm_eps)
     with cm.tap_scope("mamba"):
-        y, _ = ssm_mod.mamba_apply(p["mamba"], h, cfg,
-                                   ranks=rget_tree(ranks, "mamba"))
-    return x + y
+        y, new_state = ssm_mod.mamba_apply(p["mamba"], h, cfg,
+                                           ranks=rget_tree(ranks, "mamba"),
+                                           state=state)
+    return x + y, new_state
+
+
+def _store(stacked: Dict, l: int, new: Dict) -> None:
+    """Write one layer's new recurrent state into row ``l`` of the stacked
+    state tensors, in place."""
+    for key, t in new.items():
+        stacked[key][l].copy_(t)
 
 
 def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
                 cfg: ModelConfig, *, positions: torch.Tensor,
                 ranks: Optional[Dict], layer_offset: int,
+                cache: Optional[Dict] = None,
                 shared_attn_params: Optional[Dict] = None,
-                shared_attn_ranks: Optional[Dict] = None) -> torch.Tensor:
-    """Walk one segment layer by layer (no cache). Returns x.
+                shared_attn_ranks: Optional[Dict] = None):
+    """Walk one segment layer by layer. Returns (x, cache).
+
+    Without ``cache`` (train, calibration, eval) the result's cache is
+    None. With the segment's decode cache (``init_decode_state``) every
+    layer continues from its row of the stacked state: attention K/V are
+    written in place at the cache's ``idx``, recurrent states are replaced
+    in place by the step's new ones, and the returned cache is the same
+    tensors with ``idx`` advanced by the step's tokens.
 
     A 'zamba_unit' runs its mamba stack under ``tap_scope("mambas")`` (tap
     keys with two layer indices, ``segments/i/@u/mambas/@m/...``), then the
     shared attention block under the absolute scope ``shared_attn/attn``
-    (one moment per projection, summed over every unit), then its FFN."""
+    (one moment per projection, summed over every unit; with a cache each
+    unit keeps its own K/V for the shared weights), then its FFN."""
     _check_ported(cfg, seg)
+    s = x.shape[1]
     if seg.kind in ("attn", "attn_dense"):
         windows = window_schedule(cfg, seg.count, layer_offset)
         for l in range(seg.count):
+            cache_l = None if cache is None else {
+                "k": cache["k"][l], "v": cache["v"][l], "idx": cache["idx"]}
             with cm.tap_scope(f"@{l}"):
-                x = _apply_attn_block(_layer(params, l), x, cfg,
-                                      positions=positions, window=windows[l],
-                                      ranks=ranks)
-        return x
+                x, _ = _apply_attn_block(_layer(params, l), x, cfg,
+                                         positions=positions,
+                                         window=windows[l], ranks=ranks,
+                                         cache=cache_l)
+        return x, None if cache is None else dict(cache,
+                                                   idx=cache["idx"] + s)
     if seg.kind == "mamba":
         for l in range(seg.count):
+            state_l = None if cache is None else _layer(cache, l)
             with cm.tap_scope(f"@{l}"):
-                x = _apply_mamba_block(_layer(params, l), x, cfg,
-                                       ranks=ranks)
-        return x
+                x, new = _apply_mamba_block(_layer(params, l), x, cfg,
+                                            ranks=ranks, state=state_l)
+            if cache is not None:
+                _store(cache, l, new)
+        return x, cache
     if seg.kind == "rwkv":
         for l in range(seg.count):
+            state_l = None if cache is None else _layer(cache, l)
             with cm.tap_scope(f"@{l}"):
-                x, _ = rwkv_mod.rwkv_apply(_layer(params, l), x, cfg,
-                                           ranks=ranks)
-        return x
+                x, new = rwkv_mod.rwkv_apply(_layer(params, l), x, cfg,
+                                             ranks=ranks, state=state_l)
+            if cache is not None:
+                _store(cache, l, new)
+        return x, cache
     mranks = rget_tree(ranks, "mambas")                 # zamba_unit
     for u in range(seg.count):
         p_u = _layer(params, u)
+        mcache = None if cache is None else _layer(cache["mamba"], u)
+        acache = None if cache is None else {
+            "k": cache["attn"]["k"][u], "v": cache["attn"]["v"][u],
+            "idx": cache["attn"]["idx"]}
         with cm.tap_scope(f"@{u}"):
             with cm.tap_scope("mambas"):
                 for l in range(seg.mamba_per_unit):
+                    state_l = None if mcache is None else _layer(mcache, l)
                     with cm.tap_scope(f"@{l}"):
-                        x = _apply_mamba_block(_layer(p_u["mambas"], l), x,
-                                               cfg, ranks=mranks)
+                        x, new = _apply_mamba_block(
+                            _layer(p_u["mambas"], l), x, cfg, ranks=mranks,
+                            state=state_l)
+                    if mcache is not None:
+                        _store(mcache, l, new)
             h = cm.rms_norm(x, shared_attn_params["ln_attn"],
                             eps=cfg.norm_eps)
             with cm.tap_scope("shared_attn/attn", absolute=True):
                 y, _ = attn.attn_apply(
                     shared_attn_params["attn"], h, cfg, positions=positions,
                     window=GLOBAL_WINDOW,
-                    ranks=rget_tree(shared_attn_ranks, "attn"))
+                    ranks=rget_tree(shared_attn_ranks, "attn"),
+                    cache=acache)
             x = x + y
             h = cm.rms_norm(x, p_u["ln_mlp"], eps=cfg.norm_eps)
             with cm.tap_scope("mlp"):
                 x = x + attn.ffn_apply(p_u["mlp"], h,
                                        ranks=rget_tree(ranks, "mlp"))
-    return x
+    if cache is None:
+        return x, None
+    return x, {"mamba": cache["mamba"],
+               "attn": dict(cache["attn"], idx=cache["attn"]["idx"] + s)}
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -259,15 +304,107 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     offset = 0
     for i, seg in enumerate(cfg.segments):
         with cm.tap_scope(f"segments/{i}", absolute=True):
-            x = run_segment(seg, params["segments"][i], x, cfg,
-                            positions=positions,
-                            ranks=_seg_ranks(ranks, i), layer_offset=offset,
-                            shared_attn_params=params.get("shared_attn"),
-                            shared_attn_ranks=rget_tree(ranks,
-                                                        "shared_attn"))
+            x, _ = run_segment(seg, params["segments"][i], x, cfg,
+                               positions=positions,
+                               ranks=_seg_ranks(ranks, i),
+                               layer_offset=offset,
+                               shared_attn_params=params.get("shared_attn"),
+                               shared_attn_ranks=rget_tree(ranks,
+                                                           "shared_attn"))
         offset += seg.count
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_logits(params, x, cfg), aux
+
+
+# ------------------------------------------------------------- decode
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                      dtype=torch.bfloat16, device=None) -> Dict:
+    """Zero decode state matching the segment structure:
+
+      {'pos': 0, 'segments': [per segment: attention {'k', 'v': (L, B,
+       max_len, Hkv, D) in ``dtype``, 'idx': 0}; mamba {'conv', 'ssd'};
+       rwkv {'shift_t', 'shift_c', 'wkv'}; zamba_unit {'mamba': {'conv':
+       (U, M, B, K-1, C), 'ssd': (U, M, B, H, N, P)}, 'attn': {'k', 'v':
+       (U, B, max_len, Hkv, D), 'idx': 0}}]}
+
+    The recurrent states are float32 (the reference's default). ``pos`` and
+    ``idx`` are host ints, where the reference keeps int32 arrays: the
+    drain loop knows them, so slicing the cache by them never waits for
+    the card (``bridge.decode_state_to_numpy`` gives the reference's
+    arrays). Every unit of a zamba segment has zeros of its own: the
+    reference broadcasts one unit's, which the port's in-place updates
+    would then share."""
+    segments = []
+    for seg in cfg.segments:
+        _check_ported(cfg, seg)
+        if seg.kind in ("attn", "attn_dense"):
+            segments.append(attn.init_kv_cache(
+                cfg, batch, max_len, dtype=dtype, num_instances=seg.count,
+                device=device))
+        elif seg.kind == "mamba":
+            segments.append(ssm_mod.init_mamba_state(
+                cfg, batch, num_instances=seg.count, device=device))
+        elif seg.kind == "rwkv":
+            segments.append(rwkv_mod.init_rwkv_state(
+                cfg, batch, num_instances=seg.count, device=device))
+        else:                                           # zamba_unit
+            mamba = ssm_mod.init_mamba_state(
+                cfg, batch, num_instances=seg.count * seg.mamba_per_unit,
+                device=device)
+            segments.append({
+                "mamba": {k: t.reshape(seg.count, seg.mamba_per_unit,
+                                       *t.shape[1:])
+                          for k, t in mamba.items()},
+                "attn": attn.init_kv_cache(cfg, batch, max_len, dtype=dtype,
+                                           num_instances=seg.count,
+                                           device=device)})
+    return {"pos": 0, "segments": segments}
+
+
+def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
+                tokens: torch.Tensor, *, ranks: Optional[Dict] = None):
+    """One decode step. tokens: (B, S). Returns (logits (B, S, V), state).
+
+    S = 1 is the classic decode step; S > 1 runs a single-pass batched
+    prefill through the same state (``prefill``). The state's tensors are
+    updated in place (the reference returns new arrays; the paged steps
+    update their pools in place too) and the returned state holds them
+    with ``pos`` advanced by S."""
+    if cfg.frontend_dim:
+        raise NotImplementedError(
+            f"the frontend inputs of {cfg.name} are not ported yet (ROADMAP "
+            "A.13 audio, A.14 vision)")
+    pos = state["pos"]
+    s = tokens.shape[1]
+    positions = torch.arange(pos, pos + s, device=tokens.device)
+    x = embed_tokens(params, tokens, cfg)
+    segments = []
+    offset = 0
+    for i, seg in enumerate(cfg.segments):
+        x, new_c = run_segment(seg, params["segments"][i], x, cfg,
+                               positions=positions,
+                               ranks=_seg_ranks(ranks, i),
+                               layer_offset=offset,
+                               cache=state["segments"][i],
+                               shared_attn_params=params.get("shared_attn"),
+                               shared_attn_ranks=rget_tree(ranks,
+                                                           "shared_attn"))
+        segments.append(new_c)
+        offset += seg.count
+    return lm_logits(params, x, cfg), {"pos": pos + s, "segments": segments}
+
+
+def prefill(params: Dict, cfg: ModelConfig, state: Dict,
+            tokens: torch.Tensor, *, ranks: Optional[Dict] = None):
+    """Single-pass batched prefill: the whole prompt (B, S) in one forward
+    that writes the decode state. Returns (logits (B, S, V), state);
+    ``logits[:, -1]`` seeds the first generated token. The recurrent
+    segments carry their state through the plain chunked forms: an rwkv
+    prompt longer than the family's chunk must be a multiple of it, and a
+    mamba prompt runs as one chunk of S steps (an (B, S, S, H) decay
+    tensor), as in the reference."""
+    return decode_step(params, cfg, state, tokens, ranks=ranks)
 
 
 def _run_paged_segments(params, cfg, x, caches, ranks, attn_fn):

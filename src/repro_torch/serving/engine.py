@@ -30,11 +30,17 @@ replan. ``serve_session`` serves a live ``serving.session.StreamSession``:
 requests arrive on an event loop, tokens stream back as they commit, and
 clients may cancel.
 
+The drain engine (``mode="drain"``, and ``auto`` for every family the
+paged path does not cover: the recurrent rwkv6 and zamba2) serves static
+batches of at most ``max_batch`` requests a budget row, prompts padded to
+the batch's longest, through the contiguous ``prefill``/``decode_step``
+and one sampling call a step over the last position's logits.
+
 This is the JAX package's engine, ported plan for plan: operand layouts,
 width buckets and event order match it, so the two engines emit identical
-token streams, with or without lookahead. The drain engine and the live
-telemetry plane are not ported yet; asking for them raises
-``NotImplementedError`` naming the ROADMAP item.
+token streams, with or without lookahead. The live telemetry plane is not
+ported yet; asking for it raises ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ from repro_torch.serving import device_sampling as dsamp
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.kv_cache import CacheOOM, PagedKVCache
 from repro_torch.serving.metrics import ServingMetrics
-from repro_torch.serving.sampling import DRAW_TARGET
+from repro_torch.serving.sampling import DRAW_TARGET, SamplerState
 from repro_torch.serving.scheduler import (BudgetRouter, Request, Result,
                                            Scheduler, Sequence)
 
@@ -271,8 +277,7 @@ class ElasticEngine:
             t0 = time.perf_counter()
             self._deployed[row] = FR.gar_deploy(
                 self.params_fact, self.cfg, self.infos, self.table, row)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
             self.deploy_seconds[row] = time.perf_counter() - t0
         return self._deployed[row]
 
@@ -301,18 +306,20 @@ class ElasticEngine:
     def generate(self, requests: List[Request], *, mode: str = "auto",
                  metrics: Optional[ServingMetrics] = None) -> List[Result]:
         """Serve ``requests`` to completion. ``mode``: 'continuous' (paged
-        cache + iteration-level batching) or 'auto' (continuous for the
-        paged-compatible families, which are all this port serves)."""
+        cache + iteration-level batching), 'drain' (static batches through
+        the contiguous prefill/decode), or 'auto' (continuous whenever the
+        family supports it, else drain)."""
         if mode not in ("auto", "continuous", "drain"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mode == "drain" or (mode == "auto"
-                               and not tfm.paged_compatible(self.cfg)):
-            raise _not_ported("the drain engine (mode='drain')",
-                              "drain engine")
+        if mode == "auto":
+            mode = "continuous" if tfm.paged_compatible(self.cfg) else "drain"
+        if mode == "drain":
+            with torch.no_grad():
+                return self.generate_drain(requests, metrics=metrics)
         if not tfm.paged_compatible(self.cfg):
             raise ValueError(
                 f"{self.cfg.name}: paged continuous batching covers "
-                "attn/attn_dense stacks only")
+                "attn/attn_dense stacks only; use mode='drain' or 'auto'")
         with torch.no_grad():
             return self._generate_continuous(requests, metrics=metrics)
 
@@ -1001,6 +1008,119 @@ class ElasticEngine:
                 plan.plog.flush()            # cancel/zero-token finishes
                 break
             pending = plan
+
+    # ------------------------------------------------ drain batches
+
+    def generate_drain(self, requests: List[Request], *,
+                       metrics: Optional[ServingMetrics] = None
+                       ) -> List[Result]:
+        """Static batching: group the requests by budget row, pad each
+        batch of at most ``max_batch`` into fixed slots, and drain it fully
+        before the next starts; prefill is one pass over the padded
+        prompts. Results come back in submission order. ``metrics``
+        (``last_metrics``) records each request's submit, first token
+        (read once a batch) and finish."""
+        metrics = metrics or ServingMetrics(tracer=self.tracer)
+        self.last_metrics = metrics
+        for i in range(len(requests)):
+            metrics.on_submit(i)
+        out: List[Optional[Result]] = [None] * len(requests)
+        rows: Dict[int, List[int]] = {}
+        for i, r in enumerate(requests):
+            rows.setdefault(self._budget_row(r.budget), []).append(i)
+        for row, idxs in rows.items():
+            params = self._realize(row)
+            results = self._serve_batch(params, row,
+                                        [requests[i] for i in idxs], idxs,
+                                        metrics)
+            for i, res in zip(idxs, results):
+                out[i] = res
+        return out  # type: ignore[return-value]
+
+    def _serve_batch(self, params, row: int, reqs: List[Request],
+                     req_ids: List[int], metrics=None) -> List[Result]:
+        """Serve ``reqs`` of one budget row in batches of ``max_batch``.
+
+        The reference's contract, kept as it is: samplers keyed by
+        submission index (``req_ids``); prompts padded with zeros to the
+        batch's longest, so a shorter prompt's first token is drawn after
+        its padding and its stream holds that padding; the draw for step
+        ``t`` at position ``len(prompt) + t``; every request of a batch
+        decodes the batch's largest ``max_new_tokens``, and its Result
+        keeps ``len(prompt) + max_new_tokens`` tokens. With device sampling
+        the tokens stay on the engine's device from step to step: the loop
+        reads them at the batch's end, and after the first token when
+        ``metrics`` records it."""
+        results = []
+        for start in range(0, len(reqs), self.max_batch):
+            chunk = reqs[start: start + self.max_batch]
+            ids = req_ids[start: start + len(chunk)]
+            b = len(chunk)
+            samplers = [SamplerState(r.sampling, rid)
+                        for r, rid in zip(chunk, ids)]
+            if metrics is not None:
+                for rid in ids:
+                    metrics.on_admit(rid)
+            state = tfm.init_decode_state(self.cfg, b, self.max_len,
+                                          dtype=torch.float32,
+                                          device=self.device)
+            lens = [len(r.prompt) for r in chunk]
+            max_new = max(r.max_new_tokens for r in chunk)
+            padded = np.zeros((b, max(lens)), np.int32)
+            for i, r in enumerate(chunk):
+                padded[i, : lens[i]] = r.prompt
+
+            def _next(logits_last, step):
+                if self.device_sampling:
+                    metas = [(sm, DRAW_TARGET, lens[i] + step)
+                             for i, sm in enumerate(samplers)]
+                    return self._drain_sample(logits_last,
+                                              self._pack_sampling(metas, b)
+                                              )[:, None]
+                rows_np = logits_last.float().cpu().numpy()
+                cur = rows_np.argmax(-1).astype(np.int32)[:, None]
+                for i, sm in enumerate(samplers):
+                    if not sm.greedy:
+                        cur[i, 0] = sm.sample(rows_np[i])
+                return self._upload(cur)
+
+            tok = self._upload(padded)
+            logits, state = tfm.prefill(params, self.cfg, state, tok)
+            cur = _next(logits[:, -1], 0)
+            outs = [tok, cur]
+            if metrics is not None:
+                self._sync()
+                for r, rid in zip(chunk, ids):
+                    if r.max_new_tokens:
+                        metrics.on_first_token(rid, len(r.prompt))
+            for t in range(max_new - 1):
+                logits, state = tfm.decode_step(params, self.cfg, state, cur)
+                cur = _next(logits[:, 0], t + 1)
+                outs.append(cur)
+                if metrics is not None:
+                    metrics.on_decode_step(b, b / self.max_batch)
+            seq = torch.cat(outs, dim=1).cpu().numpy()
+            dp = self.router.deployed_params(row)
+            for i, (r, rid) in enumerate(zip(chunk, ids)):
+                results.append(Result(
+                    tokens=seq[i, : lens[i] + r.max_new_tokens],
+                    budget_row=row, deployed_params=dp))
+                if metrics is not None:
+                    for _ in range(r.max_new_tokens - 1):
+                        metrics.on_token(rid)
+                    metrics.on_finish(rid)
+        return results
+
+    def _drain_sample(self, rows: torch.Tensor, sampling: Dict
+                      ) -> torch.Tensor:
+        """One draw per batch row from the last position's logits (B, V):
+        the JAX engine's ``_drain_sample_jit``. Returns (B,) int32 on the
+        logits' device."""
+        return dsamp.sample_rows(rows, sampling)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # --------------------------------------------------- operand packing
 

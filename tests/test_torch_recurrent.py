@@ -284,8 +284,14 @@ def test_rwkv_apply_matches_jax():
         p_j, jnp.asarray(x))
     y_t, _ = trwkv.rwkv_apply(p_t, torch.as_tensor(x), tcfg)
     assert _rel(y_t, y_j) < 1e-5
-    with pytest.raises(NotImplementedError, match="A.12"):
-        trwkv.rwkv_apply(p_t, torch.as_tensor(x), tcfg, state={})
+    # the carried-state branch from a zero state gives the same block
+    # output through the chunked plain form, and a state of the
+    # reference's layout
+    zero = tcm.tree_map(lambda a: a[0], trwkv.init_rwkv_state(
+        tcfg, BATCH, num_instances=1))
+    y_s, st = trwkv.rwkv_apply(p_t, torch.as_tensor(x), tcfg, state=zero)
+    assert _rel(y_s, y_j) < 1e-5
+    assert sorted(st) == ["shift_c", "shift_t", "wkv"]
 
 
 def test_mamba_apply_matches_jax():
@@ -298,8 +304,11 @@ def test_mamba_apply_matches_jax():
         p_j, jnp.asarray(x))
     y_t, _ = tssm.mamba_apply(p_t, torch.as_tensor(x), tcfg)
     assert _rel(y_t, y_j) < 1e-5
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tssm.mamba_apply(p_t, torch.as_tensor(x), tcfg, state={})
+    zero = tcm.tree_map(lambda a: a[0], tssm.init_mamba_state(
+        tcfg, BATCH, num_instances=1))
+    y_s, st = tssm.mamba_apply(p_t, torch.as_tensor(x), tcfg, state=zero)
+    assert _rel(y_s, y_j) < 1e-5
+    assert sorted(st) == ["conv", "ssd"]
 
 
 # ---------------------------------------------- the FlexRank pipeline

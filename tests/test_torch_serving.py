@@ -277,9 +277,16 @@ def test_unported_engine_features_raise(states):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ElasticEngine(tcfg, tpf, ttable, tinfos, device="cpu",
                       registry=object())
-    eng = ElasticEngine(tcfg, tpf, ttable, tinfos, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.generate([], mode="drain")
+    # the drain engine is ported: one greedy request alone (no padding)
+    # gives the continuous engine's stream
+    eng = ElasticEngine(tcfg, tpf, ttable, tinfos, device="cpu",
+                        prefill_chunk=8)
+    prompt = np.arange(3, 14, dtype=np.int32)
+    reqs = [Request(prompt=prompt, max_new_tokens=5, budget=1.0)]
+    drain = eng.generate(reqs, mode="drain")[0]
+    cont = eng.generate(reqs, mode="continuous")[0]
+    np.testing.assert_array_equal(drain.tokens, cont.tokens)
+    assert len(drain.tokens) == 16
 
 
 def test_launcher_runs_on_cpu(capsys):

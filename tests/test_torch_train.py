@@ -176,12 +176,28 @@ def test_forward_logits_every_row(st):
 
 
 def test_forward_raises_on_unported_branches():
+    """Cross-attention still raises (A.13/A.14); the decode cache branch is
+    ported: a prompt through an empty cache gives the cacheless output and
+    advances ``idx``."""
     from repro_torch.models import attention as tattn
     tcfg = tget("gpt2-small", smoke=True)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.13"):
         tattn.attn_apply({}, torch.zeros(1, 2, tcfg.d_model), tcfg,
                          positions=torch.arange(2), window=1 << 30,
-                         cache={"k": None})
+                         kv_source=torch.zeros(1, 2, tcfg.d_model))
+    p = tcm.instantiate(tattn.attn_spec(tcfg),
+                        torch.Generator().manual_seed(0))
+    x = torch.randn(2, 5, tcfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    pos = torch.arange(5)
+    y, _ = tattn.attn_apply(p, x, tcfg, positions=pos, window=1 << 30)
+    cache = tcm.tree_map(lambda a: a[0] if isinstance(a, torch.Tensor)
+                         else a, tattn.init_kv_cache(
+                             tcfg, 2, 8, dtype=torch.float32))
+    y_c, new = tattn.attn_apply(p, x, tcfg, positions=pos, window=1 << 30,
+                                cache=cache)
+    assert new["idx"] == 5 and not new["k"][:, 5:].any()
+    assert float((y_c - y).abs().max()) < 1e-5 * float(y.abs().max())
 
 
 # ------------------------------------------------- loss, grads, AdamW
