@@ -118,6 +118,33 @@ Phases, each fatal on failure:
                ``generate(mode="drain")``: each batch's longest prompt
                against its solo run; equal, or parting at a near tie only
                (``TOL_SPEC_TIE``).
+  14. moe    - deepseek-moe-16b at full width cut to 3 of its 28 layers
+               (the dense layer 0 and two MoE layers: 64 experts, top-6 of
+               1408, 2 shared): the serving launcher's state (one
+               whitening per MoE layer's moment for its 64 experts), GAR
+               at layer 0's FFN (m 10944) and the shared experts (m
+               2816), T 8 and 72; phase 3's prompts, budgets and sampling
+               through ``ElasticEngine(prefill_chunk=64, max_batch=8,
+               max_len=256)``, the three serving kernels launched; the
+               same with lookahead under the sync debug mode "error",
+               streams identical; one ``moe_apply`` call's device time at
+               T 8 and 72 split into the expert products and the rest, and
+               the decode iteration of 8 slots (host clock, kernel time
+               under ``torch.profiler``, the expert products' share);
+               phase 9's decode check at ``capacity_factor =
+               num_experts`` (no drops); one greedy request card vs CPU at
+               2 layers (dense + MoE): a token whose expert set differs
+               must be a near tie of its own routing (``TOL_ROUTE``, each
+               logged), the logits agree within ``TOL_MOE_CROSS`` until
+               such a token, and the tokens are equal or part at a near
+               tie of the logits (``TOL_SPEC_TIE``) or after a routing
+               near tie;
+  15. mla    - minicpm3-4b at full width cut to 8 of its 62 layers: the
+               serving launcher's state, then phase 13's drain checks
+               (``generate(mode="auto")`` must route MLA to drain; GAR
+               at attn/q_up and mlp/gate, T 8 and 512; the absorbed
+               decode from the latent cache against ``forward``
+               (TOL_DRAIN_FORWARD); card vs CPU at 2 layers).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
@@ -184,6 +211,17 @@ TOL_LOWRANK = 2e-4             # low-rank linear, relative to the output's max
 # (the same plain forms in other float32 orders, GAR within TOL_GAR)
 TOL_DRAIN_FORWARD = 1e-3
 DRAIN_NEW = 32                 # new tokens a phase-13 request
+# phase 14, card vs CPU: a token's routing is a near tie when its k-th and
+# (k+1)-th router probabilities lie within this of each other. The hidden
+# state the router reads differs card vs CPU by the GAR kernel's error
+# (within TOL_GAR of a projection's output max), so a probability can
+# move by about that much
+TOL_ROUTE = 2e-4
+# phase 14, card vs CPU: a step's logits, relative to their max, while no
+# token's expert set has differed; the bound of phase 13's card vs CPU
+# logits (TOL_DRAIN_FORWARD): GAR within TOL_GAR a projection, the router's
+# and the experts' float32 products in other orders
+TOL_MOE_CROSS = TOL_DRAIN_FORWARD
 # WKV6 and SSD, relative to the output's max: against the sequential
 # recurrences (the kernel's own order of operations), and against the
 # chunked forms the CPU runs, whose exponents (differences of cumulative
@@ -775,10 +813,12 @@ def check_ssd(dev, cases, rng, report):
 
 # ------------------------------------------------------------ main path
 
-def greedy_loop(params, cfg, prompt, new_tokens, device, max_len=64):
+def greedy_loop(params, cfg, prompt, new_tokens, device, max_len=64,
+                logits_out=None):
     """Greedy decode of one prompt through ``paged_mixed_step``, scoring
-    the last token of each feed; returns (tokens, per-step top-2
-    margins)."""
+    the last token of each feed; returns (tokens, per-step top-2 margins
+    over the logits' max). Each step's scored logits (float32 on the
+    host) are appended to ``logits_out`` when given."""
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.kv_cache import PagedKVCache
     cache = PagedKVCache(cfg, max_batch=1, max_len=max_len, block_size=16,
@@ -797,14 +837,55 @@ def greedy_loop(params, cfg, prompt, new_tokens, device, max_len=64):
                                              device=device)}
         logits, _ = tfm.paged_mixed_step(params, cfg, caches, feed)
         last = logits[0, -1].float().cpu()
+        if logits_out is not None:
+            logits_out.append(last)
         top = torch.topk(last, 2)
         toks.append(int(top.indices[0]))
-        margins.append(float(top.values[0] - top.values[1]))
+        margins.append(float(top.values[0] - top.values[1])
+                       / float(last.abs().max()))
         n = cache.slots[0].num_tokens
         cache.append_token(0)
         feed = torch.tensor([[toks[-1]]], dtype=torch.int32, device=device)
         positions = torch.tensor([n], dtype=torch.int32, device=device)
     return toks, margins
+
+
+def fill_slots(params, cfg, caches, prompts, dev) -> torch.Tensor:
+    """Open slot i of every cache in ``caches`` for ``prompts[i]`` and run
+    each prompt through ``paged_mixed_step`` (one prompt a call) on the
+    first cache. Returns the greedy first tokens, (B,) int32 on the
+    card."""
+    from repro_torch.models import transformer as tfm
+    i32 = torch.int32
+    first = []
+    for slot, prompt in enumerate(prompts):
+        for c in caches:
+            c.open_slot(slot)
+            c.extend_slot(slot, len(prompt))
+        n = len(prompt)
+        logits, _ = tfm.paged_mixed_step(params, cfg, {
+            "slot_ids": torch.full((n,), slot, dtype=i32, device=dev),
+            "positions": torch.arange(n, dtype=i32, device=dev),
+            "block_tables": caches[0].device_tables(),
+            "segments": caches[0].pools,
+            "sample_ids": torch.tensor([n - 1], device=dev)},
+            torch.as_tensor(prompt, dtype=i32, device=dev)[None])
+        first.append(torch.argmax(logits[0, -1]).to(i32))
+    return torch.stack(first)
+
+
+def mixed_one_each(params, cfg, cache, tok) -> torch.Tensor:
+    """The engine's decode iteration: ``paged_mixed_step`` on one token a
+    slot (``tok``: (B,) int32, the slots already extended by it). Returns
+    the logits (B, V)."""
+    from repro_torch.models import transformer as tfm
+    logits, _ = tfm.paged_mixed_step(params, cfg, {
+        "slot_ids": torch.arange(len(tok), dtype=torch.int32,
+                                 device=tok.device),
+        "positions": cache.device_positions(),
+        "block_tables": cache.device_tables(),
+        "segments": cache.pools}, tok[None])
+    return logits[0]
 
 
 def decode_check(cfg, rows, prompts, steps, dev, max_len):
@@ -828,27 +909,13 @@ def decode_check(cfg, rows, prompts, steps, dev, max_len):
         caches = [PagedKVCache(cfg, max_batch=b, max_len=max_len,
                                block_size=16, prefix_cache=False, device=dev)
                   for _ in range(2)]
-        first = []
-        for slot, prompt in enumerate(prompts):
-            for c in caches:
-                c.open_slot(slot)
-                c.extend_slot(slot, len(prompt))
-            n = len(prompt)
-            feed = torch.as_tensor(prompt, dtype=i32, device=dev)[None]
-            logits, _ = tfm.paged_mixed_step(params, cfg, {
-                "slot_ids": torch.full((n,), slot, dtype=i32, device=dev),
-                "positions": torch.arange(n, dtype=i32, device=dev),
-                "block_tables": caches[0].device_tables(),
-                "segments": caches[0].pools,
-                "sample_ids": torch.tensor([n - 1], device=dev)}, feed)
-            first.append(int(torch.argmax(logits[0, -1])))
+        tok = fill_slots(params, cfg, caches, prompts, dev)
         if not np.array_equal(caches[0].host_tables(),
                               caches[1].host_tables()):
             fail("decode check: the two caches allocated different blocks")
         for p0, p1 in zip(caches[0].pools, caches[1].pools):
             for k in "kv":
                 p1[k].copy_(p0[k])
-        tok = torch.tensor(first, dtype=i32, device=dev)
         for step in range(steps):
             for c in caches:
                 for slot in range(b):
@@ -864,14 +931,10 @@ def decode_check(cfg, rows, prompts, steps, dev, max_len):
                                caches[0].device_positions() + 1):
                 fail("paged_decode_step: positions not advanced by one")
             t0 = time.perf_counter()
-            l_mix, _ = tfm.paged_mixed_step(params, cfg, {
-                "slot_ids": torch.arange(b, dtype=i32, device=dev),
-                "positions": caches[1].device_positions(),
-                "block_tables": caches[1].device_tables(),
-                "segments": caches[1].pools}, tok[None])
+            l_mix = mixed_one_each(params, cfg, caches[1], tok)
             torch.cuda.synchronize()
             t_mix.append(time.perf_counter() - t0)
-            l_dec, l_mix = l_dec[:, 0], l_mix[0]
+            l_dec = l_dec[:, 0]
             rel = float((l_dec - l_mix).abs().max()) / float(
                 l_mix.abs().max())
             worst = max(worst, rel)
@@ -1565,13 +1628,14 @@ def gemma_phase(dev, rng, report, profiling):
         t_cpu = time.perf_counter() - t0
     log(f"# gemma3 cross-check: row {rows[0]} at 2 layers, 1100 prompt "
         f"tokens: card {toks_gpu}, CPU {toks_cpu} ({t_cpu:.1f} s on the "
-        f"CPU), top-2 margins card {[round(m, 4) for m in marg_gpu]}")
+        f"CPU), top-2 margins card {[float(f'{m:.2e}') for m in marg_gpu]} "
+        "of the logits' max")
     if toks_gpu != toks_cpu:
         for i, (a, b) in enumerate(zip(toks_gpu, toks_cpu)):
             if a != b:
                 fail(f"gemma3: card and CPU part at step {i}: top-2 margin "
                      f"{marg_gpu[i]:.3e} on the card, {marg_cpu[i]:.3e} on "
-                     "the CPU")
+                     "the CPU, of the logits' max")
     for k in ("gar_matmul", "paged_prefill_attention", "topk_mask_sample"):
         counts[k] += spec_counts[k]
     return counts, gar_err
@@ -1583,7 +1647,8 @@ def kernel_rows(prof) -> list:
     left out."""
     rows = []
     for ev in prof.key_averages():
-        if ev.key in ("paged_sample_step", "paged_mixed_step") \
+        if ev.key in ("paged_sample_step", "paged_mixed_step",
+                      "expert_products") \
                 or ev.key.startswith("aten::") \
                 or "cuda" not in str(getattr(ev, "device_type", "")).lower():
             continue
@@ -1904,10 +1969,11 @@ def parted_at_near_tie(label, a, b, gaps_a) -> int:
 
 
 def drain_phase(label, cfg, res, small, dev, rng, report, smi):
-    """Phase 13 (a)/(b): serve ``res`` (a training phase's consolidated
-    factors, table and infos) at full width through
-    ``ElasticEngine.generate`` with ``mode="auto"``, which must route the
-    recurrent family to drain; the GAR rows of the family's new shapes;
+    """Phase 13 (a)/(b) and the serving of phase 15: serve ``res`` (a
+    training phase's consolidated factors, table and infos, or the serving
+    launcher's state) at full width through ``ElasticEngine.generate``
+    with ``mode="auto"``, which must route the recurrent or MLA family to
+    drain; the GAR rows of the family's new shapes;
     the decode-vs-forward check on the card; one greedy request card vs
     CPU on the cut ``small``. Returns (launches by kernel, worst GAR
     error)."""
@@ -2015,23 +2081,24 @@ def drain_phase(label, cfg, res, small, dev, rng, report, smi):
     log(f"# drain {label}: launches {json.dumps(counts)}; every prefill, "
         "decode step and draw queued under the sync debug mode \"error\"")
 
-    # GAR at the family's new shapes, from the deployed row 0
+    # GAR at the family's new shapes, from the deployed row 0: (label,
+    # leaf path, index of the leaf's first layer, token counts)
     gar_shapes = []
     with torch.no_grad():
         layer = engine._realize(0)["segments"][0]
-    if cfg.segments[0].kind == "rwkv":
-        leaf = cm.tree_get(layer, "channel/k")
-        vt, uh, pi = leaf["v_tilde"][0], leaf["u_hat"][0], leaf["perm_inv"][0]
-        ts, what = (1024,), "rwkv6 channel/k"
-    else:
-        leaf = cm.tree_get(layer, "mambas/mamba/in_proj")
-        vt, uh, pi = (leaf["v_tilde"][0, 0], leaf["u_hat"][0, 0],
-                      leaf["perm_inv"][0, 0])
-        ts, what = (8, 1024), "zamba2 in_proj"
-    n, r = vt.shape
-    for t in ts:
-        gar_shapes.append((f"{what} row 0 T={t} n={n} r={r} "
-                           f"m={r + uh.shape[0]}", t, vt, uh, pi))
+    picks = {"rwkv": [("rwkv6 channel/k", "channel/k", (0,), (1024,))],
+             "zamba_unit": [("zamba2 in_proj", "mambas/mamba/in_proj",
+                             (0, 0), (8, 1024))],
+             # MLA (minicpm3): a decode batch of 4 and a 4 x 128 prefill
+             "attn": [("minicpm3 attn/q_up", "attn/q_up", (0,), (8, 512)),
+                      ("minicpm3 mlp/gate", "mlp/gate", (0,), (8, 512))]}
+    for what, path, at, ts in picks[cfg.segments[0].kind]:
+        leaf = cm.tree_get(layer, path)
+        vt, uh, pi = (leaf[k][at] for k in ("v_tilde", "u_hat", "perm_inv"))
+        n, r = vt.shape
+        for t in ts:
+            gar_shapes.append((f"{what} row 0 T={t} n={n} r={r} "
+                               f"m={r + uh.shape[0]}", t, vt, uh, pi))
     first = len(report)
     gar_err = check_gar(dev, gar_shapes, rng, report)
     for e in report[first:]:
@@ -2123,6 +2190,417 @@ def drain_gpt2(engine, reqs, phase3, dev):
         f"partings {ties}; launches {json.dumps(counts)}; "
         f"{time.perf_counter() - t_phase:.1f} s in all")
     return counts
+
+
+# ------------------------------------------------------------ MoE and MLA
+
+@contextlib.contextmanager
+def routing_record(calls: list):
+    """Record, for every ``moe_apply`` call, each token's expert set (its
+    top-k ids in ascending order, (tokens, k)) and its own gap between
+    its k-th and (k+1)-th router probabilities (tokens,), as host arrays
+    (a host read: outside the sync-checked paths only)."""
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod.route
+
+    def recorded(probs, k):
+        out = route(probs, k)
+        srt = torch.sort(probs.double(), dim=-1, descending=True).values
+        gap = (srt[..., k - 1] - srt[..., k] if probs.shape[-1] > k
+               else torch.full_like(srt[..., 0], math.inf))
+        calls.append((torch.sort(out[1], dim=-1).values.reshape(-1, k)
+                      .cpu().numpy(), gap.reshape(-1).cpu().numpy()))
+        return out
+    moe_mod.route = recorded
+    try:
+        yield
+    finally:
+        moe_mod.route = route
+
+
+def moe_apply_split(p, cfg, dev, ts) -> list:
+    """Device ms of one ``moe_apply`` call on a flat batch of T tokens, and
+    of its three expert products alone at the same capacity (the rest:
+    router, dispatch, SwiGLU, combine and the shared experts). Returns
+    (T, capacity, call ms, products ms) per T."""
+    from repro_torch.models import moe as moe_mod
+    m = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = []
+    with torch.no_grad():
+        for t in ts:
+            cap = moe_mod.capacity(cfg, t)
+            x = torch.randn((1, t, cfg.d_model), generator=gen, device=dev)
+            ex = torch.randn((1, m.num_experts, cap, cfg.d_model),
+                             generator=gen, device=dev)
+            hid = torch.randn((1, m.num_experts, cap, m.d_ff_expert),
+                              generator=gen, device=dev)
+            exp = p["experts"]
+            call = device_ms([lambda: moe_mod.moe_apply(p, x, cfg)])
+            prods = device_ms([lambda: (
+                moe_mod.expert_linear(exp["gate"], ex),
+                moe_mod.expert_linear(exp["up"], ex),
+                moe_mod.expert_linear(exp["down"], hid))])
+            out.append((t, cap, call, prods))
+    return out
+
+
+@contextlib.contextmanager
+def annotated_expert_products():
+    """Run every ``expert_linear`` call inside a ``torch.profiler``
+    annotation named "expert_products", so that a profile can sum the
+    device time of the kernels it launches."""
+    from repro_torch.models import moe as moe_mod
+    linear = moe_mod.expert_linear
+
+    def annotated(*args, **kw):
+        with torch.profiler.record_function("expert_products"):
+            return linear(*args, **kw)
+    moe_mod.expert_linear = annotated
+    try:
+        yield
+    finally:
+        moe_mod.expert_linear = linear
+
+
+def decode_iteration(params, cfg, prompts, dev, steps: int = 8):
+    """The engine's decode iteration: fill a ``PagedKVCache`` with
+    ``prompts`` (``fill_slots``), then ``steps`` iterations of one token a
+    slot (``mixed_one_each``) on the host's clock, and 4 more under
+    ``torch.profiler``. Returns (median host ms an iteration; from the
+    profile, an iteration's kernel ms, its launches, and the ms of the
+    kernels the expert products launched; the kernels by device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.kv_cache import PagedKVCache
+    cache = PagedKVCache(cfg, max_batch=len(prompts), max_len=256,
+                         block_size=16, prefix_cache=False, device=dev)
+    with torch.no_grad():
+        tok = fill_slots(params, cfg, [cache], prompts, dev)
+
+        def step(tok):
+            for slot in range(len(prompts)):
+                cache.append_token(slot)
+            return torch.argmax(mixed_one_each(params, cfg, cache, tok),
+                                -1).to(torch.int32)
+        host = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok = step(tok)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        with annotated_expert_products(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                tok = step(tok)
+                torch.cuda.synchronize()
+    krows = kernel_rows(prof)
+    prods_us = sum(ev.device_time_total for ev in prof.events()
+                   if ev.name == "expert_products"
+                   and ev.device_type == DeviceType.CPU)
+    return (statistics.median(host), sum(r[0] for r in krows) / 4e3,
+            sum(r[1] for r in krows) / 4, prods_us / 4e3, krows)
+
+
+def moe_cross_check(cfg, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
+                    calls_cpu, l_gpu, l_cpu) -> None:
+    """Phase 14's card vs CPU greedy request (``cfg`` the cut it ran on):
+    at each step up to the first where the streams part (the feeds are
+    equal until then), every token whose expert set differs card vs CPU
+    must be a routing near tie on the CPU (its own k-th and (k+1)-th
+    router probabilities within TOL_ROUTE); every near tie is logged,
+    whether the expert sets differ or not. While no token's routing has
+    differed, the step's logits agree within TOL_MOE_CROSS of their max.
+    A parting is allowed only at a near tie of the logits (TOL_SPEC_TIE),
+    or at or after a step where a token's experts differed. Fails
+    otherwise."""
+    n_moe = sum(s.count for s in cfg.segments if s.kind == "attn")
+    steps = len(toks_cpu)
+    for side, calls in (("card", calls_gpu), ("CPU", calls_cpu)):
+        if len(calls) != steps * n_moe:
+            fail(f"deepseek-moe cross-check: {len(calls)} routings recorded "
+                 f"on the {side}, expected {steps * n_moe}")
+    part = next((i for i, (a, b) in enumerate(zip(toks_gpu, toks_cpu))
+                 if a != b), steps)
+    routed_apart, worst = None, 0.0
+    for i in range(min(part + 1, steps)):
+        for j in range(i * n_moe, (i + 1) * n_moe):
+            (e_g, _), (e_c, gap_c) = calls_gpu[j], calls_cpu[j]
+            differs = (e_g != e_c).any(-1)
+            for t in np.nonzero(~differs & (gap_c <= TOL_ROUTE))[0]:
+                log(f"# deepseek-moe routing near tie: step {i}, MoE layer "
+                    f"{j - i * n_moe}, token {t}: its k-th and (k+1)-th "
+                    f"router probabilities {gap_c[t]:.3e} apart on the "
+                    "CPU, the same experts on both")
+            for t in np.nonzero(differs)[0]:
+                what = (f"step {i}, MoE layer {j - i * n_moe}, token {t}: "
+                        f"experts {e_g[t].tolist()} on the card, "
+                        f"{e_c[t].tolist()} on the CPU, its k-th and "
+                        f"(k+1)-th router probabilities {gap_c[t]:.3e} "
+                        "apart on the CPU")
+                if not gap_c[t] <= TOL_ROUTE:
+                    fail(f"deepseek-moe card vs CPU: routing differs beyond "
+                         f"a near tie ({what})")
+                log(f"# deepseek-moe routing near tie: {what}")
+                if routed_apart is None:
+                    routed_apart = i
+        if routed_apart is None:
+            rel = float((l_gpu[i] - l_cpu[i]).abs().max()) / float(
+                l_cpu[i].abs().max())
+            worst = max(worst, rel)
+            if not (rel <= TOL_MOE_CROSS
+                    and bool(torch.isfinite(l_gpu[i]).all())):
+                fail(f"deepseek-moe card vs CPU: step {i} logits rel "
+                     f"{rel:.3e} (tolerance {TOL_MOE_CROSS})")
+    n_cmp = min(part + 1, steps) if routed_apart is None else routed_apart
+    log(f"# deepseek-moe card vs CPU logits: worst rel {worst:.2e} over "
+        f"{n_cmp} steps (tolerance {TOL_MOE_CROSS}; compared up to the "
+        f"first routing near tie: "
+        f"{'none' if routed_apart is None else f'step {routed_apart}'})")
+    if part < steps:
+        what = (f"top-2 gap {marg_cpu[part]:.3e} of the logits' max, first "
+                f"routing near tie at step {routed_apart}")
+        if not (marg_cpu[part] <= TOL_SPEC_TIE
+                or (routed_apart is not None and routed_apart <= part)):
+            fail(f"deepseek-moe: card and CPU part at step {part} beyond a "
+                 f"near tie ({what})")
+        log(f"# deepseek-moe card vs CPU: part at step {part} at a near tie "
+            f"({what})")
+
+
+def moe_phase(dev, rng, report, smi, base_reqs):
+    """Phase 14: deepseek-moe-16b at full width cut to 3 of its 28 layers
+    (the dense layer 0 and two MoE layers): the serving launcher's state,
+    GAR at its new shapes, ``base_reqs`` (phase 3's prompts, budgets and
+    sampling) served through the continuous engine, then with lookahead
+    under the sync debug mode "error" (identical streams), one
+    ``moe_apply`` call's time split, the decode iteration's host and
+    kernel time, the decode check at ``capacity_factor = num_experts``,
+    and one greedy request card vs CPU at 2 layers. Returns (launches by
+    kernel, the GAR error)."""
+    from repro_torch.configs import Segment, get_config
+    from repro_torch.kernels import gar_matmul, paged_attention, sampling
+    from repro_torch.launch.serve import serving_state
+    from repro_torch.launch.train import dense_init
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import Request, ElasticEngine
+    t_phase = time.perf_counter()
+    full = get_config("deepseek-moe-16b")
+    segs = (Segment("attn_dense", 1), Segment("attn", 2))
+    cfg = dataclasses.replace(full, segments=segs, num_layers=3)
+    for c in (full, cfg):
+        n = cm.param_count(tfm.model_spec(c))
+        log(f"# deepseek-moe: {c.num_layers} layers: {n / 1e9:.3f} B dense "
+            f"parameters, {4 * n / 1e9:.1f} GB in float32")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = dense_init(cfg, 0, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    setup = {}
+    params_fact, table, infos = serving_state(cfg, dense, 0, timings=setup)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_state = torch.cuda.max_memory_allocated() / 1e9
+    engine = ElasticEngine(cfg, params_fact, table, infos, device=dev,
+                           prefill_chunk=64, max_batch=8, max_len=256)
+    budgets = (0.4, 1.0)
+    rows = [engine._budget_row(b) for b in budgets]
+    deployed = {r: engine._realize(r) for r in rows}
+    n_exp = sum(int(np.prod(i.lead_dims)) for i in infos
+                if "/experts/" in i.path)
+    log(f"# deepseek-moe setup: dense init {t_init:.2f} s, calibrate "
+        f"{setup['calibrate']:.2f} s, decompose {setup['decompose']:.2f} s "
+        f"(DataSVD, {len(infos)} groups, {n_exp} expert projections, one "
+        f"whitening a layer's moment), DP {setup['dp']:.2f} s "
+        f"({table.table.shape[0]} rows), deploy "
+        + ", ".join(f"row {r} (budget {b}) {engine.deploy_seconds[r]:.2f} s"
+                    for b, r in zip(budgets, rows))
+        + f"; peak device memory {peak_state:.2f} GB building the state; "
+        f"{smi}")
+    log(f"# deepseek-moe table: ranks by group {[i.path for i in infos]}: "
+        + "; ".join(f"row {k} {table.table[k].tolist()}"
+                    for k in range(table.table.shape[0])))
+
+    # GAR at the new shapes: layer 0's dense FFN (m 10944) and the shared
+    # experts (m 2816), row 0, at a decode batch and a mixed iteration
+    shapes = []
+    for seg, proj in ((0, "mlp/gate"), (1, "mlp/shared/gate")):
+        leaf = cm.tree_get(deployed[rows[0]]["segments"][seg], proj)
+        vt, uh, pi = (leaf["v_tilde"][0], leaf["u_hat"][0],
+                      leaf["perm_inv"][0])
+        n, r = vt.shape
+        for t in (8, 72):
+            shapes.append((f"deepseek-moe {proj} row {rows[0]} T={t} n={n} "
+                           f"r={r} m={r + uh.shape[0]}", t, vt, uh, pi))
+    first = len(report)
+    gar_err = check_gar(dev, shapes, rng, report)
+    for e in report[first:]:
+        log(kernel_line(e))
+
+    reqs = [Request(prompt=rq.prompt, max_new_tokens=32, budget=rq.budget,
+                    sampling=rq.sampling) for rq in base_reqs]
+    for k in (gar_matmul, paged_attention, sampling):
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    results, wall, s = serve_timed(engine, reqs)
+    counts = {"gar_matmul": gar_matmul.launches,
+              "paged_prefill_attention": paged_attention.launches,
+              "topk_mask_sample": sampling.launches}
+    for rq, rs in zip(reqs, results):
+        if len(rs.tokens) != len(rq.prompt) + 32:
+            fail(f"deepseek-moe: request of {len(rq.prompt)} tokens returned "
+                 f"{len(rs.tokens)}")
+        gen = rs.tokens[len(rq.prompt):]
+        if gen.min() < 0 or gen.max() >= cfg.vocab_size:
+            fail("deepseek-moe: generated token out of the vocabulary")
+    log(f"# deepseek-moe serving: full width, 3 of 28 layers, 8 requests "
+        f"(prompts {min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)}, 32 new each, budgets 0.4/1.0 "
+        f"-> rows {rows}, half top-k 40), wall {wall:.2f} s, "
+        f"{s['tokens_per_s']:.1f} tok/s, ttft mean "
+        f"{s['ttft_mean_s'] * 1e3:.1f} ms, {s['mixed_iterations']:.0f} mixed "
+        f"iterations, dispatch {s['dispatch_ms_mean']:.2f} ms / host "
+        f"{s['host_ms_mean']:.2f} ms per iteration, preemptions "
+        f"{s['preemptions']}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{json.dumps(counts)}")
+    if min(counts.values()) <= 0:
+        fail(f"deepseek-moe: a kernel of the serving path never launched: "
+             f"{counts}")
+
+    # the same requests with lookahead: the same batches give the same
+    # capacities, so the streams are the synchronous run's
+    engine.lookahead = True
+    try:
+        with sync_free_lookahead():
+            look, _, s_look = serve_timed(engine, reqs)
+    finally:
+        engine.lookahead = False
+    for i, (a, b) in enumerate(zip(results, look)):
+        if not np.array_equal(a.tokens, b.tokens):
+            fail(f"deepseek-moe lookahead: request {i} differs from the "
+                 "synchronous run")
+    log(f"# deepseek-moe lookahead: {s_look['tokens_per_s']:.1f} tok/s "
+        f"(sync {s['tokens_per_s']:.1f}), ttft mean "
+        f"{s_look['ttft_mean_s'] * 1e3:.1f} ms, "
+        f"{s_look['lookahead_iterations']:.0f} lookahead iterations, "
+        f"{s_look['rollbacks']:.0f} rollbacks, overlap share "
+        f"{s_look['overlap_fraction']:.4f}; streams identical, no host sync "
+        "in any planned, dispatched and advanced iteration")
+
+    # one moe_apply call split, at a decode batch (T 8) and a mixed
+    # iteration (T 72), and the decode iteration it sits in
+    moe_p = cm.tree_map(lambda a: a[0],
+                        deployed[rows[0]]["segments"][1]["mlp"])
+    split = moe_apply_split(moe_p, cfg, dev, (8, 72))
+    prng = np.random.default_rng(14)
+    prompts = [prng.integers(0, cfg.vocab_size, int(prng.integers(90, 160))
+                             ).astype(np.int32) for _ in range(8)]
+    host_ms, kern_ms, launches, prods_ms, krows = decode_iteration(
+        deployed[rows[0]], cfg, prompts, dev)
+    n_moe = segs[1].count
+    for t, cap, call, prods in split:
+        log(f"# deepseek-moe moe_apply: row {rows[0]}, T={t} (capacity "
+            f"{cap} an expert): {call:.4f} ms a call, expert products "
+            f"{prods:.4f} ms ({100 * prods / call:.1f}%), the rest "
+            f"{call - prods:.4f} ms")
+    log(f"# deepseek-moe decode iteration: row {rows[0]}, 8 slots one token "
+        f"each through paged_mixed_step: {host_ms:.2f} ms on the host's "
+        f"clock, {kern_ms:.3f} ms of kernels in {launches:.0f} launches "
+        f"(busy {100 * kern_ms / host_ms:.1f}%; most: "
+        + ", ".join(f"{k[:40]} {us / 4e3:.3f} ms" for us, _, k in krows[:3])
+        + f"); the kernels of the expert products of its {n_moe} MoE "
+        f"layers in the same profile {prods_ms:.3f} ms = "
+        f"{100 * prods_ms / kern_ms:.1f}% of its kernel time; {smi}")
+
+    # the decode check without drops: capacity_factor = num_experts
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    for k in (gar_matmul, paged_attention):
+        k.launches = 0
+    counts["paged_attention"], _, _, _ = decode_check(
+        nodrop, deployed, prompts, 32, dev, 256)
+    counts["gar_matmul"] += gar_matmul.launches
+    counts["paged_prefill_attention"] += paged_attention.launches
+
+    # card vs CPU: one greedy request on the 0.4 row cut to 2 layers (the
+    # dense layer and one MoE layer); a parting only at a near tie of the
+    # logits or of a token's routing
+    small = dataclasses.replace(cfg, segments=(Segment("attn_dense", 1),
+                                               Segment("attn", 1)),
+                                num_layers=2)
+    p_gpu = cut_depth(deployed[rows[0]], cfg, small)
+    p_cpu = cm.tree_map(lambda t: t.cpu(), p_gpu)
+    prompt = prng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+    calls_gpu, calls_cpu, l_gpu, l_cpu = [], [], [], []
+    with torch.no_grad():
+        with routing_record(calls_gpu):
+            toks_gpu, _ = greedy_loop(p_gpu, small, prompt, 8, dev, 160,
+                                      logits_out=l_gpu)
+        t0 = time.perf_counter()
+        with routing_record(calls_cpu):
+            toks_cpu, marg_cpu = greedy_loop(p_cpu, small, prompt, 8,
+                                             torch.device("cpu"), 160,
+                                             logits_out=l_cpu)
+        t_cpu = time.perf_counter() - t0
+    moe_cross_check(small, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
+                    calls_cpu, l_gpu, l_cpu)
+    log(f"# deepseek-moe cross-check: row {rows[0]} at 2 layers (dense + "
+        f"MoE), {len(prompt)} prompt tokens: card {toks_gpu}, CPU "
+        f"{toks_cpu} ({t_cpu:.1f} s on the CPU)")
+    log(f"# deepseek-moe: {time.perf_counter() - t_phase:.1f} s in all")
+    del engine, deployed, params_fact, p_gpu, p_cpu
+    return counts, gar_err
+
+
+def mla_phase(dev, report, smi):
+    """Phase 15: minicpm3-4b at full width cut to 8 of its 62 layers: the
+    serving launcher's state, then ``drain_phase`` (``generate(mode=
+    "auto")`` must route MLA to drain). Returns (launches by kernel, the
+    GAR error)."""
+    from types import SimpleNamespace
+    from repro_torch.configs import Segment, get_config
+    from repro_torch.launch.serve import serving_state
+    from repro_torch.launch.train import dense_init
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    t_phase = time.perf_counter()
+    full = get_config("minicpm3-4b")
+    cfg = dataclasses.replace(full, segments=(Segment("attn", 8),),
+                              num_layers=8)
+    for c in (full, cfg):
+        n = cm.param_count(tfm.model_spec(c))
+        log(f"# minicpm3: {c.num_layers} layers: {n / 1e9:.3f} B dense "
+            f"parameters, {4 * n / 1e9:.2f} GB in float32")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = dense_init(cfg, 0, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    setup = {}
+    params_fact, table, infos = serving_state(cfg, dense, 0, timings=setup)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"# minicpm3 setup: dense init {t_init:.2f} s, calibrate "
+        f"{setup['calibrate']:.2f} s, decompose {setup['decompose']:.2f} s "
+        f"(DataSVD, {len(infos)} groups x 8 layers), DP {setup['dp']:.2f} s "
+        f"({table.table.shape[0]} rows); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB building the "
+        "state")
+    small = dataclasses.replace(cfg, segments=(Segment("attn", 2),),
+                                num_layers=2)
+    counts, gar_err = drain_phase(
+        "minicpm3-4b", cfg, SimpleNamespace(params=params_fact, table=table,
+                                            infos=infos),
+        small, dev, np.random.default_rng(15), report, smi)
+    log(f"# minicpm3: {time.perf_counter() - t_phase:.1f} s in all")
+    return counts, gar_err
 
 
 def _layer_count(segments) -> int:
@@ -2308,6 +2786,25 @@ def main() -> int:
         ("ragged B=2 S=257 H=8 G=2", 2, 257, 8, 2, None),
         ("large dt B=2 S=200 H=4 G=2 (dt |N| x 4)", 2, 200, 4, 2, 4.0)],
         np.random.default_rng(18), report))
+    # deepseek-moe-16b's serving shapes (phase 14: a decode batch and a
+    # mixed iteration of 7 decode tokens and a 64-token chunk, 16 heads of
+    # 128, vocab 102400) and minicpm3-4b's vocab (phase 15, drain batches
+    # of 4 and 8), from their own generator (the later phases' draws stay
+    # as they were)
+    srng = np.random.default_rng(22)
+    attn_err = max(attn_err, check_attention(dev, [
+        ("deepseek T=8 decode Hq=Hkv=16 D=128 BS=16",
+         (8, 16, 16, 128, 16, 8, 16, 8, 0), (0.0,), (None,)),
+        ("deepseek T=72 decode7+chunk64 Hq=Hkv=16 D=128 BS=16",
+         (72, 16, 16, 128, 16, 8, 16, 7, 64), (0.0,), (None,))],
+        srng, report))
+    dec_err = max(dec_err, check_decode(dev, [
+        ("deepseek B=8 Hq=Hkv=16 D=128 BS=16",
+         (8, 16, 16, 128, 16, 16, 90, 256), (0.0,), (None,))], srng, report))
+    samp_err = max(samp_err, check_sampling(dev, [
+        ("deepseek S=8 V=102400", 8, 102400, False),
+        ("minicpm3 S=8 V=73448", 8, 73448, False),
+        ("minicpm3 S=4 V=73448", 4, 73448, False)], srng, report))
     for e in report:
         log(kernel_line(e))
 
@@ -2373,7 +2870,7 @@ def main() -> int:
             if not a == b == c:
                 fail(f"card and CPU part at step {i}: top-2 margin "
                      f"{marg_gpu[i]:.3e} on the card, {marg_cpu[i]:.3e} on "
-                     "the CPU")
+                     "the CPU, of the logits' max")
 
     # rows 0 and the top one stay deployed for phase 9
     gpt2_rows = {0: engine._realize(0), last: engine._realize(last)}
@@ -2483,6 +2980,23 @@ def main() -> int:
     gd_counts = drain_gpt2(engine, reqs, results, dev)
     counts["gar_matmul"] += gd_counts["gar_matmul"]
     counts["sampling"] += gd_counts["topk_mask_sample"]
+
+    # 14. deepseek-moe-16b (3 of 28 layers) through the continuous engine
+    # on phase 3's requests
+    moe_counts, err = moe_phase(dev, rng, report, smi, reqs)
+    gar_err = max(gar_err, err)
+    counts["gar_matmul"] += moe_counts["gar_matmul"]
+    counts["paged_attention"] += moe_counts["paged_prefill_attention"]
+    counts["paged_attention_decode"] += moe_counts["paged_attention"]
+    counts["sampling"] += moe_counts["topk_mask_sample"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15. minicpm3-4b (8 of 62 layers) through drain
+    mla_counts, err = mla_phase(dev, report, smi)
+    gar_err = max(gar_err, err)
+    counts["gar_matmul"] += mla_counts["gar_matmul"]
+    counts["sampling"] += mla_counts["topk_mask_sample"]
 
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {

@@ -138,8 +138,8 @@ def decode_state_to_torch(tree, device=None) -> dict:
 def decode_state_to_numpy(state) -> dict:
     """The port's decode state -> the reference's layout in numpy: ``pos``
     an int32 scalar array, each ``idx`` an int32 array of one value per
-    stacked block (the length of its ``k``), tensors as numpy arrays
-    (bfloat16 ones as float32, which numpy lacks)."""
+    stacked block (the length of its ``k``, or of MLA's ``c_kv``), tensors
+    as numpy arrays (bfloat16 ones as float32, which numpy lacks)."""
     def conv(node):
         if isinstance(node, dict):
             out = {}
@@ -147,7 +147,8 @@ def decode_state_to_numpy(state) -> dict:
                 if k == "pos":
                     out[k] = np.asarray(v, np.int32)
                 elif k == "idx":
-                    out[k] = np.full((node["k"].shape[0],), v, np.int32)
+                    blocks = node["k" if "k" in node else "c_kv"].shape[0]
+                    out[k] = np.full((blocks,), v, np.int32)
                 else:
                     out[k] = conv(v)
             return out

@@ -2,12 +2,20 @@
 from typing import List
 
 from repro_torch.configs.base import (FlexRankConfig, ModelConfig, Segment)
-from repro_torch.configs import gemma3_27b, gpt2_small, rwkv6_3b, zamba2_7b
+from repro_torch.configs import (deepseek_7b, deepseek_moe_16b, gemma3_27b,
+                                 gpt2_small, llama4_scout_17b_a16e,
+                                 minicpm3_4b, rwkv6_3b, stablelm_1_6b,
+                                 zamba2_7b)
 
 _MODULES = {
+    "deepseek-7b": deepseek_7b,
+    "deepseek-moe-16b": deepseek_moe_16b,
     "gemma3-27b": gemma3_27b,
     "gpt2-small": gpt2_small,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
+    "minicpm3-4b": minicpm3_4b,
     "rwkv6-3b": rwkv6_3b,
+    "stablelm-1.6b": stablelm_1_6b,
     "zamba2-7b": zamba2_7b,
 }
 

@@ -10,11 +10,9 @@ the reference's ``decompose`` falls back to where no moment was recorded.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
-
-from repro_torch.core.covariance import sqrt_and_inv_sqrt
 
 
 class Factors(NamedTuple):
@@ -28,13 +26,15 @@ class Factors(NamedTuple):
         return self.u.shape[-1]
 
 
-def datasvd_factors(w: torch.Tensor, moment: torch.Tensor, count: float, *,
-                    max_rank: Optional[int] = None,
-                    damping: float = 1e-6) -> Factors:
-    """Whitened SVD factorization of ``w`` (m, n) against the activation
-    moment (n, n), float32 on the device of ``w``."""
+def datasvd_factors(w: torch.Tensor,
+                    whitening: Tuple[torch.Tensor, torch.Tensor], *,
+                    max_rank: Optional[int] = None) -> Factors:
+    """Whitened SVD factorization of ``w`` (m, n), float32 on the device of
+    ``w``. ``whitening``: ``covariance.sqrt_and_inv_sqrt`` of the
+    activation moment (n, n) on that device (the experts of one MoE layer
+    share one moment, so the caller computes it once for them)."""
     w = w.to(torch.float32)
-    s, s_inv = sqrt_and_inv_sqrt(moment.to(w.device), count, damping=damping)
+    s, s_inv = whitening
     p, lam, qt = torch.linalg.svd(w @ s, full_matrices=False)
     q = qt.T
     if max_rank is not None:

@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch import threefry
 from repro_torch.core import datasvd, distill, dp_select
+from repro_torch.core.covariance import sqrt_and_inv_sqrt
 from repro_torch.core.gar import gar_transform
 from repro_torch.core.profiles import ProfileTable, table_from_profiles
 from repro_torch.models import common as cm
@@ -135,7 +136,9 @@ def decompose(dense_params: PyTree, cfg: ModelConfig,
     recorded. Returns (factorized params, error curves):
     ``curves[group_path][r-1]`` is the whitened tail energy of keeping rank
     r, summed over the group's layers (the DP's input). The arithmetic of
-    the curve is the reference's, in numpy on the host."""
+    the curve is the reference's, in numpy on the host. The leaves that
+    share one moment (the experts of an MoE layer: the tap flattens
+    (B, E, C, d)) share its whitening, computed once."""
     params = cm.tree_map(lambda x: x, dense_params)
     midx = _index_moments(moments or {})
     curves: Dict[str, np.ndarray] = {}
@@ -149,12 +152,17 @@ def decompose(dense_params: PyTree, cfg: ModelConfig,
                             device=w.device)
         curve = np.zeros(r_full, np.float64)
         group_moments = midx.get(info.path, {})
+        white_key, whitening = None, None
         for idx in _lead_indices(lead):
-            ent = group_moments.get(tuple(idx[: len(info.scan_dims)]))
+            key = tuple(idx[: len(info.scan_dims)])
+            ent = group_moments.get(key)
             w_paper = w[idx].T                     # (m, n): y = W x
             if ent is not None:
-                f = datasvd.datasvd_factors(w_paper, ent[0], ent[1],
-                                            max_rank=r_full, damping=damping)
+                if key != white_key:
+                    white_key, whitening = key, sqrt_and_inv_sqrt(
+                        ent[0].to(w.device), ent[1], damping=damping)
+                f = datasvd.datasvd_factors(w_paper, whitening,
+                                            max_rank=r_full)
             else:
                 f = datasvd.plain_svd_factors(w_paper, max_rank=r_full)
             rr = f.u.shape[1]
@@ -284,32 +292,39 @@ def eval_budget_loss(params, cfg, infos, table_rows, batch, k: int) -> float:
         return float(distill.cross_entropy(logits, labels))
 
 
+# float64 bytes of a GAR transform call's working copies (some 3 m r for U
+# and 2 n r for V a matrix): a group's layers, or an MoE layer's experts,
+# are transformed in stacks of at most this much, so small matrices share
+# one pivot loop and large ones stay within memory
+_GAR_BATCH_BYTES = 4 << 30
+
+
 def gar_deploy(params_fact: PyTree, cfg: ModelConfig,
                infos: List[GroupInfo], table: ProfileTable, k: int) -> PyTree:
     """Deployable params at budget row ``k``: every factorized leaf becomes
-    ``{u_hat, v_tilde, perm_inv}`` (stacked over its layers; ``perm_inv``
-    int64), computed on the device of the factors. ``common.linear``
-    dispatches on ``u_hat``."""
+    ``{u_hat, v_tilde, perm_inv}`` (stacked over its lead dims; ``perm_inv``
+    int64), computed on the device of the factors, the leaf's matrices in
+    batches of ``gar_transform``. ``common.linear`` dispatches on
+    ``u_hat``."""
     params = cm.tree_map(lambda x: x, params_fact)
     row = table.table[k]
     for info in infos:
         leaf = cm.tree_get(params_fact, info.path)
-        u, v = leaf["u"], leaf["v"]
-        r = int(row[info.col])
         lead = info.lead_dims
-        dev = u.device
-        u_hats = torch.zeros(lead + (info.m - r, r), dtype=torch.float32,
-                             device=dev)
-        v_tildes = torch.zeros(lead + (info.n, r), dtype=torch.float32,
-                               device=dev)
-        perms = torch.zeros(lead + (info.m,), dtype=torch.int64, device=dev)
-        for idx in _lead_indices(lead):
-            g = gar_transform(u[idx], v[idx], r)
-            u_hats[idx] = g.u_hat
-            v_tildes[idx] = g.v_tilde
-            perms[idx] = torch.argsort(g.perm)
-        cm.tree_set(params, info.path, {"u_hat": u_hats, "v_tilde": v_tildes,
-                                        "perm_inv": perms})
+        u = leaf["u"].reshape((-1,) + leaf["u"].shape[-2:])
+        v = leaf["v"].reshape((-1,) + leaf["v"].shape[-2:])
+        r = int(row[info.col])
+        step = max(1, _GAR_BATCH_BYTES
+                   // max((3 * info.m + 2 * info.n) * r * 8, 1))
+        parts = [gar_transform(u[i:i + step], v[i:i + step], r)
+                 for i in range(0, u.shape[0], step)]
+        cm.tree_set(params, info.path, {
+            "u_hat": torch.cat([g.u_hat for g in parts]).reshape(
+                lead + (info.m - r, r)),
+            "v_tilde": torch.cat([g.v_tilde for g in parts]).reshape(
+                lead + (info.n, r)),
+            "perm_inv": torch.cat([torch.argsort(g.perm, dim=-1)
+                                   for g in parts]).reshape(lead + (info.m,))})
     return params
 
 

@@ -3,10 +3,13 @@ init (calibration on the synthetic source, DataSVD and DP through
 ``launch.train.build_flexrank_state``, as the JAX package's launcher does),
 then serve a stream of requests at mixed budgets through the GAR-deployed
 submodels with the continuous-batching engine (paged KV cache, chunked
-prefill fused into decode iterations with ``--prefill-chunk``), or with the
-drain engine (``--engine drain``, and what ``auto`` picks for the recurrent
-families rwkv6-3b and zamba2-7b: static batches through the contiguous
-prefill/decode with carried recurrent states). ``--spec-draft-rank`` turns
+prefill fused into decode iterations with ``--prefill-chunk``; what
+``auto`` picks for attention stacks, the MoE ones deepseek-moe-16b and
+llama4-scout-17b-a16e among them), or with the drain engine (``--engine
+drain``, and what ``auto`` picks for the recurrent families rwkv6-3b and
+zamba2-7b and for minicpm3-4b's MLA: static batches through the
+contiguous prefill/decode with carried recurrent states or MLA's latent
+cache). ``--spec-draft-rank`` turns
 on nested self-speculative decoding (a low-rank prefix row drafts up to
 ``--spec-len`` tokens a round, the full row verifies them in one
 multi-token forward; with ``--temperature`` the rounds accept and resample
@@ -26,6 +29,8 @@ pipeline.
       --cancel-nth 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-moe-16b --smoke --device cpu --prefill-chunk 8
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead (use ``--smoke`` there). The flags are those of
@@ -123,8 +128,8 @@ def main(argv=None):
                     help="continuous = paged cache + mid-decode joins; "
                          "drain = static batches through the contiguous "
                          "prefill/decode; auto = continuous where the "
-                         "family allows it (attention stacks), else drain "
-                         "(rwkv6, zamba2)")
+                         "family allows it (attention stacks, MoE "
+                         "included), else drain (rwkv6, zamba2, MLA)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--block-size", type=int, default=16)

@@ -5,11 +5,12 @@ blocks with stacked parameters (a leading layers axis). The JAX package
 scans a segment with ``lax.scan`` and unrolls it into a tap-scoped Python
 loop only for calibration; here a Python loop always walks its layers,
 each under ``tap_scope(f"@{l}")``, so the tap keys are the reference's.
-Ported segment kinds: self-attention stacks with dense FFNs
-('attn'/'attn_dense'), 'rwkv', 'mamba', and 'zamba_unit' (a stack of
-mamba blocks, then the model's one *shared* attention block, then the
-unit's FFN); the other kinds, MoE FFNs and MLA raise, naming the ROADMAP
-item of their family.
+Ported segment kinds: self-attention stacks ('attn'/'attn_dense'; the
+attention is MLA where the config has one, and an 'attn' block's FFN is
+an MoE where the config has one), 'rwkv', 'mamba', and 'zamba_unit' (a
+stack of mamba blocks, then the model's one *shared* attention block,
+then the unit's FFN); the audio and vision kinds raise, naming the
+ROADMAP item of their family.
 
 Ranks trees mirror the parameters (``{'segments': [{'attn': {'q': r,
 ...}, 'mlp': {...}}, ...], 'shared_attn': {...}}``) with one Python int
@@ -32,6 +33,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, Segment
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamSpec
@@ -39,12 +42,12 @@ from repro_torch.models.common import ParamSpec
 GLOBAL_WINDOW = 1 << 30
 
 
-def _attn_block_spec(cfg: ModelConfig) -> Dict:
+def _attn_block_spec(cfg: ModelConfig, *, moe: bool) -> Dict:
     return {
         "ln_attn": ParamSpec((cfg.d_model,), (None,), "zeros"),
         "ln_mlp": ParamSpec((cfg.d_model,), (None,), "zeros"),
-        "attn": attn.attn_spec(cfg),
-        "mlp": attn.ffn_spec(cfg),
+        "attn": mla_mod.mla_spec(cfg) if cfg.mla else attn.attn_spec(cfg),
+        "mlp": moe_mod.moe_spec(cfg) if moe else attn.ffn_spec(cfg),
     }
 
 
@@ -55,11 +58,8 @@ def _mamba_block_spec(cfg: ModelConfig) -> Dict:
     }
 
 
-# the families whose segment kinds are not ported, and the ROADMAP item of
-# each
+# the segment kinds not ported yet, and the ROADMAP item of each
 _UNPORTED = {
-    "moe": "MoE FFNs (deepseek-moe-16b, llama4-scout-17b-a16e): ROADMAP A.3",
-    "mla": "MLA attention (minicpm3-4b): ROADMAP A.15",
     "encoder": "the audio encoder-decoder family (seamless-m4t-medium): "
                "ROADMAP A.13",
     "decoder": "the audio encoder-decoder family (seamless-m4t-medium): "
@@ -69,22 +69,27 @@ _UNPORTED = {
 
 
 def _check_ported(cfg: ModelConfig, seg: Segment) -> None:
-    """Raise for a segment kind, MoE FFN or MLA block not ported yet,
-    naming its family's ROADMAP item."""
-    what = ("mla" if cfg.mla is not None
-            else "moe" if cfg.moe is not None and seg.kind == "attn"
-            else seg.kind)
-    if what in ("attn", "attn_dense", "rwkv", "mamba", "zamba_unit"):
+    """Raise for a segment kind not ported yet, naming its family's
+    ROADMAP item."""
+    if seg.kind in ("attn", "attn_dense", "rwkv", "mamba", "zamba_unit"):
         return
     raise NotImplementedError(
         f"segment kind {seg.kind!r} of {cfg.name} is not ported yet: "
-        + _UNPORTED.get(what, "unknown segment kind"))
+        + _UNPORTED.get(seg.kind, "unknown segment kind"))
 
 
 def segment_spec(cfg: ModelConfig, seg: Segment) -> Dict:
     _check_ported(cfg, seg)
-    if seg.kind in ("attn", "attn_dense"):
-        return cm.stack_spec(_attn_block_spec(cfg), seg.count)
+    if seg.kind == "attn":
+        return cm.stack_spec(_attn_block_spec(cfg, moe=cfg.moe is not None),
+                             seg.count)
+    if seg.kind == "attn_dense":  # the dense-FFN blocks of an MoE model
+        return cm.stack_spec({
+            "ln_attn": ParamSpec((cfg.d_model,), (None,), "zeros"),
+            "ln_mlp": ParamSpec((cfg.d_model,), (None,), "zeros"),
+            "attn": attn.attn_spec(cfg),
+            "mlp": attn.ffn_spec(cfg),
+        }, seg.count)
     if seg.kind == "mamba":
         return cm.stack_spec(_mamba_block_spec(cfg), seg.count)
     if seg.kind == "rwkv":
@@ -146,7 +151,8 @@ def lm_logits(params: Dict, x: torch.Tensor,
 
 
 def paged_compatible(cfg: ModelConfig) -> bool:
-    """The paged path covers pure self-attention stacks."""
+    """The paged path covers pure self-attention stacks (MoE FFNs
+    included; MLA stacks go to drain)."""
     return (cfg.mla is None and cfg.frontend_dim == 0
             and all(s.kind in ("attn", "attn_dense") for s in cfg.segments))
 
@@ -168,21 +174,27 @@ def rget_tree(ranks, key):
     return ranks.get(key)
 
 
-def _apply_attn_block(p, x, cfg, *, positions, window, ranks, cache=None):
-    """rms_norm -> self-attention -> residual -> rms_norm -> FFN ->
-    residual (the non-MoE, non-MLA block). Returns (x, the attention
-    cache or None)."""
+def _apply_attn_block(p, x, cfg, *, positions, window, ranks, cache=None,
+                      moe=False):
+    """rms_norm -> self-attention (MLA where the config has it) ->
+    residual -> rms_norm -> FFN (or MoE) -> residual. Returns (x, the
+    attention cache or None, the block's aux loss: the MoE's, else 0)."""
     h = cm.rms_norm(x, p["ln_attn"], eps=cfg.norm_eps)
+    attn_fn = mla_mod.mla_apply if cfg.mla else attn.attn_apply
     with cm.tap_scope("attn"):
-        y, new_cache = attn.attn_apply(p["attn"], h, cfg,
-                                       positions=positions, window=window,
-                                       ranks=rget_tree(ranks, "attn"),
-                                       cache=cache)
+        y, new_cache = attn_fn(p["attn"], h, cfg, positions=positions,
+                               window=window,
+                               ranks=rget_tree(ranks, "attn"), cache=cache)
     x = x + y
     h = cm.rms_norm(x, p["ln_mlp"], eps=cfg.norm_eps)
     with cm.tap_scope("mlp"):
-        y = attn.ffn_apply(p["mlp"], h, ranks=rget_tree(ranks, "mlp"))
-    return x + y, new_cache
+        if moe:
+            y, aux = moe_mod.moe_apply(p["mlp"], h, cfg,
+                                       ranks=rget_tree(ranks, "mlp"))
+        else:
+            y, aux = attn.ffn_apply(p["mlp"], h,
+                                    ranks=rget_tree(ranks, "mlp")), 0.0
+    return x + y, new_cache, aux
 
 
 def _apply_mamba_block(p, x, cfg, *, ranks, state=None):
@@ -207,14 +219,17 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
                 cache: Optional[Dict] = None,
                 shared_attn_params: Optional[Dict] = None,
                 shared_attn_ranks: Optional[Dict] = None):
-    """Walk one segment layer by layer. Returns (x, cache).
+    """Walk one segment layer by layer. Returns (x, cache, aux), aux the
+    sum of the segment's MoE aux losses (a float32 tensor; 0.0 without
+    MoE).
 
     Without ``cache`` (train, calibration, eval) the result's cache is
     None. With the segment's decode cache (``init_decode_state``) every
-    layer continues from its row of the stacked state: attention K/V are
-    written in place at the cache's ``idx``, recurrent states are replaced
-    in place by the step's new ones, and the returned cache is the same
-    tensors with ``idx`` advanced by the step's tokens.
+    layer continues from its row of the stacked state: attention K/V (or
+    MLA's latent) are written in place at the cache's ``idx``, recurrent
+    states are replaced in place by the step's new ones, and the returned
+    cache is the same tensors with ``idx`` advanced by the step's
+    tokens.
 
     A 'zamba_unit' runs its mamba stack under ``tap_scope("mambas")`` (tap
     keys with two layer indices, ``segments/i/@u/mambas/@m/...``), then the
@@ -225,16 +240,19 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
     s = x.shape[1]
     if seg.kind in ("attn", "attn_dense"):
         windows = window_schedule(cfg, seg.count, layer_offset)
+        moe = cfg.moe is not None and seg.kind == "attn"
+        aux = 0.0
         for l in range(seg.count):
-            cache_l = None if cache is None else {
-                "k": cache["k"][l], "v": cache["v"][l], "idx": cache["idx"]}
+            cache_l = None if cache is None else dict(
+                {k: t[l] for k, t in cache.items() if k != "idx"},
+                idx=cache["idx"])
             with cm.tap_scope(f"@{l}"):
-                x, _ = _apply_attn_block(_layer(params, l), x, cfg,
-                                         positions=positions,
-                                         window=windows[l], ranks=ranks,
-                                         cache=cache_l)
-        return x, None if cache is None else dict(cache,
-                                                   idx=cache["idx"] + s)
+                x, _, aux_l = _apply_attn_block(
+                    _layer(params, l), x, cfg, positions=positions,
+                    window=windows[l], ranks=ranks, cache=cache_l, moe=moe)
+            aux = aux + aux_l
+        return x, None if cache is None else dict(
+            cache, idx=cache["idx"] + s), aux
     if seg.kind == "mamba":
         for l in range(seg.count):
             state_l = None if cache is None else _layer(cache, l)
@@ -243,7 +261,7 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
                                             ranks=ranks, state=state_l)
             if cache is not None:
                 _store(cache, l, new)
-        return x, cache
+        return x, cache, 0.0
     if seg.kind == "rwkv":
         for l in range(seg.count):
             state_l = None if cache is None else _layer(cache, l)
@@ -252,7 +270,7 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
                                              ranks=ranks, state=state_l)
             if cache is not None:
                 _store(cache, l, new)
-        return x, cache
+        return x, cache, 0.0
     mranks = rget_tree(ranks, "mambas")                 # zamba_unit
     for u in range(seg.count):
         p_u = _layer(params, u)
@@ -284,16 +302,18 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
                 x = x + attn.ffn_apply(p_u["mlp"], h,
                                        ranks=rget_tree(ranks, "mlp"))
     if cache is None:
-        return x, None
+        return x, None, 0.0
     return x, {"mamba": cache["mamba"],
-               "attn": dict(cache["attn"], idx=cache["attn"]["idx"] + s)}
+               "attn": dict(cache["attn"], idx=cache["attn"]["idx"] + s)}, \
+        0.0
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             ranks: Optional[Dict] = None,
             positions: Optional[torch.Tensor] = None):
     """Train/prefill forward. tokens: (B, S). Returns (logits (B, S, V),
-    aux_loss), aux a float32 zero (no MoE). No frontend."""
+    aux_loss), aux the float32 sum of every MoE layer's load-balancing
+    loss (zero without MoE). No frontend."""
     if cfg.frontend_dim:
         raise NotImplementedError(
             f"the frontend inputs of {cfg.name} are not ported yet (ROADMAP "
@@ -302,18 +322,17 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     offset = 0
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(cfg.segments):
         with cm.tap_scope(f"segments/{i}", absolute=True):
-            x, _ = run_segment(seg, params["segments"][i], x, cfg,
-                               positions=positions,
-                               ranks=_seg_ranks(ranks, i),
-                               layer_offset=offset,
-                               shared_attn_params=params.get("shared_attn"),
-                               shared_attn_ranks=rget_tree(ranks,
-                                                           "shared_attn"))
+            x, _, aux = run_segment(
+                seg, params["segments"][i], x, cfg, positions=positions,
+                ranks=_seg_ranks(ranks, i), layer_offset=offset,
+                shared_attn_params=params.get("shared_attn"),
+                shared_attn_ranks=rget_tree(ranks, "shared_attn"))
+        aux_total = aux_total + aux
         offset += seg.count
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return lm_logits(params, x, cfg), aux
+    return lm_logits(params, x, cfg), aux_total
 
 
 # ------------------------------------------------------------- decode
@@ -323,7 +342,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     """Zero decode state matching the segment structure:
 
       {'pos': 0, 'segments': [per segment: attention {'k', 'v': (L, B,
-       max_len, Hkv, D) in ``dtype``, 'idx': 0}; mamba {'conv', 'ssd'};
+       max_len, Hkv, D) in ``dtype``, 'idx': 0}, or for MLA {'c_kv': (L,
+       B, max_len, kv_rank), 'k_rope': (L, B, max_len, rope_dim), 'idx':
+       0}; mamba {'conv', 'ssd'};
        rwkv {'shift_t', 'shift_c', 'wkv'}; zamba_unit {'mamba': {'conv':
        (U, M, B, K-1, C), 'ssd': (U, M, B, H, N, P)}, 'attn': {'k', 'v':
        (U, B, max_len, Hkv, D), 'idx': 0}}]}
@@ -338,7 +359,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     segments = []
     for seg in cfg.segments:
         _check_ported(cfg, seg)
-        if seg.kind in ("attn", "attn_dense"):
+        if seg.kind in ("attn", "attn_dense") and cfg.mla:
+            segments.append(mla_mod.init_mla_cache(
+                cfg, batch, max_len, dtype=dtype, num_instances=seg.count,
+                device=device))
+        elif seg.kind in ("attn", "attn_dense"):
             segments.append(attn.init_kv_cache(
                 cfg, batch, max_len, dtype=dtype, num_instances=seg.count,
                 device=device))
@@ -382,7 +407,7 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
     segments = []
     offset = 0
     for i, seg in enumerate(cfg.segments):
-        x, new_c = run_segment(seg, params["segments"][i], x, cfg,
+        x, new_c, _ = run_segment(seg, params["segments"][i], x, cfg,
                                positions=positions,
                                ranks=_seg_ranks(ranks, i),
                                layer_offset=offset,
@@ -409,21 +434,18 @@ def prefill(params: Dict, cfg: ModelConfig, state: Dict,
 
 def _run_paged_segments(params, cfg, x, caches, ranks, attn_fn):
     """rms_norm -> paged attention (``attn_fn``) -> residual -> rms_norm ->
-    ffn -> residual, layer by layer, shared by the paged decode and mixed
+    ffn (or MoE, over the step's flat batch) -> residual, layer by layer, shared by the paged decode and mixed
     steps so that the two stay structurally identical. ``attn_fn(p_attn,
     h, window, k_pool, v_pool, ranks)`` -> (y, k_pool, v_pool) with the
     pools of one layer, updated in place; ``window`` is the layer's window,
     or None for all-global configs. Returns (x, segment pools)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"the MoE FFNs of {cfg.name} in the paged forward are not "
-            "ported yet (ROADMAP A.3)")
     windowed = bool(cfg.local_window and cfg.global_every)
     offset = 0
     for i, seg in enumerate(cfg.segments):
         seg_ranks = _seg_ranks(ranks, i)
         pool = caches["segments"][i]
         windows = window_schedule(cfg, seg.count, offset)
+        moe = cfg.moe is not None and seg.kind == "attn"
         for l in range(seg.count):
             p_l = _layer(params["segments"][i], l)
             ranks_l = None if seg_ranks is None else _layer(seg_ranks, l)
@@ -434,8 +456,13 @@ def _run_paged_segments(params, cfg, x, caches, ranks, attn_fn):
                               (ranks_l or {}).get("attn"))
             x = x + y
             h = cm.rms_norm(x, p_l["ln_mlp"], eps=cfg.norm_eps)
-            x = x + attn.ffn_apply(p_l["mlp"], h,
+            if moe:
+                y, _ = moe_mod.moe_apply(p_l["mlp"], h, cfg,
+                                         ranks=(ranks_l or {}).get("mlp"))
+            else:
+                y = attn.ffn_apply(p_l["mlp"], h,
                                    ranks=(ranks_l or {}).get("mlp"))
+            x = x + y
         offset += seg.count
     return x, caches["segments"]
 

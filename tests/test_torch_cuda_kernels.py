@@ -788,3 +788,36 @@ def test_wrappers_raise_on_cpu_mixed_devices(dev):
         sk.ssd(r, torch.zeros(1, 4, 2, device=dev),
                torch.zeros(2, device=dev),
                *(torch.zeros(1, 4, 3, 64, device=dev),) * 2)
+
+
+# (label, matrices in the stack, m, n, rank): gpt2-small's 12 layers of
+# mlp/up (d 768, d_ff 3072) and one deepseek-moe-16b layer's 64 experts of
+# gate (d 2048, d_ff_expert 1408), at ranks of their 0.4 rows
+GAR_STACKS = [("gpt2 mlp/up", 12, 3072, 768, 410),
+              ("deepseek experts/gate", 64, 1408, 2048, 470)]
+
+
+@pytest.mark.parametrize("label,count,m,n,r", GAR_STACKS,
+                         ids=[s[0] for s in GAR_STACKS])
+def test_gar_transform_of_a_stack_equals_each_matrix_on_card(
+        dev, label, count, m, n, r):
+    """``gar_deploy`` hands ``gar_transform`` a leaf's matrices as one
+    stack. On the card its float64 products (the tail ``U_p[r:] G`` and
+    ``V_r U_p[:r]^T``) are batched and may take other cuBLAS kernels than
+    one matrix's: the pivots are the same, and each factor lies within
+    one float32 rounding of its own call's (a float64 difference of some
+    1e-15 can only move a value across a rounding boundary)."""
+    from repro_torch.core.gar import gar_transform
+    rng = np.random.default_rng(count + r)
+    full = min(m, n)
+    u = _t(rng.standard_normal((count, m, full)).astype(np.float32), dev)
+    v = _t(rng.standard_normal((count, n, full)).astype(np.float32), dev)
+    stack = gar_transform(u, v, r)
+    for i in sorted({0, 1, count // 2, count - 1}):
+        one = gar_transform(u[i], v[i], r)
+        assert torch.equal(stack.perm[i], one.perm), (label, i)
+        for a, b in ((stack.u_hat[i], one.u_hat),
+                     (stack.v_tilde[i], one.v_tilde)):
+            torch.testing.assert_close(
+                a, b, rtol=2.0 ** -23,
+                atol=1e-12 * float(b.abs().max()))

@@ -469,7 +469,6 @@ def test_launcher_cli_recurrent():
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("deepseek-moe-16b", "A.3"), ("minicpm3-4b", "A.15"),
     ("seamless-m4t-medium", "A.13"), ("llama-3.2-vision-11b", "A.14")])
 def test_unported_families_name_their_roadmap_item(arch, match):
     cfg = get_config(arch, smoke=True)
