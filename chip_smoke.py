@@ -145,6 +145,35 @@ Phases, each fatal on failure:
                at attn/q_up and mlp/gate, T 8 and 512; the absorbed
                decode from the latent cache against ``forward``
                (TOL_DRAIN_FORWARD); card vs CPU at 2 layers).
+  16. audio  - seamless-m4t-medium at full width and depth (12 encoder
+               and 12 decoder layers): the serving launcher's state (text
+               only calibration: the encoder's, the cross blocks' and
+               ``frontend_proj``'s groups take plain SVD, logged), every
+               cross block's ``gate`` then drawn from U(0.5, 1.5); phase
+               13's drain checks (text-only requests: the encoder and the
+               cross blocks do not run; GAR at the decoder's mlp/gate, T
+               8 and 512, and at the multimodal check's T 4096:
+               ``frontend_proj``, the encoder's attn/q and mlp/gate, the
+               cross attn/k); card vs CPU at 1 + 1 layers. Then the
+               multimodal check at rows 0 and the top one: 4 prompts of 64
+               tokens and 4 x 1024 audio frames, 16 greedy tokens (i) by
+               ``forward(frontend=)``, (ii) by ``prefill``/``decode_step``
+               with the encoder's output every step, (iii) by
+               ``attach_cross_kv`` and one token a step; (ii) and (iii)
+               identical with logits within TOL_DECODE, both within
+               TOL_DRAIN_FORWARD of (i), every step under the sync debug
+               mode "error"; ``run_encoder``, ``attach_cross_kv`` and a
+               decode step of (ii) and of (iii) timed (host clock and
+               kernel time); the same check card vs CPU at 1 + 1 layers on
+               the first request.
+  17. vision - llama-3.2-vision-11b at full width, one unit (4 self
+               blocks and the cross block): phase 16's checks, with 4 x
+               1601 image patches of width 7680 (passed raw every step to
+               (ii), projected once by ``frontend_proj`` for (iii)), GAR at
+               the self blocks' mlp/gate (T 8, 512), ``frontend_proj`` and
+               the cross attn/k (T 6404), ``frontend_proj`` timed in place
+               of the encoder; card vs CPU on one unit of 1 self block and
+               the cross block.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
@@ -1641,16 +1670,21 @@ def gemma_phase(dev, rng, report, profiling):
     return counts, gar_err
 
 
+def _card_work(ev) -> bool:
+    """Whether a profiler event is the card's own work (a kernel, a copy, a
+    fill); operators and annotations carry their kernels' time."""
+    return not (ev.key in ("paged_sample_step", "paged_mixed_step",
+                           "expert_products")
+                or ev.key.startswith("aten::")
+                or "cuda" not in str(getattr(ev, "device_type", "")).lower())
+
+
 def kernel_rows(prof) -> list:
     """(device us, launches, name) per kernel of a profiler run, largest
-    first; operators and annotations carry their kernels' time and are
-    left out."""
+    first."""
     rows = []
     for ev in prof.key_averages():
-        if ev.key in ("paged_sample_step", "paged_mixed_step",
-                      "expert_products") \
-                or ev.key.startswith("aten::") \
-                or "cuda" not in str(getattr(ev, "device_type", "")).lower():
+        if not _card_work(ev):
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
@@ -1658,6 +1692,74 @@ def kernel_rows(prof) -> list:
             rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     return rows
+
+
+def busy_us(spans) -> float:
+    """The length of the union of (start, end) intervals: the card's busy
+    time, each overlap counted once."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+PROFILE_TRIES = 2   # profiles ``profiled_kernel_ms`` takes at most
+# a device sleep (~20 ms) at each end of a profile: late in a long run the
+# profiler has dropped the first or last 6-8 kernels of a window
+PAD_CYCLES = 40_000_000
+
+
+def profiled_kernel_ms(fn, n: int):
+    """``fn`` called ``n`` times under ``torch.profiler``, each call ending
+    in a sync. Returns a dict a call: ``busy_ms`` (the union of the card's
+    kernel intervals: GAR's second launch starts under its first by
+    programmatic dependent launch, so the sum of kernel times counts the
+    overlap twice), ``sum_ms``, ``launches``, ``wall_ms`` (the host's clock
+    over the synced window), ``rows`` (``kernel_rows``) and ``tries``; or,
+    where no profile passes the checks, a string that says why. The
+    checks: the GAR kernels in the profile number the ``gar_matmul``
+    wrapper's launches in the window, and the busy time is at most the
+    window's wall time. A device sleep pads each end of the window,
+    outside the calls; up to ``PROFILE_TRIES`` profiles are taken (each
+    ``n`` more calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import gar_matmul
+    why = []
+    for tries in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(PAD_CYCLES)
+            torch.cuda.synchronize()
+            before = gar_matmul.launches
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launched = gar_matmul.launches - before
+            torch.cuda._sleep(PAD_CYCLES)
+            torch.cuda.synchronize()
+        work = [ev for ev in prof.events()
+                if _card_work(ev) and "spin_kernel" not in ev.key]
+        gar_seen = sum(1 for ev in work if "gar_stage" in ev.key)
+        busy = busy_us((ev.time_range.start, ev.time_range.end)
+                       for ev in work) / 1e3
+        if gar_seen != launched:
+            why.append(f"{gar_seen} GAR kernels of {launched} launched")
+        elif busy > wall:
+            why.append(f"{busy:.3f} ms busy in {wall:.3f} ms of wall time")
+        else:
+            return {"busy_ms": busy / n,
+                    "sum_ms": sum(ev.time_range.elapsed_us() for ev in work)
+                    / (1e3 * n),
+                    "launches": len(work) / n, "wall_ms": wall / n,
+                    "rows": [r for r in kernel_rows(prof)
+                             if "spin_kernel" not in r[2]],
+                    "tries": tries}
+    return f"not measured ({'; '.join(why)} in {PROFILE_TRIES} profiles)"
 
 
 def profile_main_path(engine, reqs) -> None:
@@ -1748,8 +1850,9 @@ def train_phase(cfg, dense, steps: int, kernels):
 
 def cut_depth(tree, cfg, small):
     """The first layers of every segment of ``tree`` (params of ``cfg``)
-    that ``small`` keeps: ``count`` of a segment, and ``mamba_per_unit``
-    of a zamba unit's mamba stack."""
+    that ``small`` keeps: ``count`` of a segment, ``mamba_per_unit`` of a
+    zamba unit's mamba stack and ``self_per_unit`` of a vision unit's self
+    blocks."""
     from repro_torch.models import common as cm
     segs = []
     for seg, keep, p in zip(cfg.segments, small.segments, tree["segments"]):
@@ -1757,6 +1860,9 @@ def cut_depth(tree, cfg, small):
         if seg.kind == "zamba_unit":
             p["mambas"] = cm.tree_map(lambda a: a[:, :keep.mamba_per_unit],
                                       p["mambas"])
+        if seg.kind == "vision_unit":
+            p["selfs"] = cm.tree_map(lambda a: a[:, :keep.self_per_unit],
+                                     p["selfs"])
         segs.append(p)
     return dict(tree, segments=segs)
 
@@ -1969,14 +2075,14 @@ def parted_at_near_tie(label, a, b, gaps_a) -> int:
 
 
 def drain_phase(label, cfg, res, small, dev, rng, report, smi):
-    """Phase 13 (a)/(b) and the serving of phase 15: serve ``res`` (a
+    """Phase 13 (a)/(b) and the serving of phases 15-17: serve ``res`` (a
     training phase's consolidated factors, table and infos, or the serving
     launcher's state) at full width through ``ElasticEngine.generate``
-    with ``mode="auto"``, which must route the recurrent or MLA family to
-    drain; the GAR rows of the family's new shapes;
+    with ``mode="auto"``, which must route the recurrent, MLA, audio or
+    vision family to drain; the GAR rows of the family's new shapes;
     the decode-vs-forward check on the card; one greedy request card vs
     CPU on the cut ``small``. Returns (launches by kernel, worst GAR
-    error)."""
+    error, the deployed rows: row -> params)."""
     from repro_torch.kernels import gar_matmul, sampling
     from repro_torch.models import common as cm
     from repro_torch.models import transformer as tfm
@@ -2051,19 +2157,20 @@ def drain_phase(label, cfg, res, small, dev, rng, report, smi):
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t1) * 1e3)
             tok = torch.argmax(logits[:, 0], -1).to(torch.int32)[:, None]
-        # the card's own time for a step: its kernels' device time under
+        # the card's own time for a step: its kernels' busy time under
         # torch.profiler (a step queues some thousand launches, more than
         # the launch queue holds, so events behind a device sleep would
         # time the host's enqueue instead)
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
-                tfm.decode_step(deployed[rows[0]], cfg, state, tok)
-                torch.cuda.synchronize()
-        krows = kernel_rows(prof)
-        step_dev = sum(r[0] for r in krows) / 4e3
-        step_launches = sum(r[1] for r in krows) / 4
+        prof = profiled_kernel_ms(
+            lambda: tfm.decode_step(deployed[rows[0]], cfg, state, tok), 4)
+    step_host = statistics.median(step_ms)
+    step_kernels = prof if isinstance(prof, str) else (
+        f"{prof['busy_ms']:.3f} ms of kernel busy time (kernel sum "
+        f"{prof['sum_ms']:.3f} ms; profile {prof['tries']} of "
+        f"{PROFILE_TRIES}) in {prof['launches']:.0f} launches (busy "
+        f"{100 * prof['busy_ms'] / step_host:.1f}%; most: "
+        + ", ".join(f"{k[:40]} {us / 4e3:.3f} ms"
+                    for us, _, k in prof["rows"][:3]) + ")")
     log(f"# drain {label}: {len(reqs)} requests (prompts "
         f"{min(len(r.prompt) for r in reqs)}-"
         f"{max(len(r.prompt) for r in reqs)}, {DRAIN_NEW} new each, budgets "
@@ -2072,12 +2179,8 @@ def drain_phase(label, cfg, res, small, dev, rng, report, smi):
         f"{s['ttft_mean_s'] * 1e3:.1f} ms, {s['decode_steps']:.0f} decode "
         f"steps; prefill at B={len(batch)} x {padded.shape[1]} "
         f"{prefill_ms:.2f} ms; decode_step at B={len(batch)} median "
-        f"{statistics.median(step_ms):.2f} ms on the host's clock, "
-        f"{step_dev:.3f} ms of kernel time in {step_launches:.0f} launches "
-        f"(busy {100 * step_dev / statistics.median(step_ms):.1f}%; most: "
-        + ", ".join(f"{k[:40]} {us / 4e3:.3f} ms" for us, _, k in krows[:3])
-        + f"); peak device memory "
-        f"{peak:.2f} GB; {smi}")
+        f"{step_host:.2f} ms on the host's clock, {step_kernels}; peak "
+        f"device memory {peak:.2f} GB; {smi}")
     log(f"# drain {label}: launches {json.dumps(counts)}; every prefill, "
         "decode step and draw queued under the sync debug mode \"error\"")
 
@@ -2085,15 +2188,41 @@ def drain_phase(label, cfg, res, small, dev, rng, report, smi):
     # leaf path, index of the leaf's first layer, token counts)
     gar_shapes = []
     with torch.no_grad():
-        layer = engine._realize(0)["segments"][0]
-    picks = {"rwkv": [("rwkv6 channel/k", "channel/k", (0,), (1024,))],
-             "zamba_unit": [("zamba2 in_proj", "mambas/mamba/in_proj",
-                             (0, 0), (8, 1024))],
+        tree = engine._realize(0)
+    picks = {"rwkv": [("rwkv6 channel/k", "segments/0/channel/k", (0,),
+                       (1024,))],
+             "zamba_unit": [("zamba2 in_proj",
+                             "segments/0/mambas/mamba/in_proj", (0, 0),
+                             (8, 1024))],
              # MLA (minicpm3): a decode batch of 4 and a 4 x 128 prefill
-             "attn": [("minicpm3 attn/q_up", "attn/q_up", (0,), (8, 512)),
-                      ("minicpm3 mlp/gate", "mlp/gate", (0,), (8, 512))]}
+             "attn": [("minicpm3 attn/q_up", "segments/0/attn/q_up", (0,),
+                       (8, 512)),
+                      ("minicpm3 mlp/gate", "segments/0/mlp/gate", (0,),
+                       (8, 512))],
+             # the drain batches (decode and prefill) of the audio and
+             # vision families, then the multimodal check's: 4 x 1024
+             # audio frames through the encoder, frontend_proj and the
+             # cross K/V; 4 x 1601 image patches through frontend_proj and
+             # the cross K/V
+             "encoder": [("seamless decoder mlp/gate",
+                          "segments/1/mlp/gate", (0,), (8, 512)),
+                         ("seamless frontend_proj", "frontend_proj", (),
+                          (4096,)),
+                         ("seamless encoder attn/q", "segments/0/attn/q",
+                          (0,), (4096,)),
+                         ("seamless encoder mlp/gate", "segments/0/mlp/gate",
+                          (0,), (4096,)),
+                         ("seamless cross attn/k",
+                          "segments/1/cross/attn/k", (0,), (4096,))],
+             "vision_unit": [("vision selfs mlp/gate",
+                              "segments/0/selfs/mlp/gate", (0, 0),
+                              (8, 512)),
+                             ("vision frontend_proj", "frontend_proj", (),
+                              (6404,)),
+                             ("vision cross attn/k",
+                              "segments/0/cross/attn/k", (0,), (6404,))]}
     for what, path, at, ts in picks[cfg.segments[0].kind]:
-        leaf = cm.tree_get(layer, path)
+        leaf = cm.tree_get(tree, path)
         vt, uh, pi = (leaf[k][at] for k in ("v_tilde", "u_hat", "perm_inv"))
         n, r = vt.shape
         for t in ts:
@@ -2151,8 +2280,8 @@ def drain_phase(label, cfg, res, small, dev, rng, report, smi):
     if not rel <= TOL_DRAIN_FORWARD:
         fail(f"{label}: card vs CPU logits rel {rel:.3e}")
     log(f"# drain {label}: {time.perf_counter() - t_phase:.1f} s in all")
-    del engine, deployed, params
-    return counts, gar_err
+    del engine, params
+    return counts, gar_err, deployed
 
 
 def drain_gpt2(engine, reqs, phase3, dev):
@@ -2598,14 +2727,329 @@ def mla_phase(dev, report, smi):
     counts, gar_err = drain_phase(
         "minicpm3-4b", cfg, SimpleNamespace(params=params_fact, table=table,
                                             infos=infos),
-        small, dev, np.random.default_rng(15), report, smi)
+        small, dev, np.random.default_rng(15), report, smi)[:2]
     log(f"# minicpm3: {time.perf_counter() - t_phase:.1f} s in all")
+    return counts, gar_err
+
+
+# ------------------------------------------------------ audio and vision
+
+MM_BATCH, MM_PROMPT, MM_NEW = 4, 64, 16   # the multimodal check's shapes
+# host-clock samples of each timed call; the decode states keep spare
+# rows for them and for ``profiled_kernel_ms``'s calls (4 a profile)
+MM_HOST_REPS = 8
+MM_SPARE = MM_HOST_REPS + 4 * PROFILE_TRIES
+
+
+@contextlib.contextmanager
+def sync_error():
+    """The sync debug mode "error" on the card: a host synchronisation
+    inside raises."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def cross_sources(params, cfg, frontend):
+    """(the per-step source of way (ii), the projected source that
+    ``attach_cross_kv`` takes in way (iii)): audio the encoder's output
+    for both; vision the raw patches, and ``frontend_proj`` of them."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    if cfg.family == "audio":
+        enc = tfm.run_encoder(params, cfg, frontend)
+        return enc, enc
+    return frontend, cm.linear(params["frontend_proj"], frontend)
+
+
+def multimodal_ways(params, cfg, prompt, frontend, dev):
+    """``MM_NEW`` greedy tokens three ways: (i) ``forward(frontend=)``
+    over the whole sequence (prompt and (ii)'s tokens), (ii) ``prefill``
+    then ``decode_step`` with the source every step, (iii)
+    ``attach_cross_kv`` once, then one token a step from the first prompt
+    token. Every prefill, decode step and attach of (ii) and (iii) runs
+    under the sync debug mode "error" on the card. Returns (tokens (ii),
+    tokens (iii), logits (ii), (iii) and (i), each (B, MM_NEW, V), the
+    states of (ii) and (iii) with room for ``MM_SPARE`` more steps, the
+    sources)."""
+    from repro_torch.models import transformer as tfm
+    b, p = prompt.shape
+    cuda = prompt.is_cuda
+    guard = sync_error if cuda else contextlib.nullcontext
+    room = p + MM_NEW + MM_SPARE
+
+    def greedy(logits):
+        return torch.argmax(logits, -1).to(torch.int32)[:, None]
+
+    with guard():
+        step_src, proj_src = cross_sources(params, cfg, frontend)
+        st2 = tfm.init_decode_state(cfg, b, room, dtype=torch.float32,
+                                    device=dev)
+        logits, st2 = tfm.prefill(params, cfg, st2, prompt,
+                                  kv_source=step_src)
+        rows2, toks2 = [logits[:, -1]], [greedy(logits[:, -1])]
+        for _ in range(MM_NEW - 1):
+            logits, st2 = tfm.decode_step(params, cfg, st2, toks2[-1],
+                                          kv_source=step_src)
+            rows2.append(logits[:, 0])
+            toks2.append(greedy(logits[:, 0]))
+        st3 = tfm.init_decode_state(
+            cfg, b, room, dtype=torch.float32, device=dev,
+            cross_kv_len=proj_src.shape[1])
+        st3 = tfm.attach_cross_kv(params, cfg, st3, proj_src)
+        for i in range(p):
+            logits, st3 = tfm.decode_step(params, cfg, st3,
+                                          prompt[:, i:i + 1])
+        rows3, toks3 = [logits[:, 0]], [greedy(logits[:, 0])]
+        for _ in range(MM_NEW - 1):
+            logits, st3 = tfm.decode_step(params, cfg, st3, toks3[-1])
+            rows3.append(logits[:, 0])
+            toks3.append(greedy(logits[:, 0]))
+    toks2, toks3 = torch.cat(toks2, 1), torch.cat(toks3, 1)
+    seq = torch.cat([prompt, toks2[:, :-1]], dim=1)
+    full, _ = tfm.forward(params, cfg, seq, frontend=frontend)
+    return (toks2, toks3, torch.stack(rows2, 1), torch.stack(rows3, 1),
+            full[:, p - 1:], st2, st3, step_src, proj_src)
+
+
+def _rel_to(a, b) -> float:
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def multimodal_check(label, cfg, deployed, small, dev, rng, smi):
+    """The multimodal check of phases 16-17 at rows 0 and the top one of
+    ``deployed``: ``multimodal_ways`` on a batch of ``MM_BATCH`` prompts
+    of ``MM_PROMPT`` tokens with the frontend drawn from ``rng`` (audio
+    frames (B, 1024, 1024), vision patches (B, 1601, 7680)): the streams
+    of (ii) and (iii) identical, their logits within TOL_DECODE of each
+    other, both within TOL_DRAIN_FORWARD of (i); then the frontend stage,
+    ``attach_cross_kv`` and a decode step of (ii) and of (iii) timed (host
+    clock; CUDA events or ``profiled_kernel_ms``); then the same check
+    card vs CPU on row 0 cut to ``small``, on the first request. Returns
+    the ``gar_matmul`` launches of the three ways on the card."""
+    from repro_torch.kernels import gar_matmul
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    t_phase = time.perf_counter()
+    frames = 1024 if cfg.family == "audio" else cfg.cross_attn_kv_len
+    prompt_np = rng.integers(0, cfg.vocab_size,
+                             (MM_BATCH, MM_PROMPT)).astype(np.int32)
+    front_np = rng.standard_normal(
+        (MM_BATCH, frames, cfg.frontend_dim)).astype(np.float32)
+    prompt = torch.as_tensor(prompt_np, device=dev)
+    frontend = torch.as_tensor(front_np, device=dev)
+    launches = 0
+    rows = sorted(deployed)
+    stage = "run_encoder" if cfg.family == "audio" else "frontend_proj"
+    for row in rows:
+        params = deployed[row]
+        gar_matmul.launches = 0
+        with torch.no_grad():
+            t2, t3, l2, l3, l1, st2, st3, step_src, proj_src = \
+                multimodal_ways(params, cfg, prompt, frontend, dev)
+        torch.cuda.synchronize()
+        launches += gar_matmul.launches
+        same = torch.equal(t2, t3)
+        if not same:
+            k = int((t2 != t3).any(0).nonzero()[0])
+            top = torch.topk(l2[:, k].float(), 2, dim=-1).values
+            gap = float((top[:, 0] - top[:, 1]).min()) / float(
+                l2[:, k].abs().max())
+            fail(f"{label} multimodal row {row}: streams (ii) and (iii) "
+                 f"part at step {k} (smallest top-2 gap {gap:.3e})")
+        r23, r21, r31 = _rel_to(l3, l2), _rel_to(l2, l1), _rel_to(l3, l1)
+        bits = torch.equal(l2, l3)
+        log(f"# {label} multimodal row {row}: B={MM_BATCH}, "
+            f"{MM_PROMPT}-token prompts, {MM_NEW} greedy tokens, frontend "
+            f"{tuple(front_np.shape)}: streams (ii) and (iii) identical; "
+            f"logits (iii) vs (ii) rel {r23:.2e} (tolerance {TOL_DECODE}; "
+            f"{'bit-identical' if bits else 'not bit-identical'}), (ii) vs "
+            f"forward (i) {r21:.2e}, (iii) vs (i) {r31:.2e} (tolerance "
+            f"{TOL_DRAIN_FORWARD}); gar_matmul launches "
+            f"{gar_matmul.launches}; every prefill, decode step and attach "
+            "queued under the sync debug mode \"error\"")
+        if not (r23 <= TOL_DECODE and r21 <= TOL_DRAIN_FORWARD
+                and r31 <= TOL_DRAIN_FORWARD
+                and bool(torch.isfinite(l2).all())):
+            fail(f"{label} multimodal row {row}: logits (iii)/(ii) {r23:.3e},"
+                 f" (ii)/(i) {r21:.3e}, (iii)/(i) {r31:.3e}")
+
+        # time the frontend stage, the attach and a decode step each way
+        def host_ms(fns, n):
+            """Host ms of each of ``fns``, ``n`` calls each, in turns (a b,
+            b a, ...) so that the host's drift falls on all: (median,
+            least, most) of each."""
+            out = [[] for _ in fns]
+            for rep in range(n):
+                for i in (range(len(fns)) if rep % 2 == 0
+                          else reversed(range(len(fns)))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fns[i]()
+                    torch.cuda.synchronize()
+                    out[i].append((time.perf_counter() - t0) * 1e3)
+            return [(statistics.median(o), min(o), max(o)) for o in out]
+
+        def event_ms(fn, n=3):
+            """Device ms a call by CUDA events around ``n`` calls: the
+            card's time where the call is device-bound."""
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(n):
+                fn()
+            ev[1].record()
+            ev[1].synchronize()
+            return ev[0].elapsed_time(ev[1]) / n
+
+        tok = t2[:, -1:].contiguous()
+        with torch.no_grad():
+            stage_fn = (lambda: tfm.run_encoder(params, cfg, frontend)) \
+                if cfg.family == "audio" else \
+                (lambda: cm.linear(params["frontend_proj"], frontend))
+            attach_fn = lambda: tfm.attach_cross_kv(params, cfg, st3,
+                                                    proj_src)
+            states = {"(ii)": [st2], "(iii)": [st3]}
+
+            def step(way):
+                # each call takes the next of the state's spare rows
+                src = step_src if way == "(ii)" else None
+                states[way][0] = tfm.decode_step(
+                    params, cfg, states[way][0], tok, kv_source=src)[1]
+            fns = {stage: stage_fn, "attach_cross_kv": attach_fn,
+                   "decode step (ii)": lambda: step("(ii)"),
+                   "decode step (iii)": lambda: step("(iii)")}
+            host = dict(zip(fns, host_ms(list(fns.values()), MM_HOST_REPS)))
+            # the frontend stage and the attach are device-bound: CUDA
+            # events time them; a decode step is host-bound: its kernels'
+            # busy time comes from the profiler, where its readings pass
+            # ``profiled_kernel_ms``'s checks
+            dev_t = {k: event_ms(fns[k]) for k in (stage, "attach_cross_kv")}
+            prof = {k: profiled_kernel_ms(fns[k], 4)
+                    for k in ("decode step (ii)", "decode step (iii)")}
+
+        def timed(k):
+            h = host[k]
+            out = (f"{k} {h[0]:.2f} ms on the host's clock ({h[1]:.2f}-"
+                   f"{h[2]:.2f} over {MM_HOST_REPS}), ")
+            if k in dev_t:
+                return out + f"{dev_t[k]:.3f} ms of device time by CUDA events"
+            pk = prof[k]
+            if isinstance(pk, str):
+                return out + f"kernel time {pk}"
+            return out + (f"{pk['busy_ms']:.3f} ms of kernel busy time "
+                          f"(kernel sum {pk['sum_ms']:.3f} ms, synced wall "
+                          f"{pk['wall_ms']:.3f} ms; profile {pk['tries']} of "
+                          f"{PROFILE_TRIES}) in {pk['launches']:.0f} "
+                          "launches")
+        ker = [prof[k] for k in ("decode step (ii)", "decode step (iii)")]
+        ker_ratio = ("not measured" if any(isinstance(x, str) for x in ker)
+                     else f"{ker[0]['busy_ms'] / ker[1]['busy_ms']:.2f}x")
+        h2, h3 = host["decode step (ii)"], host["decode step (iii)"]
+        log(f"# {label} timing row {row} (B={MM_BATCH}): "
+            + "; ".join(timed(k) for k in fns)
+            + "; decode step (ii) / (iii), the source every step against "
+            f"the cached cross K/V: {h2[0] / h3[0]:.2f}x on the host's clock "
+            f"(medians; {h2[1] / h3[2]:.2f}-{h2[2] / h3[1]:.2f} between the "
+            f"extremes), {ker_ratio} in kernel busy time; {smi}")
+        del st2, st3, step_src, proj_src
+
+    # card vs CPU, row 0 cut to ``small``, the first request
+    p_small = cut_depth(deployed[rows[0]], cfg, small)
+    with torch.no_grad():
+        gpu = multimodal_ways(p_small, small, prompt[:1], frontend[:1], dev)
+        t0 = time.perf_counter()
+        cpu = multimodal_ways(cm.tree_map(lambda t: t.cpu(), p_small), small,
+                              prompt[:1].cpu(), frontend[:1].cpu(),
+                              torch.device("cpu"))
+        secs = time.perf_counter() - t0
+    toks_g, toks_c = gpu[0][0].tolist(), cpu[0][0].tolist()
+    if not (torch.equal(cpu[0], cpu[1]) and torch.equal(gpu[0], gpu[1])):
+        fail(f"{label} multimodal cut: streams (ii) and (iii) differ")
+    l2g = gpu[2][0]
+    gaps = [float(g) for g in (torch.topk(l2g.float(), 2, -1).values.diff(
+        dim=-1).abs()[:, 0] / l2g.abs().max())]
+    part = parted_at_near_tie(f"{label} multimodal card vs CPU", toks_g,
+                              toks_c, gaps)
+    upto = part + 1 if part >= 0 else MM_NEW
+    rel = max(_rel_to(g[0, :upto].cpu(), c[0, :upto])
+              for g, c in zip(gpu[2:5], cpu[2:5]))
+    cut = ", ".join(f"{g.kind} x{g.count}" + (
+        f" ({g.self_per_unit} self)" if g.kind == "vision_unit" else "")
+        for g in small.segments)
+    log(f"# {label} multimodal card vs CPU on row {rows[0]} cut to [{cut}], "
+        f"B=1: tokens card {toks_g}, CPU {toks_c}; logits of (ii), (iii) "
+        f"and (i) over {upto} steps worst rel {rel:.2e} (tolerance "
+        f"{TOL_DRAIN_FORWARD}); {secs:.1f} s on the CPU")
+    if not rel <= TOL_DRAIN_FORWARD:
+        fail(f"{label} multimodal card vs CPU logits rel {rel:.3e}")
+    log(f"# {label} multimodal: {time.perf_counter() - t_phase:.1f} s in all")
+    return launches
+
+
+def cross_phase(arch, cfg, small, dev, rng, report, smi):
+    """Phases 16 (seamless-m4t-medium) and 17 (llama-3.2-vision-11b): the
+    serving launcher's state for ``cfg`` (dense init, text-only
+    calibration, DataSVD, DP; the groups left to plain SVD logged), every
+    cross block's ``gate`` then drawn from U(0.5, 1.5) (at its zero init
+    the cross-attention would not show); ``drain_phase`` (``generate(
+    mode="auto")`` must route the family to drain); ``multimodal_check``
+    on the deployed rows. Returns (launches by kernel, worst GAR error)."""
+    from types import SimpleNamespace
+    from repro_torch.launch.serve import serving_state
+    from repro_torch.launch.train import dense_init
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    t_phase = time.perf_counter()
+    n = cm.param_count(tfm.model_spec(cfg))
+    log(f"# {arch}: {_layer_count(cfg.segments)} layers "
+        f"({', '.join(f'{g.kind} x{g.count}' for g in cfg.segments)}): "
+        f"{n / 1e9:.3f} B dense parameters, {4 * n / 1e9:.2f} GB in "
+        "float32")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = dense_init(cfg, 0, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    setup = {}
+    params_fact, table, infos = serving_state(cfg, dense, 0, timings=setup)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"# {arch} setup: dense init {t_init:.2f} s, calibrate "
+        f"{setup['calibrate']:.2f} s (text only), decompose "
+        f"{setup['decompose']:.2f} s (DataSVD; {setup['plain_svd']} of "
+        f"{len(infos)} groups plain SVD, no moment), DP "
+        f"{setup['dp']:.2f} s ({table.table.shape[0]} rows); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB building "
+        "the state")
+    for i, seg in enumerate(cfg.segments):
+        if seg.kind in ("decoder", "vision_unit"):
+            g = params_fact["segments"][i]["cross"]
+            g["gate"] = torch.as_tensor(rng.uniform(
+                0.5, 1.5, tuple(g["gate"].shape)).astype(np.float32),
+                device=dev)
+    counts, gar_err, deployed = drain_phase(
+        arch, cfg, SimpleNamespace(params=params_fact, table=table,
+                                   infos=infos),
+        small, dev, rng, report, smi)
+    del params_fact
+    counts["gar_matmul"] += multimodal_check(arch, cfg, deployed, small, dev,
+                                             rng, smi)
+    log(f"# {arch}: {time.perf_counter() - t_phase:.1f} s in all")
+    del deployed
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts, gar_err
 
 
 def _layer_count(segments) -> int:
     return sum(s.count * (s.mamba_per_unit + 1 if s.kind == "zamba_unit"
-                          else 1) for s in segments)
+                          else s.self_per_unit + 1
+                          if s.kind == "vision_unit" else 1)
+               for s in segments)
 
 
 def main() -> int:
@@ -2626,6 +3070,7 @@ def main() -> int:
     from repro_torch.models import common as cm
     from repro_torch.serving import ElasticEngine, Request, SamplingParams
 
+    t_smoke = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2635,6 +3080,15 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"# device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; {smi}")
+    mark = [t_smoke]
+
+    def phase_done(label):
+        """Log the seconds since the last phase ended: each phase's share
+        of the smoke's time limit."""
+        now = time.perf_counter()
+        log(f"# phase {label}: {now - mark[0]:.1f} s (at "
+            f"{now - t_smoke:.1f} s)")
+        mark[0] = now
 
     # 1. build
     t0 = time.perf_counter()
@@ -2665,6 +3119,8 @@ def main() -> int:
         f"{table.table.shape[1]} groups), deploy "
         + ", ".join(f"row {r} (budget {b}) {engine.deploy_seconds[r]:.2f} s"
                     for b, r in zip(budgets, rows)))
+
+    phase_done("1 build and setup")
 
     # 2. kernels
     rng = np.random.default_rng(0)
@@ -2805,8 +3261,18 @@ def main() -> int:
         ("deepseek S=8 V=102400", 8, 102400, False),
         ("minicpm3 S=8 V=73448", 8, 73448, False),
         ("minicpm3 S=4 V=73448", 4, 73448, False)], srng, report))
+    # seamless-m4t-medium's and llama-3.2-vision-11b's vocabularies
+    # (phases 16-17, drain batches of 4 and 8), from their own generator
+    samp_err = max(samp_err, check_sampling(dev, [
+        ("seamless S=8 V=256206", 8, 256206, False),
+        ("seamless S=4 V=256206", 4, 256206, False),
+        ("vision S=8 V=128256", 8, 128256, False),
+        ("vision S=4 V=128256", 4, 128256, False)],
+        np.random.default_rng(23), report))
     for e in report:
         log(kernel_line(e))
+
+    phase_done("2 kernels")
 
     # 3. serving path
     prng = np.random.default_rng(1)
@@ -2875,6 +3341,8 @@ def main() -> int:
     # rows 0 and the top one stay deployed for phase 9
     gpt2_rows = {0: engine._realize(0), last: engine._realize(last)}
 
+    phase_done("3-4 serving, card vs CPU")
+
     # 5. training path, 6. one training step card vs CPU
     profiling = "--profile" in sys.argv[1:]
     del deployed, params_fact
@@ -2886,6 +3354,8 @@ def main() -> int:
     del res, dense
     gc.collect()
     torch.cuda.empty_cache()
+
+    phase_done("5-6 training")
 
     # 7. rwkv6-3b, 8. zamba2-7b: full width, cut in depth; each then
     # served through drain from its trained state (13 (a), (b))
@@ -2899,7 +3369,7 @@ def main() -> int:
     drain_counts, err = drain_phase(
         "rwkv6-3b", rcfg, res, dataclasses.replace(
             rcfg, segments=(Segment("rwkv", 2),), num_layers=2),
-        dev, drng, report, smi)
+        dev, drng, report, smi)[:2]
     gar_err = max(gar_err, err)
     del res
     gc.collect()
@@ -2916,7 +3386,7 @@ def main() -> int:
     zd_counts, err = drain_phase(
         "zamba2-7b", zcfg, res, dataclasses.replace(
             zcfg, segments=small, num_layers=_layer_count(small)),
-        dev, drng, report, smi)
+        dev, drng, report, smi)[:2]
     gar_err = max(gar_err, err)
     for c in (drain_counts, zd_counts):
         counts["gar_matmul"] += c["gar_matmul"]
@@ -2933,6 +3403,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done("7-8 and 13 (a)-(b) rwkv6, zamba2")
+
     # 9. the pure-decode path on gpt2-small: 8 prompts of 90-159 tokens, 32
     # steps at rows 0 and 6, decode vs mixed
     prompts = [prng.integers(0, cfg.vocab_size, int(prng.integers(90, 160))
@@ -2947,6 +3419,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done("9 decode")
+
     # 10. gemma3-27b at full width, 6 of 62 layers
     gemma_counts, gemma_gar_err = gemma_phase(dev, rng, report, profiling)
     gar_err = max(gar_err, gemma_gar_err)
@@ -2960,6 +3434,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done("10 gemma3")
+
     # 11. speculative decoding of gpt2-small on phase 3's engine: the same
     # requests plain (again, beside the speculative run), then speculative
     plain, _, plain_s = serve_timed(engine, reqs)
@@ -2969,6 +3445,8 @@ def main() -> int:
     counts["paged_attention"] += spec_counts["paged_prefill_attention"]
     counts["sampling"] += spec_counts["topk_mask_sample"]
 
+    phase_done("11 speculative")
+
     # 12. the lookahead pipeline and the streaming front door on phase 3's
     # engine and requests
     stream_counts = stream_phase(engine, reqs, results, dev, 256)
@@ -2976,10 +3454,14 @@ def main() -> int:
     counts["paged_attention"] += stream_counts["paged_prefill_attention"]
     counts["sampling"] += stream_counts["topk_mask_sample"]
 
+    phase_done("12 stream")
+
     # 13 (c). gpt2-small through drain on phase 3's engine and requests
     gd_counts = drain_gpt2(engine, reqs, results, dev)
     counts["gar_matmul"] += gd_counts["gar_matmul"]
     counts["sampling"] += gd_counts["topk_mask_sample"]
+
+    phase_done("13 (c) drain gpt2")
 
     # 14. deepseek-moe-16b (3 of 28 layers) through the continuous engine
     # on phase 3's requests
@@ -2992,11 +3474,38 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done("14 deepseek-moe")
+
     # 15. minicpm3-4b (8 of 62 layers) through drain
     mla_counts, err = mla_phase(dev, report, smi)
     gar_err = max(gar_err, err)
     counts["gar_matmul"] += mla_counts["gar_matmul"]
     counts["sampling"] += mla_counts["topk_mask_sample"]
+
+    phase_done("15 minicpm3")
+
+    # 16. seamless-m4t-medium at full width and depth, 17.
+    # llama-3.2-vision-11b at full width, one unit: drain, then the
+    # multimodal check
+    full = get_config("seamless-m4t-medium")
+    vis = get_config("llama-3.2-vision-11b")
+    vis = dataclasses.replace(vis, segments=(Segment("vision_unit", 1),),
+                              num_layers=5)
+    cuts = {
+        "seamless-m4t-medium": (full, dataclasses.replace(
+            full, segments=(Segment("encoder", 1), Segment("decoder", 1)),
+            num_layers=1, encoder_layers=1)),
+        "llama-3.2-vision-11b": (vis, dataclasses.replace(
+            vis, segments=(Segment("vision_unit", 1, self_per_unit=1),),
+            num_layers=2))}
+    for i, (arch, (ccfg, csmall)) in enumerate(cuts.items()):
+        cross_counts, err = cross_phase(arch, ccfg, csmall, dev,
+                                        np.random.default_rng(16 + i),
+                                        report, smi)
+        gar_err = max(gar_err, err)
+        counts["gar_matmul"] += cross_counts["gar_matmul"]
+        counts["sampling"] += cross_counts["topk_mask_sample"]
+        phase_done(f"{16 + i} {arch}")
 
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {
@@ -3037,6 +3546,7 @@ def main() -> int:
                      "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                      "bound_by": e["bound_by"],
                      "library_ms": e["library_ms"], "shape": e["shape"]})
+    log(f"# smoke: {time.perf_counter() - t_smoke:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {

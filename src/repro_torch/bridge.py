@@ -117,8 +117,8 @@ def decode_state_to_torch(tree, device=None) -> dict:
     """The JAX package's contiguous decode state (``init_decode_state``,
     numpy or JAX leaves) -> the port's: ``pos`` and every attention cache's
     ``idx`` (an int32 array of one value per stacked block) become host
-    ints, the other leaves tensors on ``device`` (bfloat16 stays
-    bfloat16)."""
+    ints, ``None`` segments stay None, the other leaves (cross K/V among
+    them) become tensors on ``device`` (bfloat16 stays bfloat16)."""
     def conv(node, key=""):
         if isinstance(node, dict):
             return {k: conv(v, k) for k, v in node.items()}
@@ -138,8 +138,11 @@ def decode_state_to_torch(tree, device=None) -> dict:
 def decode_state_to_numpy(state) -> dict:
     """The port's decode state -> the reference's layout in numpy: ``pos``
     an int32 scalar array, each ``idx`` an int32 array of one value per
-    stacked block (the length of its ``k``, or of MLA's ``c_kv``), tensors
-    as numpy arrays (bfloat16 ones as float32, which numpy lacks)."""
+    stacked block (shaped like the lead dims of its ``k``, or of MLA's
+    ``c_kv``: (L,), or (U, self_per_unit) for a vision unit's self
+    blocks), ``None`` segments (an encoder's) kept, tensors (cross K/V
+    among them) as numpy arrays (bfloat16 ones as float32, which numpy
+    lacks)."""
     def conv(node):
         if isinstance(node, dict):
             out = {}
@@ -147,8 +150,11 @@ def decode_state_to_numpy(state) -> dict:
                 if k == "pos":
                     out[k] = np.asarray(v, np.int32)
                 elif k == "idx":
-                    blocks = node["k" if "k" in node else "c_kv"].shape[0]
-                    out[k] = np.full((blocks,), v, np.int32)
+                    # one value per stacked block: the lead dims of its
+                    # (.., B, T, Hkv, D) K or (.., B, T, r) latent
+                    c = node["k"] if "k" in node else node["c_kv"]
+                    lead = c.shape[:c.dim() - (4 if "k" in node else 3)]
+                    out[k] = np.full(tuple(lead), v, np.int32)
                 else:
                     out[k] = conv(v)
             return out

@@ -1,10 +1,11 @@
-"""Architecture registry over the configs ported so far."""
+"""Architecture registry: every config of the JAX package."""
 from typing import List
 
 from repro_torch.configs.base import (FlexRankConfig, ModelConfig, Segment)
 from repro_torch.configs import (deepseek_7b, deepseek_moe_16b, gemma3_27b,
                                  gpt2_small, llama4_scout_17b_a16e,
-                                 minicpm3_4b, rwkv6_3b, stablelm_1_6b,
+                                 llama_3_2_vision_11b, minicpm3_4b, rwkv6_3b,
+                                 seamless_m4t_medium, stablelm_1_6b,
                                  zamba2_7b)
 
 _MODULES = {
@@ -12,9 +13,11 @@ _MODULES = {
     "deepseek-moe-16b": deepseek_moe_16b,
     "gemma3-27b": gemma3_27b,
     "gpt2-small": gpt2_small,
+    "llama-3.2-vision-11b": llama_3_2_vision_11b,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
     "minicpm3-4b": minicpm3_4b,
     "rwkv6-3b": rwkv6_3b,
+    "seamless-m4t-medium": seamless_m4t_medium,
     "stablelm-1.6b": stablelm_1_6b,
     "zamba2-7b": zamba2_7b,
 }
@@ -22,7 +25,7 @@ _MODULES = {
 
 def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; ported so far: "
+        raise KeyError(f"unknown arch {name!r}; known: "
                        f"{sorted(_MODULES)}")
     return _MODULES[name].SMOKE if smoke else _MODULES[name].CONFIG
 

@@ -93,19 +93,42 @@ def _lead_indices(lead: Tuple[int, ...]):
 
 
 def collect_moments(params: PyTree, cfg: ModelConfig,
-                    batches: Sequence[Dict]) -> Dict[str, list]:
+                    batches: Sequence[Dict], *,
+                    frontend_fn: Optional[Callable] = None
+                    ) -> Dict[str, list]:
     """Calibration pass: the forward over each batch's inputs with the taps
     on; returns ``{tap_key: [moment, count]}``, the moments float32 on the
     parameters' device. Tap keys are parameter paths with the layer index
-    inside a segment marked "@l" ("segments/0/@3/attn/q")."""
+    inside a segment marked "@l" ("segments/0/@3/attn/q").
+
+    ``frontend_fn(batch)`` gives the batch's frontend embeddings (numpy or
+    a tensor) for the audio and vision families; without it (the
+    launchers) calibration is text-only: the encoder and the cross blocks
+    record no moment, and ``decompose`` gives their groups plain SVD.
+    ``frontend_proj`` records none either way, as in the reference."""
     store: Dict[str, list] = {}
     device = cm.tree_leaves(params)[0].device
     with torch.no_grad(), cm.tap_recording(store):
         for batch in batches:
             tokens = torch.as_tensor(np.asarray(batch["tokens"])[:, :-1],
                                      device=device)
-            tfm.forward(params, cfg, tokens)
+            frontend = None
+            if frontend_fn is not None:
+                frontend = frontend_fn(batch)
+                if not isinstance(frontend, torch.Tensor):
+                    frontend = torch.from_numpy(np.asarray(frontend))
+                frontend = frontend.to(device)
+            tfm.forward(params, cfg, tokens, frontend=frontend)
     return store
+
+
+def plain_svd_groups(cfg: ModelConfig, moments: Dict[str, list]
+                     ) -> List[str]:
+    """The factorized groups that no recorded moment covers: ``decompose``
+    gives them plain SVD (a text-only calibration's encoder, cross blocks
+    and ``frontend_proj``)."""
+    covered = set(_index_moments(moments))
+    return [i.path for i in group_infos(cfg) if i.path not in covered]
 
 
 _AT = re.compile(r"^@(\d+)$")

@@ -7,9 +7,11 @@ prefill fused into decode iterations with ``--prefill-chunk``; what
 ``auto`` picks for attention stacks, the MoE ones deepseek-moe-16b and
 llama4-scout-17b-a16e among them), or with the drain engine (``--engine
 drain``, and what ``auto`` picks for the recurrent families rwkv6-3b and
-zamba2-7b and for minicpm3-4b's MLA: static batches through the
+zamba2-7b, for minicpm3-4b's MLA and for the audio (seamless-m4t-medium)
+and vision (llama-3.2-vision-11b) families: static batches through the
 contiguous prefill/decode with carried recurrent states or MLA's latent
-cache). ``--spec-draft-rank`` turns
+cache; the requests are text only, so the audio encoder does not run and
+the cross blocks are skipped, as in the reference). ``--spec-draft-rank`` turns
 on nested self-speculative decoding (a low-rank prefix row drafts up to
 ``--spec-len`` tokens a round, the full row verifies them in one
 multi-token forward; with ``--temperature`` the rounds accept and resample
@@ -31,6 +33,8 @@ pipeline.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-moe-16b --smoke --device cpu --prefill-chunk 8
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-11b --smoke --device cpu
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead (use ``--smoke`` there). The flags are those of
@@ -55,10 +59,11 @@ from repro_torch.spec import SpecConfig
 
 
 def serving_state(cfg, dense_params, seed: int, *, timings=None):
-    """The launcher's FlexRank state: calibrate on the first batches of a
-    synthetic source of 4 x 65 tokens, DataSVD-decompose and DP-select, as
-    the JAX package's serving launcher does. Returns (factorized params,
-    table, infos); ``timings`` as for ``build_flexrank_state``."""
+    """The launcher's FlexRank state: calibrate (text only) on the first
+    batches of a synthetic source of 4 x 65 tokens, DataSVD-decompose and
+    DP-select, as the JAX package's serving launcher does. Returns
+    (factorized params, table, infos); ``timings`` as for
+    ``build_flexrank_state``."""
     source = make_source(cfg.vocab_size, 64, 4, seed=seed)
     return build_flexrank_state(cfg, dense_params, source, timings=timings)
 
@@ -129,7 +134,8 @@ def main(argv=None):
                          "drain = static batches through the contiguous "
                          "prefill/decode; auto = continuous where the "
                          "family allows it (attention stacks, MoE "
-                         "included), else drain (rwkv6, zamba2, MLA)")
+                         "included), else drain (rwkv6, zamba2, MLA, "
+                         "audio, vision)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--block-size", type=int, default=16)
@@ -197,7 +203,8 @@ def main(argv=None):
                                               timings=setup)
     print(f"# flexrank state: calibrate {setup['calibrate']:.2f} s, DataSVD "
           f"decompose {setup['decompose']:.2f} s, DP {setup['dp']:.2f} s "
-          f"({table.table.shape[0]} rows)", flush=True)
+          f"({table.table.shape[0]} rows; {setup['plain_svd']} of "
+          f"{len(infos)} groups plain SVD, no moment)", flush=True)
     del dense
     spec = (SpecConfig(draft_rank=args.spec_draft_rank,
                        spec_len=args.spec_len,

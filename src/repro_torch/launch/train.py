@@ -53,9 +53,13 @@ def _sync(device: torch.device) -> None:
 def build_flexrank_state(cfg, dense_params, source, *, calib_batches=8,
                          timings: Optional[Dict[str, float]] = None):
     """Paper Algorithm 1 stages 1-2: calibrate (the first ``calib_batches``
-    batches of ``source``), DataSVD-decompose, DP-select. Returns
-    (factorized params, table, infos); ``timings`` (if given) receives the
-    seconds of each stage, ``calibrate``, ``decompose`` and ``dp``."""
+    batches of ``source``, text only, as in the reference), DataSVD-
+    decompose, DP-select. Returns (factorized params, table, infos);
+    ``timings`` (if given) receives the seconds of each stage,
+    ``calibrate``, ``decompose`` and ``dp``, and ``plain_svd``, the number
+    of groups no moment covered, which took plain SVD (the encoder, the
+    cross blocks and ``frontend_proj`` of the audio and vision
+    families)."""
     device = cm.tree_leaves(dense_params)[0].device
     t = {}
     t0 = time.perf_counter()
@@ -63,6 +67,7 @@ def build_flexrank_state(cfg, dense_params, source, *, calib_batches=8,
                                  calibration_batches(source, calib_batches))
     _sync(device)
     t["calibrate"] = time.perf_counter() - t0
+    t["plain_svd"] = len(FR.plain_svd_groups(cfg, moments))
     t0 = time.perf_counter()
     fact_params, curves = FR.decompose(dense_params, cfg, moments)
     _sync(device)

@@ -1,7 +1,8 @@
-"""GQA self-attention (+RoPE, logit softcap) and FFN blocks: the paged
-serving forwards (decode and mixed), the contiguous train/prefill forward
-and the contiguous decode over a (B, T) K/V cache (exact query-chunked
-attention), spec/apply pairs driven by ``transformer``.
+"""GQA self-attention (+RoPE, logit softcap), cross-attention and FFN
+blocks: the paged serving forwards (decode and mixed), the contiguous
+train/prefill forward and the contiguous decode over a (B, T) K/V cache
+(exact query-chunked attention), cross-attention over a source or its
+cached K/V, spec/apply pairs driven by ``transformer``.
 
 Each projection names its activation tap ("q", "k", "v", "o", "gate",
 "up", "down") for the calibration pass."""
@@ -117,26 +118,50 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                static_kv=None, causal: bool = True,
                use_rope: bool = True
                ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Self-attention: project, attend, project out. x: (B, S, d);
-    positions: (S,).
+    """Self- or cross-attention: project, attend, project out. x: (B, S,
+    d); positions: (S,).
 
-    Without ``cache`` (train/prefill) the keys are the sequence itself;
-    returns (y, None). With ``cache`` = {'k', 'v': (B, T, Hkv, D), 'idx':
-    a host int} (the contiguous prefill/decode) the step's K/V are written
-    IN PLACE at rows ``idx .. idx + S - 1`` and the queries attend over all
-    T rows with key positions ``0 .. T - 1``: the causal mask hides the rows
-    not yet written, as in the reference. Returns (y, {'k', 'v', 'idx':
-    idx + S}). The cross-attention and ``static_kv`` branches raise until
-    the audio and vision families are ported (ROADMAP A.13, A.14)."""
-    if kv_source is not None or static_kv is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_source/static_kv) is not ported yet: "
-            "ROADMAP A.13 (seamless-m4t-medium), A.14 "
-            "(llama-3.2-vision-11b)")
+    Self-attention without ``cache`` (train/prefill) attends over the
+    sequence itself; returns (y, None). With ``cache`` = {'k', 'v': (B, T,
+    Hkv, D), 'idx': a host int} (the contiguous prefill/decode) the step's
+    K/V are written IN PLACE at rows ``idx .. idx + S - 1`` and the
+    queries attend over all T rows with key positions ``0 .. T - 1``: the
+    causal mask hides the rows not yet written, as in the reference.
+    Returns (y, {'k', 'v', 'idx': idx + S}).
+
+    Cross-attention: q from ``x`` (then ``q_norm``), k/v from
+    ``kv_source`` (B, T, d) (then ``k_norm`` on k), or ``static_kv``
+    = (k, v), each (B, T, Hkv, D), taken as they are (``compute_cross_kv``
+    made them); no RoPE. Against ``kv_source`` the keys sit at positions
+    ``0 .. T - 1``. Against ``static_kv`` the reference takes the key
+    positions from the queries, so its mask broadcasts only when S is 1 or
+    T; any other S raises ``ValueError`` here, as the reference does."""
     r = ranks or {}
-    q, k, v = project_qkv(p, x, cfg, ranks=r, positions=positions,
-                          rope=use_rope)
     b, s = x.shape[:2]
+    if kv_source is None and static_kv is None:
+        q, k, v = project_qkv(p, x, cfg, ranks=r, positions=positions,
+                              rope=use_rope)
+    else:
+        q = _split_heads(linear(p["q"], x, rank=r.get("q"), tap="q"),
+                         cfg.num_heads)
+        q = cm.rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
+        if static_kv is not None:
+            k, v = static_kv
+            if kv_source is None and s not in (1, k.shape[1]):
+                raise ValueError(
+                    f"cached cross K/V of {k.shape[1]} keys takes one query "
+                    f"token a call (or {k.shape[1]}), not {s}: the "
+                    "reference's key positions come from the queries there, "
+                    "and its mask does not broadcast")
+        else:
+            k = _split_heads(linear(p["k"], kv_source, rank=r.get("k"),
+                                    tap="k"), cfg.num_kv_heads)
+            v = _split_heads(linear(p["v"], kv_source, rank=r.get("v"),
+                                    tap="v"), cfg.num_kv_heads)
+            k = cm.rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+        if use_rope and kv_source is None:
+            q = cm.rope(q, positions, base=cfg.rope_base)
+            k = cm.rope(k, positions, base=cfg.rope_base)
     new_cache = None
     if cache is not None:
         idx = cache["idx"]
@@ -155,9 +180,20 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                              k_positions=k_positions, window=window,
                              softcap=cfg.attn_logit_softcap, causal=causal)
     else:
-        out = chunked_attend(q, k, v, q_positions=positions,
-                             k_positions=positions, window=window,
-                             softcap=cfg.attn_logit_softcap, causal=causal)
+        if kv_source is not None:
+            k_positions = torch.arange(kv_source.shape[1], device=x.device)
+        elif static_kv is not None:
+            # the reference takes the queries' positions here (S is 1 or
+            # T, checked above); with the cross block's non-causal global
+            # window either masks nothing, and so do T zeros
+            k_positions = torch.zeros(k.shape[1], dtype=positions.dtype,
+                                      device=x.device)
+        else:
+            k_positions = positions
+        out = chunked_attend(q, k.to(q.dtype), v, q_positions=positions,
+                             k_positions=k_positions, window=window,
+                             softcap=cfg.attn_logit_softcap,
+                             causal=causal and kv_source is None)
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return linear(p["o"], out, rank=r.get("o"), tap="o"), new_cache
 
@@ -257,3 +293,17 @@ def ffn_apply(p: Dict, x: torch.Tensor, *,
     up = linear(p["up"], x, rank=r.get("up"), tap="up")
     return linear(p["down"], cm.swiglu(gate, up), rank=r.get("down"),
                   tap="down")
+
+
+def compute_cross_kv(p: Dict, cfg: ModelConfig, kv_source: torch.Tensor, *,
+                     ranks: Optional[Dict] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention (k, v), each (B, T, Hkv, D), from the projected
+    source (B, T, d), once per request (the reference's "decode fast
+    path"): the k/v projections (no tap) and ``k_norm`` on k."""
+    r = ranks or {}
+    k = _split_heads(linear(p["k"], kv_source, rank=r.get("k")),
+                     cfg.num_kv_heads)
+    v = _split_heads(linear(p["v"], kv_source, rank=r.get("v")),
+                     cfg.num_kv_heads)
+    return cm.rms_norm(k, p["k_norm"], eps=cfg.norm_eps), v

@@ -5,12 +5,18 @@ blocks with stacked parameters (a leading layers axis). The JAX package
 scans a segment with ``lax.scan`` and unrolls it into a tap-scoped Python
 loop only for calibration; here a Python loop always walks its layers,
 each under ``tap_scope(f"@{l}")``, so the tap keys are the reference's.
-Ported segment kinds: self-attention stacks ('attn'/'attn_dense'; the
+Segment kinds: self-attention stacks ('attn'/'attn_dense'; the
 attention is MLA where the config has one, and an 'attn' block's FFN is
-an MoE where the config has one), 'rwkv', 'mamba', and 'zamba_unit' (a
+an MoE where the config has one), 'rwkv', 'mamba', 'zamba_unit' (a
 stack of mamba blocks, then the model's one *shared* attention block,
-then the unit's FFN); the audio and vision kinds raise, naming the
-ROADMAP item of their family.
+then the unit's FFN), 'encoder' (bidirectional attention blocks, run by
+``run_encoder`` over the frontend's frames), 'decoder' (a self-attention
+block, then a gated cross-attention block over the encoder's output) and
+'vision_unit' (``self_per_unit`` self-attention blocks, then a gated
+cross-attention block over the projected image patches). The cross
+blocks run only where a source or its cached K/V is given: without one
+(the serving engines' text-only requests) they are skipped, as in the
+reference.
 
 Ranks trees mirror the parameters (``{'segments': [{'attn': {'q': r,
 ...}, 'mlp': {...}}, ...], 'shared_attn': {...}}``) with one Python int
@@ -18,9 +24,13 @@ per factorized group, shared by the group's layers.
 
 Public API:
   model_spec(cfg)                                 -> ParamSpec tree
-  forward(params, cfg, tokens, ranks=)            -> (logits, aux)
-  init_decode_state(cfg, batch, max_len)          -> contiguous decode state
-  decode_step / prefill(params, cfg, state, tok)  -> (logits, state)
+  forward(params, cfg, tokens, ranks=, frontend=) -> (logits, aux)
+  run_encoder(params, cfg, frames, ranks=)        -> encoder output
+  init_decode_state(cfg, batch, max_len,
+                    cross_kv_len=)                -> contiguous decode state
+  attach_cross_kv(params, cfg, state, source)     -> state with cross K/V
+  decode_step / prefill(params, cfg, state, tok,
+                        kv_source=)               -> (logits, state)
   paged_decode_step(params, cfg, caches, tokens)  -> (logits, caches)
   paged_mixed_step(params, cfg, caches, tokens)   -> (logits, caches)
 """
@@ -58,28 +68,17 @@ def _mamba_block_spec(cfg: ModelConfig) -> Dict:
     }
 
 
-# the segment kinds not ported yet, and the ROADMAP item of each
-_UNPORTED = {
-    "encoder": "the audio encoder-decoder family (seamless-m4t-medium): "
-               "ROADMAP A.13",
-    "decoder": "the audio encoder-decoder family (seamless-m4t-medium): "
-               "ROADMAP A.13",
-    "vision_unit": "the vision family (llama-3.2-vision-11b): ROADMAP A.14",
-}
-
-
-def _check_ported(cfg: ModelConfig, seg: Segment) -> None:
-    """Raise for a segment kind not ported yet, naming its family's
-    ROADMAP item."""
-    if seg.kind in ("attn", "attn_dense", "rwkv", "mamba", "zamba_unit"):
-        return
-    raise NotImplementedError(
-        f"segment kind {seg.kind!r} of {cfg.name} is not ported yet: "
-        + _UNPORTED.get(seg.kind, "unknown segment kind"))
+def _cross_block_spec(cfg: ModelConfig) -> Dict:
+    return {
+        "ln_attn": ParamSpec((cfg.d_model,), (None,), "zeros"),
+        "ln_mlp": ParamSpec((cfg.d_model,), (None,), "zeros"),
+        "gate": ParamSpec((1,), (None,), "zeros"),      # tanh-gated residual
+        "attn": attn.attn_spec(cfg),
+        "mlp": attn.ffn_spec(cfg),
+    }
 
 
 def segment_spec(cfg: ModelConfig, seg: Segment) -> Dict:
-    _check_ported(cfg, seg)
     if seg.kind == "attn":
         return cm.stack_spec(_attn_block_spec(cfg, moe=cfg.moe is not None),
                              seg.count)
@@ -94,13 +93,27 @@ def segment_spec(cfg: ModelConfig, seg: Segment) -> Dict:
         return cm.stack_spec(_mamba_block_spec(cfg), seg.count)
     if seg.kind == "rwkv":
         return cm.stack_spec(rwkv_mod.rwkv_spec(cfg), seg.count)
-    unit = {                                            # zamba_unit
-        "mambas": cm.stack_spec(_mamba_block_spec(cfg), seg.mamba_per_unit),
-        "ln_attn": ParamSpec((cfg.d_model,), (None,), "zeros"),
-        "ln_mlp": ParamSpec((cfg.d_model,), (None,), "zeros"),
-        "mlp": attn.ffn_spec(cfg),
-    }
-    return cm.stack_spec(unit, seg.count)
+    if seg.kind == "zamba_unit":
+        return cm.stack_spec({
+            "mambas": cm.stack_spec(_mamba_block_spec(cfg),
+                                    seg.mamba_per_unit),
+            "ln_attn": ParamSpec((cfg.d_model,), (None,), "zeros"),
+            "ln_mlp": ParamSpec((cfg.d_model,), (None,), "zeros"),
+            "mlp": attn.ffn_spec(cfg),
+        }, seg.count)
+    if seg.kind == "vision_unit":
+        return cm.stack_spec({
+            "selfs": cm.stack_spec(_attn_block_spec(cfg, moe=False),
+                                   seg.self_per_unit),
+            "cross": _cross_block_spec(cfg),
+        }, seg.count)
+    if seg.kind == "encoder":
+        return cm.stack_spec(_attn_block_spec(cfg, moe=False), seg.count)
+    if seg.kind == "decoder":
+        unit = _attn_block_spec(cfg, moe=False)
+        unit["cross"] = _cross_block_spec(cfg)
+        return cm.stack_spec(unit, seg.count)
+    raise ValueError(f"unknown segment kind {seg.kind}")
 
 
 def model_spec(cfg: ModelConfig) -> Dict:
@@ -120,9 +133,8 @@ def model_spec(cfg: ModelConfig) -> Dict:
             "attn": attn.attn_spec(cfg),
         }
     if cfg.frontend_dim:
-        raise NotImplementedError(
-            f"the frontend projection of {cfg.name} is not ported yet "
-            "(ROADMAP A.13 audio, A.14 vision)")
+        spec["frontend_proj"] = {"w": ParamSpec(
+            (cfg.frontend_dim, cfg.d_model), (None, cm.EMBED))}
     return spec
 
 
@@ -197,6 +209,42 @@ def _apply_attn_block(p, x, cfg, *, positions, window, ranks, cache=None,
     return x + y, new_cache, aux
 
 
+def _apply_cross_block(p, x, cfg, *, kv_source, ranks, static_kv=None):
+    """rms_norm -> cross-attention over ``kv_source`` (or the cached
+    ``static_kv``), no RoPE, non-causal -> residual through ``tanh(gate)``
+    -> rms_norm -> FFN -> residual. Taps under ``cross/attn`` and
+    ``cross/mlp``."""
+    h = cm.rms_norm(x, p["ln_attn"], eps=cfg.norm_eps)
+    positions = torch.arange(x.shape[1], device=x.device)
+    with cm.tap_scope("cross"), cm.tap_scope("attn"):
+        y, _ = attn.attn_apply(p["attn"], h, cfg, positions=positions,
+                               window=GLOBAL_WINDOW,
+                               ranks=rget_tree(ranks, "attn"),
+                               kv_source=kv_source, static_kv=static_kv,
+                               causal=False, use_rope=False)
+    x = x + torch.tanh(p["gate"].to(x.dtype)) * y
+    h = cm.rms_norm(x, p["ln_mlp"], eps=cfg.norm_eps)
+    with cm.tap_scope("cross"), cm.tap_scope("mlp"):
+        return x + attn.ffn_apply(p["mlp"], h, ranks=rget_tree(ranks, "mlp"))
+
+
+_CROSS_KEYS = ("cross_k", "cross_v")
+
+
+def _self_cache(cache: Dict, l: int) -> Dict:
+    """Layer ``l``'s self-attention cache out of a stacked attention cache
+    (its cross K/V left out), ``idx`` shared."""
+    return dict({k: t[l] for k, t in cache.items()
+                 if k != "idx" and k not in _CROSS_KEYS}, idx=cache["idx"])
+
+
+def _cross_kv(cache: Optional[Dict], l: int):
+    """Layer (or unit) ``l``'s cached cross (k, v), or None."""
+    if not isinstance(cache, dict) or "cross_k" not in cache:
+        return None
+    return cache["cross_k"][l], cache["cross_v"][l]
+
+
 def _apply_mamba_block(p, x, cfg, *, ranks, state=None):
     h = cm.rms_norm(x, p["ln"], eps=cfg.norm_eps)
     with cm.tap_scope("mamba"):
@@ -218,7 +266,8 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
                 ranks: Optional[Dict], layer_offset: int,
                 cache: Optional[Dict] = None,
                 shared_attn_params: Optional[Dict] = None,
-                shared_attn_ranks: Optional[Dict] = None):
+                shared_attn_ranks: Optional[Dict] = None,
+                kv_source: Optional[torch.Tensor] = None):
     """Walk one segment layer by layer. Returns (x, cache, aux), aux the
     sum of the segment's MoE aux losses (a float32 tensor; 0.0 without
     MoE).
@@ -235,24 +284,79 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
     keys with two layer indices, ``segments/i/@u/mambas/@m/...``), then the
     shared attention block under the absolute scope ``shared_attn/attn``
     (one moment per projection, summed over every unit; with a cache each
-    unit keeps its own K/V for the shared weights), then its FFN."""
-    _check_ported(cfg, seg)
+    unit keeps its own K/V for the shared weights), then its FFN.
+
+    An 'encoder' runs bidirectional blocks at the global window (no
+    cache). A 'decoder' layer and a 'vision_unit' (its self blocks under
+    ``tap_scope("selfs")``, ``segments/i/@u/selfs/@l/...``, at the global
+    window) end in the cross block, over ``kv_source`` or the layer's
+    (unit's) cached ``cross_k``/``cross_v``; with neither the cross block
+    is skipped."""
     s = x.shape[1]
-    if seg.kind in ("attn", "attn_dense"):
+    if seg.kind in ("attn", "attn_dense", "decoder"):
         windows = window_schedule(cfg, seg.count, layer_offset)
         moe = cfg.moe is not None and seg.kind == "attn"
         aux = 0.0
         for l in range(seg.count):
-            cache_l = None if cache is None else dict(
-                {k: t[l] for k, t in cache.items() if k != "idx"},
-                idx=cache["idx"])
+            cache_l = None if cache is None else _self_cache(cache, l)
+            p_l = _layer(params, l)
             with cm.tap_scope(f"@{l}"):
                 x, _, aux_l = _apply_attn_block(
-                    _layer(params, l), x, cfg, positions=positions,
-                    window=windows[l], ranks=ranks, cache=cache_l, moe=moe)
+                    p_l, x, cfg, positions=positions, window=windows[l],
+                    ranks=ranks, cache=cache_l, moe=moe)
+                skv = _cross_kv(cache, l)
+                if seg.kind == "decoder" and (kv_source is not None
+                                              or skv is not None):
+                    x = _apply_cross_block(p_l["cross"], x, cfg,
+                                           kv_source=kv_source,
+                                           ranks=rget_tree(ranks, "cross"),
+                                           static_kv=skv)
             aux = aux + aux_l
         return x, None if cache is None else dict(
             cache, idx=cache["idx"] + s), aux
+    if seg.kind == "encoder":
+        for l in range(seg.count):
+            p_l = _layer(params, l)
+            with cm.tap_scope(f"@{l}"):
+                h = cm.rms_norm(x, p_l["ln_attn"], eps=cfg.norm_eps)
+                with cm.tap_scope("attn"):
+                    y, _ = attn.attn_apply(
+                        p_l["attn"], h, cfg, positions=positions,
+                        window=GLOBAL_WINDOW,
+                        ranks=rget_tree(ranks, "attn"), causal=False)
+                x = x + y
+                h = cm.rms_norm(x, p_l["ln_mlp"], eps=cfg.norm_eps)
+                with cm.tap_scope("mlp"):
+                    x = x + attn.ffn_apply(p_l["mlp"], h,
+                                           ranks=rget_tree(ranks, "mlp"))
+        return x, cache, 0.0
+    if seg.kind == "vision_unit":
+        sranks = rget_tree(ranks, "selfs")
+        for u in range(seg.count):
+            p_u = _layer(params, u)
+            scache = None if cache is None else cache["selfs"]
+            with cm.tap_scope(f"@{u}"):
+                with cm.tap_scope("selfs"):
+                    for l in range(seg.self_per_unit):
+                        cache_l = None if scache is None else {
+                            "k": scache["k"][u, l], "v": scache["v"][u, l],
+                            "idx": scache["idx"]}
+                        with cm.tap_scope(f"@{l}"):
+                            x, _, _ = _apply_attn_block(
+                                _layer(p_u["selfs"], l), x, cfg,
+                                positions=positions, window=GLOBAL_WINDOW,
+                                ranks=sranks, cache=cache_l)
+                skv = _cross_kv(cache, u)
+                if kv_source is not None or skv is not None:
+                    x = _apply_cross_block(p_u["cross"], x, cfg,
+                                           kv_source=kv_source,
+                                           ranks=rget_tree(ranks, "cross"),
+                                           static_kv=skv)
+        if cache is None:
+            return x, None, 0.0
+        return x, dict(cache, selfs=dict(cache["selfs"],
+                                         idx=cache["selfs"]["idx"] + s)), \
+            0.0
     if seg.kind == "mamba":
         for l in range(seg.count):
             state_l = None if cache is None else _layer(cache, l)
@@ -271,7 +375,9 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
             if cache is not None:
                 _store(cache, l, new)
         return x, cache, 0.0
-    mranks = rget_tree(ranks, "mambas")                 # zamba_unit
+    if seg.kind != "zamba_unit":
+        raise ValueError(f"unknown segment kind {seg.kind}")
+    mranks = rget_tree(ranks, "mambas")
     for u in range(seg.count):
         p_u = _layer(params, u)
         mcache = None if cache is None else _layer(cache["mamba"], u)
@@ -308,28 +414,60 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
         0.0
 
 
+def run_encoder(params: Dict, cfg: ModelConfig, enc_input: torch.Tensor,
+                ranks: Optional[Dict] = None) -> torch.Tensor:
+    """The encoder side of an encoder-decoder model over the frontend's
+    frames (B, T, F): ``frontend_proj`` where F is ``frontend_dim`` (at
+    full rank under a ``ranks`` tree, as in the reference), the encoder
+    segments at positions ``0 .. T - 1``, then ``rms_norm`` with the
+    model's ``final_norm`` (the LM head's). T must fit one query chunk or
+    be a multiple of it (``attention.Q_CHUNK``)."""
+    x = enc_input
+    if cfg.frontend_dim and x.shape[-1] == cfg.frontend_dim:
+        x = cm.linear(params["frontend_proj"], x)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i, seg in enumerate(cfg.segments):
+        if seg.kind != "encoder":
+            continue
+        with cm.tap_scope(f"segments/{i}", absolute=True):
+            x, _, _ = run_segment(seg, params["segments"][i], x, cfg,
+                                  positions=positions,
+                                  ranks=_seg_ranks(ranks, i), layer_offset=0)
+    return cm.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+
+
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             ranks: Optional[Dict] = None,
+            frontend: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None):
     """Train/prefill forward. tokens: (B, S). Returns (logits (B, S, V),
     aux_loss), aux the float32 sum of every MoE layer's load-balancing
-    loss (zero without MoE). No frontend."""
-    if cfg.frontend_dim:
-        raise NotImplementedError(
-            f"the frontend inputs of {cfg.name} are not ported yet (ROADMAP "
-            "A.13 audio, A.14 vision)")
+    loss (zero without MoE).
+
+    ``frontend``: the modality's embeddings (B, T_f, frontend_dim): the
+    encoder's input for audio, the cross blocks' K/V source (through
+    ``frontend_proj``, at full rank under ``ranks``) for vlm. Encoder
+    segments are skipped here (and do not advance the layer offset)."""
     x = embed_tokens(params, tokens, cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+    kv_source = None
+    if cfg.family == "audio" and frontend is not None:
+        kv_source = run_encoder(params, cfg, frontend, ranks)
+    elif cfg.family == "vlm" and frontend is not None:
+        kv_source = cm.linear(params["frontend_proj"], frontend)
     offset = 0
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(cfg.segments):
+        if seg.kind == "encoder":
+            continue
         with cm.tap_scope(f"segments/{i}", absolute=True):
             x, _, aux = run_segment(
                 seg, params["segments"][i], x, cfg, positions=positions,
                 ranks=_seg_ranks(ranks, i), layer_offset=offset,
                 shared_attn_params=params.get("shared_attn"),
-                shared_attn_ranks=rget_tree(ranks, "shared_attn"))
+                shared_attn_ranks=rget_tree(ranks, "shared_attn"),
+                kv_source=kv_source)
         aux_total = aux_total + aux
         offset += seg.count
     return lm_logits(params, x, cfg), aux_total
@@ -338,7 +476,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 # ------------------------------------------------------------- decode
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      dtype=torch.bfloat16, device=None) -> Dict:
+                      dtype=torch.bfloat16, device=None,
+                      cross_kv_len: int = 0) -> Dict:
     """Zero decode state matching the segment structure:
 
       {'pos': 0, 'segments': [per segment: attention {'k', 'v': (L, B,
@@ -347,33 +486,60 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
        0}; mamba {'conv', 'ssd'};
        rwkv {'shift_t', 'shift_c', 'wkv'}; zamba_unit {'mamba': {'conv':
        (U, M, B, K-1, C), 'ssd': (U, M, B, H, N, P)}, 'attn': {'k', 'v':
-       (U, B, max_len, Hkv, D), 'idx': 0}}]}
+       (U, B, max_len, Hkv, D), 'idx': 0}}; encoder None; decoder the
+       attention cache; vision_unit {'selfs': {'k', 'v': (U, P, B,
+       max_len, Hkv, D), 'idx': 0}}]}
+
+    ``cross_kv_len`` > 0 adds zero cross-attention buffers 'cross_k',
+    'cross_v': (L or U, B, cross_kv_len, Hkv, D) in ``dtype`` to every
+    decoder and vision_unit segment, for ``attach_cross_kv`` to fill once
+    a request.
 
     The recurrent states are float32 (the reference's default). ``pos`` and
     ``idx`` are host ints, where the reference keeps int32 arrays: the
     drain loop knows them, so slicing the cache by them never waits for
     the card (``bridge.decode_state_to_numpy`` gives the reference's
-    arrays). Every unit of a zamba segment has zeros of its own: the
-    reference broadcasts one unit's, which the port's in-place updates
+    arrays). Every unit of a zamba or vision segment has zeros of its own:
+    the reference broadcasts one unit's, which the port's in-place updates
     would then share."""
+    hd = cfg.resolved_head_dim
+
+    def kv(count):
+        return attn.init_kv_cache(cfg, batch, max_len, dtype=dtype,
+                                  num_instances=count, device=device)
+
+    def with_cross(c, count):
+        if cross_kv_len:
+            shape = (count, batch, cross_kv_len, cfg.num_kv_heads, hd)
+            for k in _CROSS_KEYS:
+                c[k] = torch.zeros(shape, dtype=dtype, device=device)
+        return c
+
     segments = []
     for seg in cfg.segments:
-        _check_ported(cfg, seg)
-        if seg.kind in ("attn", "attn_dense") and cfg.mla:
+        if seg.kind == "encoder":
+            segments.append(None)
+        elif seg.kind in ("attn", "attn_dense") and cfg.mla:
             segments.append(mla_mod.init_mla_cache(
                 cfg, batch, max_len, dtype=dtype, num_instances=seg.count,
                 device=device))
         elif seg.kind in ("attn", "attn_dense"):
-            segments.append(attn.init_kv_cache(
-                cfg, batch, max_len, dtype=dtype, num_instances=seg.count,
-                device=device))
+            segments.append(kv(seg.count))
+        elif seg.kind == "decoder":
+            segments.append(with_cross(kv(seg.count), seg.count))
+        elif seg.kind == "vision_unit":
+            selfs = kv(seg.count * seg.self_per_unit)
+            for k in ("k", "v"):
+                selfs[k] = selfs[k].reshape(seg.count, seg.self_per_unit,
+                                            *selfs[k].shape[1:])
+            segments.append(with_cross({"selfs": selfs}, seg.count))
         elif seg.kind == "mamba":
             segments.append(ssm_mod.init_mamba_state(
                 cfg, batch, num_instances=seg.count, device=device))
         elif seg.kind == "rwkv":
             segments.append(rwkv_mod.init_rwkv_state(
                 cfg, batch, num_instances=seg.count, device=device))
-        else:                                           # zamba_unit
+        elif seg.kind == "zamba_unit":
             mamba = ssm_mod.init_mamba_state(
                 cfg, batch, num_instances=seg.count * seg.mamba_per_unit,
                 device=device)
@@ -381,55 +547,95 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                 "mamba": {k: t.reshape(seg.count, seg.mamba_per_unit,
                                        *t.shape[1:])
                           for k, t in mamba.items()},
-                "attn": attn.init_kv_cache(cfg, batch, max_len, dtype=dtype,
-                                           num_instances=seg.count,
-                                           device=device)})
+                "attn": kv(seg.count)})
+        else:
+            raise ValueError(f"unknown segment kind {seg.kind}")
     return {"pos": 0, "segments": segments}
 
 
+def attach_cross_kv(params: Dict, cfg: ModelConfig, state: Dict,
+                    kv_source: torch.Tensor) -> Dict:
+    """Fill the state's cross-attention K/V buffers once a request, IN
+    PLACE: each cross block's ``compute_cross_kv`` over ``kv_source``,
+    the projected source (vlm: ``frontend_proj`` of the patches; audio:
+    the encoder's output), (B, cross_kv_len, d). Returns the state."""
+    for i, seg in enumerate(cfg.segments):
+        c = state["segments"][i]
+        if not isinstance(c, dict) or "cross_k" not in c:
+            continue
+        cross_p = params["segments"][i]["cross"]["attn"]
+        for l in range(c["cross_k"].shape[0]):
+            k, v = attn.compute_cross_kv(_layer(cross_p, l), cfg, kv_source)
+            c["cross_k"][l].copy_(k)
+            c["cross_v"][l].copy_(v)
+    return state
+
+
+def has_cross_kv(state: Dict) -> bool:
+    return any(isinstance(c, dict) and "cross_k" in c
+               for c in state["segments"])
+
+
 def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
-                tokens: torch.Tensor, *, ranks: Optional[Dict] = None):
+                tokens: torch.Tensor, *, ranks: Optional[Dict] = None,
+                kv_source: Optional[torch.Tensor] = None):
     """One decode step. tokens: (B, S). Returns (logits (B, S, V), state).
 
     S = 1 is the classic decode step; S > 1 runs a single-pass batched
     prefill through the same state (``prefill``). The state's tensors are
     updated in place (the reference returns new arrays; the paged steps
     update their pools in place too) and the returned state holds them
-    with ``pos`` advanced by S."""
-    if cfg.frontend_dim:
-        raise NotImplementedError(
-            f"the frontend inputs of {cfg.name} are not ported yet (ROADMAP "
-            "A.13 audio, A.14 vision)")
+    with ``pos`` advanced by S.
+
+    ``kv_source``: the cross blocks' source every step (audio: the
+    encoder's output; vlm: the raw patches, projected here by
+    ``frontend_proj`` unless the state holds cached cross K/V). With
+    cached cross K/V (``attach_cross_kv``) the step takes one token (S of
+    1), as in the reference; without either the cross blocks are
+    skipped."""
     pos = state["pos"]
     s = tokens.shape[1]
     positions = torch.arange(pos, pos + s, device=tokens.device)
     x = embed_tokens(params, tokens, cfg)
+    if (cfg.family == "vlm" and kv_source is not None
+            and not has_cross_kv(state)
+            and kv_source.shape[-1] == cfg.frontend_dim):
+        kv_source = cm.linear(params["frontend_proj"], kv_source)
     segments = []
     offset = 0
     for i, seg in enumerate(cfg.segments):
+        if seg.kind == "encoder":
+            segments.append(None)
+            continue
         x, new_c, _ = run_segment(seg, params["segments"][i], x, cfg,
-                               positions=positions,
-                               ranks=_seg_ranks(ranks, i),
-                               layer_offset=offset,
-                               cache=state["segments"][i],
-                               shared_attn_params=params.get("shared_attn"),
-                               shared_attn_ranks=rget_tree(ranks,
-                                                           "shared_attn"))
+                                  positions=positions,
+                                  ranks=_seg_ranks(ranks, i),
+                                  layer_offset=offset,
+                                  cache=state["segments"][i],
+                                  shared_attn_params=params.get(
+                                      "shared_attn"),
+                                  shared_attn_ranks=rget_tree(
+                                      ranks, "shared_attn"),
+                                  kv_source=kv_source)
         segments.append(new_c)
         offset += seg.count
     return lm_logits(params, x, cfg), {"pos": pos + s, "segments": segments}
 
 
 def prefill(params: Dict, cfg: ModelConfig, state: Dict,
-            tokens: torch.Tensor, *, ranks: Optional[Dict] = None):
+            tokens: torch.Tensor, *, ranks: Optional[Dict] = None,
+            kv_source: Optional[torch.Tensor] = None):
     """Single-pass batched prefill: the whole prompt (B, S) in one forward
     that writes the decode state. Returns (logits (B, S, V), state);
     ``logits[:, -1]`` seeds the first generated token. The recurrent
     segments carry their state through the plain chunked forms: an rwkv
     prompt longer than the family's chunk must be a multiple of it, and a
     mamba prompt runs as one chunk of S steps (an (B, S, S, H) decay
-    tensor), as in the reference."""
-    return decode_step(params, cfg, state, tokens, ranks=ranks)
+    tensor), as in the reference. ``kv_source`` as for ``decode_step``;
+    over cached cross K/V a prompt of S > 1 (other than the cache's
+    length) raises ``ValueError``, as it does in the reference."""
+    return decode_step(params, cfg, state, tokens, ranks=ranks,
+                       kv_source=kv_source)
 
 
 def _run_paged_segments(params, cfg, x, caches, ranks, attn_fn):

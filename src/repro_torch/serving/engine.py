@@ -31,8 +31,9 @@ requests arrive on an event loop, tokens stream back as they commit, and
 clients may cancel.
 
 The drain engine (``mode="drain"``, and ``auto`` for every family the
-paged path does not cover: the recurrent rwkv6 and zamba2, and MLA's
-minicpm3) serves static
+paged path does not cover: the recurrent rwkv6 and zamba2, MLA's
+minicpm3, and the audio and vision families, whose requests are text
+only, so their cross blocks are skipped) serves static
 batches of at most ``max_batch`` requests a budget row, prompts padded to
 the batch's longest, through the contiguous ``prefill``/``decode_step``
 and one sampling call a step over the last position's logits.

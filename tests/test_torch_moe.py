@@ -231,12 +231,28 @@ def test_forward_matches_jax(arch, which):
 
 
 def test_unported_kinds_still_raise():
+    """Every segment kind of the reference is ported: a vision unit in an
+    attention config builds the reference's spec (4 stacked self blocks
+    and the cross block); only an unknown kind raises, a ``ValueError`` as
+    in the reference."""
+    from repro.configs.base import Segment as JSegment
     from repro_torch.configs.base import ModelConfig, Segment
-    cfg = dataclasses.replace(tget("deepseek-7b", smoke=True),
-                              segments=(Segment("vision_unit", 1),))
-    assert isinstance(cfg, ModelConfig)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        ttfm.model_spec(cfg)
+    tcfg = dataclasses.replace(tget("deepseek-7b", smoke=True),
+                               segments=(Segment("vision_unit", 1),))
+    cfg = dataclasses.replace(get_config("deepseek-7b", smoke=True),
+                              segments=(JSegment("vision_unit", 1),))
+    assert isinstance(tcfg, ModelConfig)
+    shapes_t = [s.shape for s in tcm.tree_leaves(ttfm.model_spec(tcfg),
+                                                 tcm.is_spec)]
+    shapes_j = [s.shape for s in jax.tree.leaves(jtfm.model_spec(cfg),
+                                                 is_leaf=jcm.is_spec)]
+    assert shapes_t == shapes_j
+    seg = ttfm.segment_spec(tcfg, tcfg.segments[0])
+    assert seg["selfs"]["attn"]["q"]["w"].shape[:2] == (1, 4)
+    assert seg["cross"]["gate"].shape == (1, 1)
+    with pytest.raises(ValueError, match="unknown segment kind"):
+        ttfm.model_spec(dataclasses.replace(
+            tcfg, segments=(Segment("hyena", 1),)))
 
 
 # ---------------------------------------------------------- paged steps

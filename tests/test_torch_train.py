@@ -176,19 +176,29 @@ def test_forward_logits_every_row(st):
 
 
 def test_forward_raises_on_unported_branches():
-    """Cross-attention still raises (A.13/A.14); the decode cache branch is
-    ported: a prompt through an empty cache gives the cacheless output and
-    advances ``idx``."""
+    """Both branches that once raised are ported. Cross-attention: over a
+    source of 7 positions it gives what the source's cached K/V
+    (``compute_cross_kv``) give at one query token. The decode cache: a
+    prompt through an empty cache gives the cacheless output and advances
+    ``idx``."""
     from repro_torch.models import attention as tattn
     tcfg = tget("gpt2-small", smoke=True)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        tattn.attn_apply({}, torch.zeros(1, 2, tcfg.d_model), tcfg,
-                         positions=torch.arange(2), window=1 << 30,
-                         kv_source=torch.zeros(1, 2, tcfg.d_model))
     p = tcm.instantiate(tattn.attn_spec(tcfg),
                         torch.Generator().manual_seed(0))
     x = torch.randn(2, 5, tcfg.d_model, generator=torch.Generator()
                     .manual_seed(1))
+    src = torch.randn(2, 7, tcfg.d_model, generator=torch.Generator()
+                      .manual_seed(2))
+    cross = dict(positions=torch.arange(1), window=1 << 30, causal=False,
+                 use_rope=False)
+    y_src, c_src = tattn.attn_apply(p, x[:, :1], tcfg, kv_source=src,
+                                    **cross)
+    y_kv, _ = tattn.attn_apply(p, x[:, :1], tcfg,
+                               static_kv=tattn.compute_cross_kv(p, tcfg, src),
+                               **cross)
+    assert c_src is None and y_src.shape == (2, 1, tcfg.d_model)
+    assert float((y_kv - y_src).abs().max()) < 1e-5 * float(
+        y_src.abs().max())
     pos = torch.arange(5)
     y, _ = tattn.attn_apply(p, x, tcfg, positions=pos, window=1 << 30)
     cache = tcm.tree_map(lambda a: a[0] if isinstance(a, torch.Tensor)
