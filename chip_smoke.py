@@ -145,11 +145,12 @@ Phases, each fatal on failure:
                at attn/q_up and mlp/gate, T 8 and 512; the absorbed
                decode from the latent cache against ``forward``
                (TOL_DRAIN_FORWARD); card vs CPU at 2 layers).
-  16. audio  - seamless-m4t-medium at full width and depth (12 encoder
-               and 12 decoder layers): the serving launcher's state (text
-               only calibration: the encoder's, the cross blocks' and
-               ``frontend_proj``'s groups take plain SVD, logged), every
-               cross block's ``gate`` then drawn from U(0.5, 1.5); phase
+  16. audio  - seamless-m4t-medium at full width, cut to 6 encoder and
+               6 decoder layers of its 12 + 12: the serving launcher's
+               state (text only calibration: the encoder's, the cross
+               blocks' and ``frontend_proj``'s groups take plain SVD,
+               logged), every cross block's ``gate`` then drawn from
+               U(0.5, 1.5); phase
                13's drain checks (text-only requests: the encoder and the
                cross blocks do not run; GAR at the decoder's mlp/gate, T
                8 and 512, and at the multimodal check's T 4096:
@@ -174,6 +175,32 @@ Phases, each fatal on failure:
                the cross attn/k (T 6404), ``frontend_proj`` timed in place
                of the encoder; card vs CPU on one unit of 1 self block and
                the cross block.
+  18. telemetry - the live telemetry plane on phase 3's state and
+               requests (gpt2-small, full width): (a) plane off (phase 3's
+               engine) and on (an engine built with ``RingTracer(4096)``,
+               ``MetricsRegistry()``, ``Watchdog`` at its default
+               thresholds with a postmortem directory, ``costaudit=True``)
+               in turns, three each: streams identical to phase 3's; a
+               thread scrapes a ``StatusServer`` on port 0 (``/metrics``,
+               ``/statusz``, ``/debug/trace?last_s=30``) every 0.25 s of an
+               on-run and once after, at least once mid-run, each answer
+               parsed and each dump valid, ``/metrics`` with the audit's
+               error ratios; the
+               registry's token counters equal ``ServingMetrics``'; tokens/s
+               on against off, the audit's bandwidth and error ratios;
+               (b) with lookahead (the sync debug mode "error" around
+               planning, dispatch and the predicted advance) and
+               speculatively (phase 11's settings, "error" around
+               ``_enqueue_round``), plane on: streams identical to phase
+               3's and to phase 11's speculative run, one watchdog tick an
+               iteration; (c) in the lookahead run a TTFT SLO of 1e-6 s
+               fires: its bundle's ring dump validates and its
+               ``state.json`` has ``statusz``'s keys; (d)
+               ``obs.profiling.profile`` around a sampled request (and a
+               greedy one on the host sampling path): the trace names
+               ``paged_sample_step``, ``paged_mixed_step`` and the three
+               serving kernels, launches printed; (e) the serving launcher
+               at ``--smoke`` with every new flag.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
@@ -189,12 +216,17 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -1092,7 +1124,7 @@ def serve_timed(engine, reqs):
 
 
 def spec_phase(label, engine, reqs, plain, plain_s, draft_rank, dev,
-               max_len, prefix_cache=False) -> dict:
+               max_len, prefix_cache=False):
     """Phase 11 (and the spec part of phase 10) on ``engine``, whose plain
     run of ``reqs`` gave ``plain`` (summary ``plain_s``): speculative,
     verify-only and greedy-at-the-top-row runs, each held to the plain
@@ -1100,7 +1132,8 @@ def spec_phase(label, engine, reqs, plain, plain_s, draft_rank, dev,
     these runs, so that each draft slot aliases its target's full prompt
     blocks instead of warming its cache ``gap_chunk`` (32) prompt tokens a
     round (the requests share no prompt, so no run hits the index).
-    Returns the launches of the serving kernels in the speculative run."""
+    Returns the launches of the serving kernels in the speculative run and
+    that run's Results."""
     from repro_torch.kernels import gar_matmul, paged_attention, sampling
     from repro_torch.serving import Request
     from repro_torch.spec import SpecConfig
@@ -1213,7 +1246,7 @@ def spec_phase(label, engine, reqs, plain, plain_s, draft_rank, dev,
              f"(at least {SELF_DRAFT_ACCEPT})")
     log(f"# {label} spec streams: greedy, verify-only, top-row greedy and "
         f"self-draft held to the plain engine's; near-tie partings {ties}")
-    return counts
+    return counts, spec
 
 
 @contextlib.contextmanager
@@ -1490,6 +1523,7 @@ def gemma_phase(dev, rng, report, profiling):
     from repro_torch.launch.train import dense_init
     from repro_torch.models import common as cm
     from repro_torch.models import transformer as tfm
+    from repro_torch.obs import MetricsRegistry
     from repro_torch.serving import ElasticEngine, Request, SamplingParams
     full = get_config("gemma3-27b")
     cfg = dataclasses.replace(full, segments=(Segment("attn", 6),),
@@ -1509,8 +1543,12 @@ def gemma_phase(dev, rng, report, profiling):
     gc.collect()
     torch.cuda.empty_cache()
     peak_state = torch.cuda.max_memory_allocated() / 1e9
+    # the first serve carries the metrics registry and the cost-model audit
+    # (phase 18's plane, read here where bytes bound the step); the later
+    # turns run without them and must give the same streams
     engine = ElasticEngine(cfg, params_fact, table, infos, device="cuda",
-                           prefill_chunk=256, max_batch=8, max_len=2048)
+                           prefill_chunk=256, max_batch=8, max_len=2048,
+                           registry=MetricsRegistry(), costaudit=True)
     budgets = (0.4, 1.0)
     rows = [engine._budget_row(b) for b in budgets]
     deployed = {r: engine._realize(r) for r in rows}
@@ -1580,6 +1618,21 @@ def gemma_phase(dev, rng, report, profiling):
     log(f"# gemma3 kernels: launches serving {json.dumps(counts)}")
     if min(counts.values()) <= 0:
         fail(f"gemma3: a kernel of the serving path never launched: {counts}")
+    audit = engine.costaudit.statusz()
+    ratios = [c["error_ratio"] for c in audit["cells"]]
+    snap = engine.registry.snapshot()
+    if snap["repro_generated_tokens_total"] != 8 * 32:
+        fail(f"gemma3: the registry counted "
+             f"{snap['repro_generated_tokens_total']} generated tokens")
+    log(f"# gemma3 audit (registry and costaudit=True on this serve): "
+        f"bandwidth {audit['bandwidth_gb_per_s']:.3f} GB/s, error ratios "
+        f"{min(ratios):.4f}-{max(ratios):.4f} over {len(ratios)} cells "
+        + json.dumps([[c["row"], c["bucket"], c["count"],
+                       round(c["measured_mean_ms"], 4),
+                       round(c["predicted_mb"], 3),
+                       round(c["error_ratio"], 4)] for c in audit["cells"]])
+        + " [row, bucket, iterations, measured ms, predicted MB, ratio]")
+    engine.registry = engine.costaudit = None
 
     # the same requests through the lookahead pipeline and the synchronous
     # loop in turns (lookahead, sync, sync, lookahead), with prefix caching
@@ -1633,8 +1686,8 @@ def gemma_phase(dev, rng, report, profiling):
     if FR.nested_prefix_row(table, rows[1], draft_rank, cost) != rows[0]:
         fail(f"gemma3: draft_rank {draft_rank} does not resolve row "
              f"{rows[0]} for row {rows[1]}")
-    spec_counts = spec_phase("gemma3", engine, reqs, results, s, draft_rank,
-                             dev, 2048, prefix_cache=True)
+    spec_counts, _ = spec_phase("gemma3", engine, reqs, results, s,
+                                draft_rank, dev, 2048, prefix_cache=True)
 
     # the decode check on the served rows, 8 prompts past the window
     prompts = [prng.integers(0, cfg.vocab_size, int(prng.integers(1100, 1501))
@@ -3045,6 +3098,354 @@ def cross_phase(arch, cfg, small, dev, rng, report, smi):
     return counts, gar_err
 
 
+# ------------------------------------------------------------ telemetry
+
+TELEMETRY_KERNELS = {"gar_matmul": "gar_stage",
+                     "paged_prefill_attention": "attend_kernel",
+                     "topk_mask_sample": "draw_kernel"}
+
+
+def scrape(url: str) -> str:
+    """The body of a GET that answered 200 (any error status raises)."""
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode()
+
+
+def parse_prometheus(text: str) -> dict:
+    """``name{labels}`` -> value of every sample line of a Prometheus text
+    exposition; raises on a line that does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+class Scraper(threading.Thread):
+    """Scrapes a status server's three routes every ``period_s`` until
+    stopped, and once more after: each answer parsed, each trace dump
+    validated. A ``/statusz`` answer marked ``partial`` fails, and so does
+    one that holds an admitted, unfinished request (the scrape fell
+    mid-run) without ``requests``, ``queues`` and ``kv``. ``rounds``
+    records per round whether it fell mid-run and whether ``/metrics``
+    held the audit's error ratios; the first failure stops the thread into
+    ``error``."""
+
+    def __init__(self, url: str, period_s: float = 0.25):
+        super().__init__(daemon=True)
+        self.url, self.period_s = url, period_s
+        self.halt = threading.Event()
+        self.rounds: list = []
+        self.error = None
+
+    def run(self):
+        from repro_torch.obs import validate_chrome_trace
+        while True:
+            last = self.halt.is_set()
+            try:
+                prom = parse_prometheus(scrape(self.url + "/metrics"))
+                status = json.loads(scrape(self.url + "/statusz"))
+                trace = json.loads(scrape(self.url
+                                          + "/debug/trace?last_s=30"))
+                bad = validate_chrome_trace(trace)
+                if bad:
+                    raise RuntimeError(f"trace dump invalid: {bad[:3]}")
+                if "partial" in status:
+                    raise RuntimeError(f"/statusz partial: "
+                                       f"{status['partial']}")
+                mid = any(r["state"] in ("prefilling", "decoding")
+                          for r in status.get("requests", {}).values())
+                lack = {"requests", "queues", "kv"} - status.keys()
+                if mid and lack:
+                    raise RuntimeError(f"/statusz mid-run lacks {lack}")
+            except Exception as e:          # reported by the phase
+                self.error = repr(e)
+                return
+            self.rounds.append({
+                "mid": mid,
+                "ratio": any(k.startswith("repro_costmodel_error_ratio")
+                             for k in prom),
+                "events": len(trace["traceEvents"])})
+            if last:
+                return
+            self.halt.wait(self.period_s)
+
+    def finish(self) -> None:
+        self.halt.set()
+        self.join(timeout=60)
+        if self.is_alive():
+            fail("telemetry: the scraper did not stop")
+        if self.error is not None:
+            fail(f"telemetry: a scrape failed: {self.error}")
+
+
+def plane_engine(engine, watchdog, **kw):
+    """An engine of ``engine``'s state and settings with the whole live
+    plane on (its deployed rows shared, so nothing deploys again) and a
+    watchdog whose ticks are counted in ``ticks``."""
+    from repro_torch import obs
+    from repro_torch.serving import ElasticEngine
+    on = ElasticEngine(engine.cfg, engine.params_fact, engine.table,
+                       engine.infos, device=engine.device,
+                       prefill_chunk=engine.prefill_chunk,
+                       max_batch=engine.max_batch, max_len=engine.max_len,
+                       tracer=obs.RingTracer(4096),
+                       registry=obs.MetricsRegistry(), watchdog=watchdog,
+                       costaudit=True, **kw)
+    on._deployed = engine._deployed
+    on.ticks = 0
+    tick = watchdog.tick
+
+    def counted(**kw):
+        on.ticks += 1
+        return tick(**kw)
+    watchdog.tick = counted
+    return on
+
+
+def telemetry_phase(engine, reqs, plain, spec_plain, draft_rank) -> dict:
+    """Phase 18 on phase 3's engine, requests and streams (``plain``) and
+    phase 11's speculative streams (``spec_plain``, at ``draft_rank``):
+    (a) plane off and on in turns, scraped live; (b) lookahead and
+    speculation with the plane on; (c) a forced watchdog firing; (d) a
+    ``torch.profiler`` trace through ``obs.profiling``; (e) the launcher
+    with every new flag. Returns the launches of the serving kernels in
+    (a)'s first on-run."""
+    from repro_torch import obs
+    from repro_torch.kernels import gar_matmul, paged_attention, sampling
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import Request
+    from repro_torch.spec import SpecConfig
+    kernels = {"gar_matmul": gar_matmul,
+               "paged_prefill_attention": paged_attention,
+               "topk_mask_sample": sampling}
+    tmp = Path(tempfile.mkdtemp(prefix="telemetry-"))
+    engine.lookahead, engine.spec, engine.prefix_cache = False, None, False
+
+    def same(label, want, res):
+        for i, (a, b) in enumerate(zip(want, res)):
+            if not np.array_equal(a.tokens, b.tokens):
+                fail(f"telemetry {label}: request {i} returned "
+                     f"{b.tokens[-8:]}, plane off {a.tokens[-8:]}")
+
+    # (a) off, on, on, off, off, on; every on-run scraped live
+    server = obs.StatusServer(port=0)
+    server.start()
+    for k in kernels.values():
+        k.launches = 0
+    turns = {False: [], True: []}
+    audits, scrapes, fired = [], [], []
+    try:
+        for turn, on in enumerate((False, True, True, False, False, True)):
+            if not on:
+                res, wall, s = serve_timed(engine, reqs)
+                same(f"(a) off turn {turn}", plain, res)
+                turns[False].append(s)
+                continue
+            launches = {n: k.launches for n, k in kernels.items()}
+            wd = obs.Watchdog(postmortem_dir=str(tmp / f"pm-{turn}"))
+            eng = plane_engine(engine, wd)
+            server.registry = eng.registry
+            server.status_fn = eng.statusz
+            server.trace_fn = eng.tracer.dump
+            scraper = Scraper(server.url)
+            scraper.start()
+            try:
+                res, wall, s = serve_timed(eng, reqs)
+            finally:
+                scraper.finish()
+            for n, k in kernels.items():
+                launches[n] = k.launches - launches[n]
+            same(f"(a) on turn {turn}", plain, res)
+            turns[True].append(s)
+            m, snap = eng.last_metrics, eng.registry.snapshot()
+            for key, want in (("repro_generated_tokens_total",
+                               m.generated_tokens),
+                              ("repro_prefill_tokens_total", m.prefill_tokens),
+                              ("repro_requests_finished_total", len(reqs))):
+                if snap.get(key) != want:
+                    fail(f"telemetry (a): {key} {snap.get(key)}, "
+                         f"ServingMetrics {want}")
+            if eng.ticks != eng._iterations:
+                fail(f"telemetry (a): {eng.ticks} watchdog ticks for "
+                     f"{eng._iterations} iterations")
+            mid = [r for r in scraper.rounds if r["mid"]]
+            if not mid:
+                fail(f"telemetry (a) turn {turn}: no scrape fell mid-run "
+                     f"({len(scraper.rounds)} scrapes)")
+            text = eng.registry.prometheus_text()
+            if "repro_costmodel_error_ratio" not in text or not any(
+                    r["ratio"] for r in scraper.rounds):
+                fail("telemetry (a): /metrics holds no cost-model error "
+                     "ratio")
+            scrapes.append((len(scraper.rounds), len(mid),
+                            max(r["events"] for r in scraper.rounds)))
+            audits.append(eng.costaudit.statusz())
+            fired += [(turn, r["rule"]) for r in wd.fired]
+            if turn == 1:
+                counts = launches
+    finally:
+        server.stop()
+    tps = {on: [t["tokens_per_s"] for t in turns[on]] for on in turns}
+    ratio = statistics.mean(tps[True]) / statistics.mean(tps[False])
+    log(f"# telemetry (a): plane off tokens/s "
+        + ", ".join(f"{x:.1f}" for x in tps[False]) + ", on "
+        + ", ".join(f"{x:.1f}" for x in tps[True])
+        + f"; on / off {ratio:.4f} (turn by turn "
+        + ", ".join(f"{a / b:.4f}" for a, b in zip(tps[True], tps[False]))
+        + "), ttft mean off "
+        + ", ".join(f"{t['ttft_mean_s'] * 1e3:.1f}" for t in turns[False])
+        + " ms, on "
+        + ", ".join(f"{t['ttft_mean_s'] * 1e3:.1f}" for t in turns[True])
+        + " ms; streams identical to phase 3's")
+    log(f"# telemetry (a) scrapes (rounds, mid-run rounds, most dump "
+        f"events) each on-run {scrapes}: every answer parsed, every trace "
+        "dump valid; registry token counters equal ServingMetrics'; one "
+        "watchdog tick an iteration; watchdog firings at the default "
+        f"thresholds {fired}")
+    for i, a in enumerate(audits):
+        ratios = [c["error_ratio"] for c in a["cells"]]
+        log(f"# telemetry (a) audit, on-run {i}: bandwidth "
+            f"{a['bandwidth_gb_per_s']:.3f} GB/s, error ratios "
+            f"{min(ratios):.4f}-{max(ratios):.4f} over {len(ratios)} "
+            "(row, bucket) cells "
+            + json.dumps([[c["row"], c["bucket"], c["count"],
+                           round(c["measured_mean_ms"], 4),
+                           round(c["predicted_mb"], 3),
+                           round(c["error_ratio"], 4)]
+                          for c in a["cells"]])
+            + " [row, bucket, iterations, measured ms, predicted MB, "
+            "ratio]")
+    log(f"# telemetry (a) kernels: launches in the first on-run "
+        f"{json.dumps(counts)}")
+    if min(counts.values()) <= 0:
+        fail(f"telemetry: a kernel of the serving path never launched with "
+             f"the plane on: {counts}")
+
+    # (b) lookahead, with (c) a forced TTFT firing in the same run, then
+    # speculation; the plane on in both
+    wd = obs.Watchdog(postmortem_dir=str(tmp / "forced"), ttft_slo_s=1e-6)
+    eng = plane_engine(engine, wd, lookahead=True)
+    with sync_free_lookahead():
+        res, _, s_look = serve_timed(eng, reqs)
+    same("(b) lookahead", plain, res)
+    if s_look["lookahead_iterations"] <= 0:
+        fail("telemetry (b): the lookahead run queued no speculative "
+             "iteration")
+    if eng.ticks != eng._iterations:
+        fail(f"telemetry (b) lookahead: {eng.ticks} watchdog ticks for "
+             f"{eng._iterations} iterations")
+    look_ticks = eng.ticks
+    if [r["rule"] for r in wd.fired] != ["ttft_slo"]:
+        fail(f"telemetry (c): the TTFT SLO fired {wd.fired}")
+    bundle = Path(wd.fired[0]["bundle"])
+    files = sorted(p.name for p in bundle.iterdir())
+    if files != ["metrics.json", "metrics.prom", "reason.json", "state.json",
+                 "trace.json"]:
+        fail(f"telemetry (c): bundle files {files}")
+    dump = json.loads((bundle / "trace.json").read_text())
+    bad = obs.validate_chrome_trace(dump)
+    if bad:
+        fail(f"telemetry (c): the bundle's ring dump is invalid: {bad[:3]}")
+    state = json.loads((bundle / "state.json").read_text())
+    if set(state) != set(eng.statusz()):
+        fail(f"telemetry (c): state.json keys {sorted(state)}, statusz "
+             f"{sorted(eng.statusz())}")
+    reason = wd.fired[0]["reason"]
+    wd = obs.Watchdog(postmortem_dir=str(tmp / "spec"))
+    eng = plane_engine(engine, wd,
+                       spec=SpecConfig(draft_rank=draft_rank,
+                                       spec_len=SPEC_LEN))
+    with sync_free_rounds():
+        res, _, s_spec = serve_timed(eng, reqs)
+    same("(b) speculative", spec_plain, res)
+    if s_spec["spec_rounds"] <= 0:
+        fail("telemetry (b): the speculative run drafted no round")
+    if eng.ticks != eng._iterations:
+        fail(f"telemetry (b) spec: {eng.ticks} watchdog ticks for "
+             f"{eng._iterations} iterations")
+    log(f"# telemetry (b): lookahead {s_look['tokens_per_s']:.1f} tok/s, "
+        f"{s_look['lookahead_iterations']} lookahead iterations, "
+        f"{look_ticks} ticks; speculative {s_spec['tokens_per_s']:.1f} "
+        f"tok/s, {s_spec['spec_rounds']:.0f} rounds, {eng.ticks} ticks; "
+        "plane on, streams identical to phases 3 and 11, one watchdog tick "
+        "an iteration or round, no host sync in a pipelined iteration or "
+        "before a round's commit")
+    log(f"# telemetry (c): ttft_slo fired in the lookahead run ({reason}); "
+        f"bundle {files}, ring dump of {len(dump['traceEvents'])} events "
+        "valid, state.json holds statusz's keys")
+
+    # (d) a sampled request of 4 new tokens, and a greedy one on the host
+    # sampling path, under the profiler (an eager iteration is some 8000
+    # trace events)
+    prof_dir = tmp / "profile"
+    before = {n: k.launches for n, k in kernels.items()}
+    sampled = [Request(prompt=reqs[1].prompt, max_new_tokens=4, budget=1.0,
+                       sampling=reqs[1].sampling)]
+    greedy = [Request(prompt=reqs[0].prompt, max_new_tokens=2, budget=1.0)]
+    with obs.profiling.profile(str(prof_dir)):
+        engine.generate(sampled, mode="continuous")
+        engine.device_sampling = False
+        try:
+            engine.generate(greedy, mode="continuous")
+        finally:
+            engine.device_sampling = True
+        torch.cuda.synchronize()
+    launched = {n: k.launches - before[n] for n, k in kernels.items()}
+    (path,) = prof_dir.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernel_names = [e.get("name", "") for e in events
+                    if e.get("cat") == "kernel"]
+    seen = {n: sum(1 for k in kernel_names if frag in k)
+            for n, frag in TELEMETRY_KERNELS.items()}
+    missing = [a for a in ("paged_sample_step", "paged_mixed_step")
+               if a not in names] + [n for n, c in seen.items() if not c]
+    if missing:
+        fail(f"telemetry (d): the profiler trace names none of {missing}")
+    log(f"# telemetry (d): profiler trace {path.stat().st_size} bytes, "
+        f"{len(events)} events, annotations paged_sample_step and "
+        f"paged_mixed_step; kernel records in the trace {json.dumps(seen)}"
+        f", wrapper launches {json.dumps(launched)} (not compared: the "
+        "profiler may lose records)")
+
+    # (e) the launcher at --smoke with every new flag
+    out = io.StringIO()
+    argv = ["--smoke", "--requests", "3", "--budgets", "0.4,1.0",
+            "--max-new", "4", "--prefill-chunk", "8",
+            "--trace-ring", "4096", "--trace-out", str(tmp / "trace.json"),
+            "--metrics-out", str(tmp / "metrics.prom"),
+            "--statusz-port", "0", "--status-linger", "0.2", "--watchdog",
+            "--postmortem-dir", str(tmp / "launcher-pm"),
+            "--jax-profile", str(tmp / "launcher-profile")]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        launcher.main(argv)
+    t_launch = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    trace = json.loads((tmp / "trace.json").read_text())
+    metrics = (tmp / "metrics.prom").read_text()
+    checks = {
+        "statusz line": any(l.startswith("# statusz: http") for l in lines),
+        "3 request lines": sum(l.startswith("req ") for l in lines) == 3,
+        "serving line": any(l.startswith("# serving:") for l in lines),
+        "trace valid": not obs.validate_chrome_trace(trace),
+        "audit in metrics": "# TYPE repro_costmodel_error_ratio gauge"
+                            in metrics,
+        "profile written": bool(list((tmp / "launcher-profile").glob(
+            "*.pt.trace.json")))}
+    if not all(checks.values()):
+        fail(f"telemetry (e): launcher checks {checks}; output "
+             f"{lines[-12:]}")
+    log(f"# telemetry (e): launcher --smoke with every new flag on the "
+        f"card in {t_launch:.1f} s: "
+        + ", ".join(checks)
+        + "; " + next(l for l in lines if l.startswith("# serving:")))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def _layer_count(segments) -> int:
     return sum(s.count * (s.mamba_per_unit + 1 if s.kind == "zamba_unit"
                           else s.self_per_unit + 1
@@ -3439,8 +3840,8 @@ def main() -> int:
     # 11. speculative decoding of gpt2-small on phase 3's engine: the same
     # requests plain (again, beside the speculative run), then speculative
     plain, _, plain_s = serve_timed(engine, reqs)
-    spec_counts = spec_phase("gpt2", engine, reqs, plain, plain_s, 0.7, dev,
-                             256)
+    spec_counts, spec11 = spec_phase("gpt2", engine, reqs, plain, plain_s,
+                                     0.7, dev, 256)
     counts["gar_matmul"] += spec_counts["gar_matmul"]
     counts["paged_attention"] += spec_counts["paged_prefill_attention"]
     counts["sampling"] += spec_counts["topk_mask_sample"]
@@ -3484,10 +3885,14 @@ def main() -> int:
 
     phase_done("15 minicpm3")
 
-    # 16. seamless-m4t-medium at full width and depth, 17.
+    # 16. seamless-m4t-medium at full width, 6 + 6 of its 12 + 12 layers
+    # (cut when the smoke passed 1050 s with phase 18), 17.
     # llama-3.2-vision-11b at full width, one unit: drain, then the
     # multimodal check
     full = get_config("seamless-m4t-medium")
+    full = dataclasses.replace(
+        full, segments=(Segment("encoder", 6), Segment("decoder", 6)),
+        num_layers=6, encoder_layers=6)
     vis = get_config("llama-3.2-vision-11b")
     vis = dataclasses.replace(vis, segments=(Segment("vision_unit", 1),),
                               num_layers=5)
@@ -3506,6 +3911,15 @@ def main() -> int:
         counts["gar_matmul"] += cross_counts["gar_matmul"]
         counts["sampling"] += cross_counts["topk_mask_sample"]
         phase_done(f"{16 + i} {arch}")
+
+    # 18. the live telemetry plane on phase 3's engine, requests and
+    # streams, and phase 11's speculative streams
+    tel_counts = telemetry_phase(engine, reqs, results, spec11, 0.7)
+    counts["gar_matmul"] += tel_counts["gar_matmul"]
+    counts["paged_attention"] += tel_counts["paged_prefill_attention"]
+    counts["sampling"] += tel_counts["topk_mask_sample"]
+
+    phase_done("18 telemetry")
 
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {

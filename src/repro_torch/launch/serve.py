@@ -21,7 +21,14 @@ length). ``--stream`` serves through the asyncio front door
 (``serving.session``): open-loop arrivals (Poisson at ``--arrival-rate``),
 every token echoed as it streams, every ``--cancel-nth`` request cancelled
 after two tokens; ``--lookahead`` turns on the one-iteration lookahead
-pipeline.
+pipeline. The live telemetry plane: ``--trace-ring N`` flight-records
+into a bounded ring, ``--metrics-out`` writes the metrics registry,
+``--statusz-port`` serves ``/metrics``, ``/statusz`` and ``/debug/trace``
+while the engine runs (``--status-linger`` keeps it up after),
+``--watchdog`` ticks the anomaly watchdog every iteration (bundles under
+``--postmortem-dir``), and ``--jax-profile DIR`` writes a
+``torch.profiler`` trace of the serve (the reference's flag name, so that
+one argv drives both launchers).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-small \
       --requests 6 --budgets 0.4,1.0 --engine continuous --prefill-chunk 64 \
@@ -31,6 +38,9 @@ pipeline.
       --cancel-nth 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --prefill-chunk 8 --trace-ring 4096 --metrics-out /tmp/m.prom \
+      --statusz-port 0 --watchdog --postmortem-dir /tmp/pm
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-moe-16b --smoke --device cpu --prefill-chunk 8
   PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -45,6 +55,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import threading
+import time
 
 import numpy as np
 
@@ -52,7 +63,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data import make_source
 from repro_torch.launch.train import build_flexrank_state, dense_init
-from repro_torch.obs import make_tracer
+from repro_torch import obs
 from repro_torch.serving import ElasticEngine, Request, SamplingParams
 from repro_torch.serving.session import StreamSession
 from repro_torch.spec import SpecConfig
@@ -192,6 +203,42 @@ def main(argv=None):
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome trace-event JSON of the run here "
                          "(a .jsonl suffix writes one event per line)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write Prometheus text exposition of the run's "
+                         "metrics registry here (a .jsonl suffix appends "
+                         "a flat snapshot line instead)")
+    ap.add_argument("--jax-profile", default="", metavar="DIR",
+                    help="bracket the serve in a torch.profiler trace "
+                         "written to DIR (a *.pt.trace.json that Perfetto "
+                         "and TensorBoard load); also turns on "
+                         "record_function scopes around the fused steps "
+                         "(the reference launcher's flag name, where it "
+                         "takes a jax.profiler trace)")
+    ap.add_argument("--statusz-port", type=int, default=None, metavar="PORT",
+                    help="serve the live telemetry plane on this port "
+                         "(0 = ephemeral, printed at startup): GET "
+                         "/metrics (Prometheus text), /statusz (live "
+                         "engine JSON), /debug/trace (flight-recorder "
+                         "dump as Chrome trace JSON)")
+    ap.add_argument("--status-linger", type=float, default=0.0, metavar="S",
+                    help="keep the status server (and process) up S "
+                         "seconds after generation finishes so the "
+                         "endpoints can be scraped post-run")
+    ap.add_argument("--trace-ring", type=int, default=0, metavar="N",
+                    help="record traces into a bounded drop-oldest ring of "
+                         "N events (the always-on flight recorder) instead "
+                         "of the unbounded post-hoc tracer")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="evaluate the anomaly watchdog every engine "
+                         "iteration (stall, TTFT/inter-token SLO, "
+                         "fragmentation spike, spec-acceptance and "
+                         "prefix-hit-rate collapse; thresholds in "
+                         "repro_torch/obs/watchdog.py)")
+    ap.add_argument("--postmortem-dir", default="", metavar="DIR",
+                    help="where watchdog firings write their postmortem "
+                         "bundles (ring dump + metrics snapshot + live "
+                         "state); empty = no bundles, the firing still "
+                         "traces and counts")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -211,6 +258,20 @@ def main(argv=None):
                        stochastic=not args.spec_no_stochastic,
                        adaptive_k=args.spec_adaptive_k)
             if args.spec_draft_rank else None)
+    live_plane = args.statusz_port is not None or args.watchdog
+    if args.trace_ring:
+        tracer = obs.RingTracer(args.trace_ring)
+    elif args.trace_out:
+        tracer = obs.make_tracer(True)
+    elif live_plane:
+        # a live serve must stay bounded: flight-record by default
+        tracer = obs.RingTracer()
+    else:
+        tracer = None
+    registry = (obs.MetricsRegistry()
+                if args.metrics_out or live_plane else None)
+    watchdog = (obs.Watchdog(postmortem_dir=args.postmortem_dir or None)
+                if args.watchdog else None)
     engine = ElasticEngine(cfg, params_fact, table, infos,
                            max_batch=args.max_batch, max_len=args.max_len,
                            block_size=args.block_size,
@@ -222,8 +283,23 @@ def main(argv=None):
                            prefix_cache=True if args.prefix_cache else None,
                            lookahead=(True if args.lookahead else False
                                       if args.no_lookahead else None),
-                           tracer=make_tracer(True) if args.trace_out else None,
+                           tracer=tracer, registry=registry,
+                           watchdog=watchdog,
+                           costaudit=True if live_plane else None,
                            device=device)
+    server = None
+    if args.statusz_port is not None:
+        # the ring recorder supports ?last_s=N windowed dumps; the plain
+        # post-hoc tracer always dumps everything it has
+        trace_fn = (tracer.dump if isinstance(tracer, obs.RingTracer)
+                    else lambda last_s=None: tracer.to_chrome())
+        server = obs.StatusServer(registry=registry,
+                                  status_fn=engine.statusz,
+                                  trace_fn=trace_fn,
+                                  port=args.statusz_port)
+        server.start()
+        print(f"# statusz: {server.url} "
+              f"(/metrics /statusz /debug/trace)", flush=True)
     budgets = [float(b) for b in args.budgets.split(",")]
     sampling = (SamplingParams(temperature=args.temperature,
                                top_k=args.top_k, seed=args.seed)
@@ -235,16 +311,23 @@ def main(argv=None):
         reqs.append(Request(prompt=prompt, max_new_tokens=args.max_new,
                             budget=budgets[i % len(budgets)],
                             sampling=sampling))
-    if args.stream:
-        results = _run_stream(engine, reqs, args)
-    else:
-        results = engine.generate(reqs, mode=args.engine)
+    with obs.profiling.profile(args.jax_profile):
+        if args.stream:
+            results = _run_stream(engine, reqs, args)
+        else:
+            results = engine.generate(reqs, mode=args.engine)
     if args.trace_out:
         if args.trace_out.endswith(".jsonl"):
             engine.tracer.export_jsonl(args.trace_out)
         else:
             engine.tracer.export_chrome(args.trace_out)
         print(f"# trace: {len(engine.tracer)} events -> {args.trace_out}")
+    if args.metrics_out:
+        if args.metrics_out.endswith(".jsonl"):
+            registry.snapshot_jsonl(args.metrics_out)
+        else:
+            registry.write_prometheus(args.metrics_out)
+        print(f"# metrics -> {args.metrics_out}")
     for i, (rq, rs) in enumerate(zip(reqs, results)):
         print(f"req {i}: budget={rq.budget:.2f} -> row {rs.budget_row} "
               f"({rs.deployed_params:,} params) "
@@ -284,6 +367,16 @@ def main(argv=None):
               f"{s['spec_rounds']:.0f} rounds, "
               f"acceptance {s['spec_acceptance_rate']:.2f}, "
               f"mean accepted len {s['spec_mean_accepted_len']:.2f}")
+    if watchdog is not None:
+        for rec in watchdog.fired:
+            where = f" -> {rec['bundle']}" if rec["bundle"] else ""
+            print(f"# watchdog fired: {rec['rule']} — {rec['reason']}{where}")
+    if server is not None:
+        if args.status_linger > 0:
+            print(f"# statusz lingering {args.status_linger}s at "
+                  f"{server.url}", flush=True)
+            time.sleep(args.status_linger)
+        server.stop()
     return results
 
 

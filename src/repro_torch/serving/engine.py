@@ -38,11 +38,20 @@ batches of at most ``max_batch`` requests a budget row, prompts padded to
 the batch's longest, through the contiguous ``prefill``/``decode_step``
 and one sampling call a step over the last position's logits.
 
+The live telemetry plane (``repro_torch.obs``) hangs off the loops as in
+the reference: ``registry`` (a ``MetricsRegistry``) takes the serving
+counters, cache and queue gauges each iteration; ``watchdog`` (a
+``Watchdog``) is ticked once an iteration or speculative round and writes
+a postmortem bundle when a rule fires; ``costaudit`` (a
+``CostModelAudit``, or True to build one on the engine's cost table)
+holds each (row, width bucket)'s measured dispatch time against the
+analytic decode bytes; ``statusz()`` is the live snapshot the status
+server and the bundles serve. None of it touches a token.
+
 This is the JAX package's engine, ported plan for plan: operand layouts,
 width buckets and event order match it, so the two engines emit identical
-token streams, with or without lookahead. The live telemetry plane is not
-ported yet; asking for it raises ``NotImplementedError`` naming the
-ROADMAP item.
+token streams, with or without lookahead and with or without the
+telemetry plane.
 """
 from __future__ import annotations
 
@@ -60,7 +69,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import flexrank as FR
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
-from repro_torch.obs import CAT_ITER, CAT_SCHED, make_tracer
+from repro_torch.obs import CAT_ITER, CAT_SCHED, make_tracer, profiling
 from repro_torch.serving import device_sampling as dsamp
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.kv_cache import CacheOOM, PagedKVCache
@@ -70,11 +79,6 @@ from repro_torch.serving.scheduler import (BudgetRouter, Request, Result,
                                            Scheduler, Sequence)
 
 __all__ = ["ElasticEngine", "Request", "Result", "CacheOOM"]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP: {item})")
 
 
 class _ImmediateLog:
@@ -192,11 +196,6 @@ class ElasticEngine:
                  tracer=None, registry=None,
                  watchdog=None, costaudit=None,
                  device=None):
-        for name, value in (("registry", registry), ("watchdog", watchdog),
-                            ("costaudit", costaudit)):
-            if value is not None:
-                raise _not_ported(f"the live telemetry plane ({name}=)",
-                                  "live telemetry plane")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params_fact = cm.tree_map(lambda t: t.to(self.device),
@@ -258,7 +257,13 @@ class ElasticEngine:
         self._seq_index: Dict[int, Sequence] = {}
         self._session = None
         self._iterations = 0
+        # observability (repro_torch.obs): ``tracer`` collects span and
+        # instant events for Chrome-trace/JSONL export (None resolves via
+        # REPRO_TRACE to the no-op NULL_TRACER); ``registry`` keeps
+        # Prometheus-exportable counters, gauges and histograms (None turns
+        # that path off)
         self.tracer = tracer if tracer is not None else make_tracer()
+        self.registry = registry
         self._deployed: Dict[int, object] = {}
         # seconds each budget row's GAR deploy took (device time included)
         self.deploy_seconds: Dict[int, float] = {}
@@ -266,6 +271,22 @@ class ElasticEngine:
             [FR.deployed_param_count(cfg, infos, table, k)
              for k in range(table.table.shape[0])], np.int64)
         self.router = BudgetRouter(self._cost_table)
+        # live telemetry plane: ``watchdog`` is ticked once an engine
+        # iteration with the loop's heartbeat and captures a postmortem
+        # bundle when a rule fires; ``costaudit`` accumulates measured
+        # dispatch seconds per (row, width bucket) against the analytic
+        # cost model (an instance, or True to build one on this engine's
+        # cost table)
+        self.watchdog = watchdog
+        if costaudit is True:
+            from repro_torch.obs import CostModelAudit
+            costaudit = CostModelAudit(cfg, self._cost_table,
+                                       max_len=max_len, registry=registry)
+        self.costaudit = costaudit
+        # live-state handle for ``statusz()``: the serving loops park their
+        # scheduler, cache and batcher here so the status server can
+        # snapshot them from its own thread mid-run
+        self._live: Dict[str, object] = {}
         self.last_metrics: Optional[ServingMetrics] = None
 
     # ------------------------------------------------------------ routing
@@ -336,9 +357,11 @@ class ElasticEngine:
         whose grad mode is its own, so it enters ``torch.no_grad()`` here;
         returns the req_id -> Result map once the session has closed and
         the last request drained."""
-        metrics = metrics or ServingMetrics(tracer=self.tracer)
+        metrics = metrics or ServingMetrics(tracer=self.tracer,
+                                            registry=self.registry)
         self.last_metrics = metrics
         sched = Scheduler(self.router, tracer=self.tracer)
+        self._bind_live(sched, metrics)
         with self._cancel_lock:
             self._cancel_list = []
         self._cancel_cursor = 0
@@ -361,6 +384,17 @@ class ElasticEngine:
             self._session = None
             session.mark_done()
         return results
+
+    def _bind_live(self, sched: Scheduler, metrics: ServingMetrics) -> None:
+        """Park a serve's scheduler and metrics for ``statusz()`` and hand
+        the watchdog its postmortem sources."""
+        self._live = {"sched": sched, "metrics": metrics}
+        if self.watchdog is not None:
+            self.watchdog.bind(
+                tracer=self.tracer,
+                trace_fn=(self.tracer.to_chrome if self.tracer.enabled
+                          else None),
+                state_fn=self.statusz, registry=self.registry)
 
     def _drain_intake(self, sched: Scheduler, metrics: ServingMetrics
                       ) -> None:
@@ -394,9 +428,11 @@ class ElasticEngine:
     def _generate_continuous(self, requests: List[Request], *,
                              metrics: Optional[ServingMetrics] = None
                              ) -> List[Result]:
-        metrics = metrics or ServingMetrics(tracer=self.tracer)
+        metrics = metrics or ServingMetrics(tracer=self.tracer,
+                                            registry=self.registry)
         self.last_metrics = metrics
         sched = Scheduler(self.router, tracer=self.tracer)
+        self._bind_live(sched, metrics)
         with self._cancel_lock:
             self._cancel_list = []
         self._cancel_cursor = 0
@@ -496,6 +532,105 @@ class ElasticEngine:
             if seq is not None and seq.state == "decoding":
                 cache.append_token(slot)
 
+    # -------------------------------------------- live telemetry plane
+
+    def _iteration_stats(self, sched, cache, metrics: ServingMetrics) -> None:
+        """The registry's per-iteration cache and queue gauges (a mixed
+        iteration or a speculative round); nothing without a registry."""
+        if self.registry is not None:
+            metrics.on_cache_stats(cache.allocator.free_count,
+                                   cache.allocator.fragmentation(),
+                                   prefix=cache.stats)
+            metrics.on_queue_depths(
+                {r: len(q) for r, q in sched.queues.items()})
+
+    def _watchdog_tick(self, metrics: ServingMetrics, cache,
+                       *, decoding: bool) -> None:
+        """One per-iteration watchdog evaluation with the loop's cheap
+        heartbeat signals (see obs/watchdog.py for the rules)."""
+        self.watchdog.tick(
+            progress_tokens=metrics.generated_tokens + metrics.prefill_tokens,
+            decode_tokens=metrics.generated_tokens,
+            decoding=decoding,
+            metrics=metrics,
+            fragmentation=cache.allocator.fragmentation(),
+            free_blocks=cache.allocator.free_count,
+            spec_accept_ewma=metrics.accept_ewma,
+            spec_rounds=metrics.spec_rounds,
+            prefix_stats=cache.stats if cache.prefix_cache else None)
+
+    def statusz(self) -> dict:
+        """Live engine snapshot for the ``/statusz`` endpoint and the
+        watchdog's postmortem ``state.json``: per-request lifecycle
+        states, per-row queue depths, KV occupancy/fragmentation, prefix
+        cache hit rate, and adaptive-k state. Built to be called from the
+        status-server thread while the engine runs: live structures are
+        read best-effort (list-copied before iteration; a race that still
+        slips through marks the snapshot ``partial`` instead of failing
+        the scrape)."""
+        out: Dict[str, object] = {
+            "engine": {
+                "arch": self.cfg.name,
+                "max_batch": self.max_batch, "max_len": self.max_len,
+                "block_size": self.block_size,
+                "prefill_chunk": self.prefill_chunk,
+                "token_budget": self.token_budget,
+                "device_sampling": self.device_sampling,
+                "prefix_cache": self.prefix_cache,
+                "rows": len(self._cost_table),
+                "row_params": self._cost_table.tolist(),
+                "spec": None if self.spec is None else {
+                    "draft_rank": self.spec.draft_rank,
+                    "spec_len": self.spec.spec_len,
+                    "adaptive_k": self.spec.adaptive_k},
+            },
+            "iterations": self._iterations,
+        }
+        try:
+            live = dict(self._live)
+            metrics = live.get("metrics") or self.last_metrics
+            if metrics is not None:
+                reqs = {}
+                for req_id, tr in list(metrics.traces.items()):
+                    state = ("finished" if tr.finish_t is not None
+                             else "decoding" if tr.first_token_t is not None
+                             else "prefilling" if tr.admit_t is not None
+                             else "waiting")
+                    reqs[req_id] = {
+                        "state": state, "new_tokens": tr.new_tokens,
+                        "preemptions": tr.preemptions,
+                        "prefix_hit_tokens": tr.prefix_hit_tokens,
+                        "ttft_s": tr.ttft}
+                out["requests"] = reqs
+                out["progress"] = {
+                    "generated_tokens": metrics.generated_tokens,
+                    "prefill_tokens": metrics.prefill_tokens,
+                    "preemptions": metrics.preemptions,
+                    "spec_rounds": metrics.spec_rounds,
+                    "spec_accept_ewma": metrics.accept_ewma}
+            sched = live.get("sched")
+            if sched is not None:
+                out["queues"] = {row: len(q)
+                                 for row, q in list(sched.queues.items())}
+            cache = live.get("cache")
+            if cache is not None:
+                out["serving_row"] = live.get("row")
+                out["speculating"] = live.get("spec")
+                out["kv"] = cache.statusz()
+            batcher = live.get("batcher")
+            if batcher is not None:
+                out["adaptive_k"] = {
+                    s.req_id: {"k": s.spec_k,
+                               "accept_ewma": s.spec_accept_ewma}
+                    for s in list(batcher.active_sequences())}
+        except Exception as e:       # racing the engine thread; keep what
+            out["partial"] = repr(e)  # rendered and say so
+        if self.watchdog is not None:
+            out["watchdog"] = self.watchdog.statusz()
+        if self.costaudit is not None:
+            out["costaudit"] = self.costaudit.statusz()
+        return out
+
     # ------------------------------ chunked prefill / mixed iterations
 
     def _bucket_tokens(self, used: int, budget: Optional[int] = None) -> int:
@@ -523,6 +658,7 @@ class ElasticEngine:
                              device=self.device)
         cache.tracer = self.tracer
         batcher = ContinuousBatcher(self.max_batch)
+        self._live.update(row=row, cache=cache, batcher=batcher, spec=False)
         drive = (self._serve_row_pipelined
                  if self.lookahead and self.device_sampling
                  else self._serve_row_sync)
@@ -734,7 +870,16 @@ class ElasticEngine:
                 tr.complete("commit", CAT_ITER, disp0 + disp_s, it1,
                             args={"decode": len(decode_slots),
                                   "prefill": total_chunk})
+            self._iteration_stats(sched, cache, metrics)
             self._iterations += 1
+            if self.costaudit is not None:
+                self.costaudit.observe(
+                    row,
+                    self._bucket_tokens(len(decode_slots) + total_chunk),
+                    disp_s)
+            if self.watchdog is not None:
+                self._watchdog_tick(metrics, cache,
+                                    decoding=bool(decode_slots))
 
     # ------------------------------------- one-iteration-lookahead pipeline
 
@@ -921,12 +1066,13 @@ class ElasticEngine:
                 args={"reason": reason, "iter": self._iterations,
                       "touched": len(touched)})
 
-    def _finalize_iteration(self, pending: _MixedPlan,
-                            metrics: ServingMetrics) -> None:
+    def _finalize_iteration(self, row: int, pending: _MixedPlan, sched,
+                            cache, metrics: ServingMetrics) -> None:
         """Per-committed-iteration bookkeeping of the pipelined loop: the
         dispatch/host split (``dispatch_s`` is the visible wait only; host
-        work that ran under the in-flight dispatch is ``overlap_s``) and
-        trace spans anchored at the real enqueue and sync times."""
+        work that ran under the in-flight dispatch is ``overlap_s``), trace
+        spans anchored at the real enqueue and sync times, registry stats,
+        the cost-model audit and the watchdog's heartbeat."""
         tr = self.tracer
         metrics.on_iteration_timing(pending.sync_s,
                                     pending.host_s + pending.commit_s,
@@ -940,7 +1086,19 @@ class ElasticEngine:
                         pending.t_sync_end + pending.commit_s,
                         args={"decode": len(pending.decode_slots),
                               "prefill": pending.total_chunk})
+        self._iteration_stats(sched, cache, metrics)
         self._iterations += 1
+        if self.costaudit is not None:
+            # estimated device time: the visible sync wait plus the host
+            # work the dispatch ran under
+            self.costaudit.observe(
+                row,
+                self._bucket_tokens(len(pending.decode_slots)
+                                    + pending.total_chunk),
+                pending.sync_s + pending.overlap_s)
+        if self.watchdog is not None:
+            self._watchdog_tick(metrics, cache,
+                                decoding=bool(pending.decode_slots))
 
     def _serve_row_pipelined(self, row: int, params, sched, cache, batcher,
                              metrics: ServingMetrics,
@@ -1000,7 +1158,7 @@ class ElasticEngine:
                 elif tr.enabled:
                     tr.instant("lookahead_commit", CAT_ITER,
                                args={"iter": self._iterations})
-                self._finalize_iteration(pending, metrics)
+                self._finalize_iteration(row, pending, sched, cache, metrics)
                 pending = None
                 if reason is not None:
                     self._drain_intake(sched, metrics)
@@ -1022,7 +1180,8 @@ class ElasticEngine:
         prompts. Results come back in submission order. ``metrics``
         (``last_metrics``) records each request's submit, first token
         (read once a batch) and finish."""
-        metrics = metrics or ServingMetrics(tracer=self.tracer)
+        metrics = metrics or ServingMetrics(tracer=self.tracer,
+                                            registry=self.registry)
         self.last_metrics = metrics
         for i in range(len(requests)):
             metrics.on_submit(i)
@@ -1243,12 +1402,12 @@ class ElasticEngine:
             cache, batcher, decode_slots, chunks, sample_ids)
         if metas is not None:
             sampling = self._pack_sampling(metas, rows)
-            with torch.profiler.record_function("paged_sample_step"):
+            with profiling.annotate("paged_sample_step"):
                 tokens, new_caches = self._sample(params, caches, tok,
                                                   sampling)
             cache.update_pools(new_caches)
             return tokens.cpu().numpy()
-        with torch.profiler.record_function("paged_mixed_step"):
+        with profiling.annotate("paged_mixed_step"):
             logits, new_caches = tfm.paged_mixed_step(params, self.cfg,
                                                       caches, tok)
         cache.update_pools(new_caches)
@@ -1273,7 +1432,7 @@ class ElasticEngine:
             src = self._upload(np.asarray([r for _, r in fixups], np.int64))
             tok[0, at] = prev_tokens[src]
         sampling = self._pack_sampling(plan.metas, rows)
-        with torch.profiler.record_function("paged_sample_step"):
+        with profiling.annotate("paged_sample_step"):
             tokens, new_caches = self._sample(params, caches, tok, sampling)
         cache.update_pools(new_caches)
         plan.tokens_dev = tokens

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as tfm
-from repro_torch.obs import CAT_SCHED, CAT_SPEC
+from repro_torch.obs import CAT_SCHED, CAT_SPEC, profiling
 from repro_torch.serving import device_sampling as dsamp
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.kv_cache import CacheOOM, PagedKVCache
@@ -269,6 +269,8 @@ class SpecDecoder:
 
     def serve(self) -> None:
         eng, sched, tr = self.engine, self.sched, self.tracer
+        eng._live.update(row=self.row, cache=self.cache,
+                         batcher=self.batcher, spec=True)
         while True:
             it0 = self.metrics.now()
             self._disp_s = 0.0
@@ -344,6 +346,15 @@ class SpecDecoder:
                             args={"plans": len(plans), "chunks": len(chunks)})
             self.metrics.on_iteration_timing(
                 self._disp_s, it1 - it0 - self._disp_s)
+            eng._iteration_stats(sched, self.cache, self.metrics)
+            # live telemetry heartbeat: speculative rounds tick the
+            # watchdog like mixed iterations (the cost audit skips them: a
+            # round interleaves draft- and verify-row dispatches, so there
+            # is no clean per-row attribution; see obs/costaudit.py)
+            eng._iterations += 1
+            if eng.watchdog is not None:
+                eng._watchdog_tick(self.metrics, self.cache,
+                                   decoding=bool(self.batcher.decode_slots()))
 
     # ----------------------------------------------------------- planning
 
@@ -499,7 +510,7 @@ class SpecDecoder:
         (T_padded, V) logits on the device and the host argmax."""
         tok, caches = self._operands(entries)
         t0 = self.metrics.now()
-        with torch.profiler.record_function(fn.__name__):
+        with profiling.annotate(fn.__name__):
             logits, new_caches = fn(params, self.cfg, caches, tok)
             greedy = torch.argmax(logits[0], dim=-1).cpu().numpy()
         self._disp_s += self.metrics.now() - t0
@@ -627,7 +638,7 @@ class SpecDecoder:
             tok[0, self._upload(at)] = src
         want_probs = any(not sampler.greedy for sampler, _, _ in metas)
         step = eng._sample_probs if want_probs else eng._sample
-        with torch.profiler.record_function("paged_sample_step"):
+        with profiling.annotate("paged_sample_step"):
             out, new_caches = step(self.draft_params, caches, tok, sampling)
         self.cache.update_pools(new_caches)
         return out if want_probs else (out, None)
@@ -776,7 +787,7 @@ class SpecDecoder:
         if fill_at:
             tok[0, self._upload(np.asarray(fill_at, np.int64))] = \
                 all_tok[self._upload(np.asarray(fill_src, np.int64))]
-        with torch.profiler.record_function("paged_verify_accept_step"):
+        with profiling.annotate("paged_verify_accept_step"):
             commit, m, chunk_tok, new_caches = eng._verify_accept(
                 self.target_params, caches, tok, accept, chunk_sampling)
         self.cache.update_pools(new_caches)

@@ -45,5 +45,13 @@ def test_scan_covers_the_package():
                  "src/repro_torch/serving/session.py",
                  "src/repro_torch/models/attention.py",
                  "src/repro_torch/models/transformer.py",
-                 "src/repro_torch/launch/serve.py"):
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/launch/costmodel.py",
+                 "src/repro_torch/launch/specs.py",
+                 "src/repro_torch/obs/metrics.py",
+                 "src/repro_torch/obs/ringtrace.py",
+                 "src/repro_torch/obs/watchdog.py",
+                 "src/repro_torch/obs/statusz.py",
+                 "src/repro_torch/obs/costaudit.py",
+                 "src/repro_torch/obs/profiling.py"):
         assert must in names

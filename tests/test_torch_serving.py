@@ -271,20 +271,24 @@ def test_engine_and_launcher_default_to_cuda(states, monkeypatch):
 
 
 def test_unported_engine_features_raise(states):
+    """Engine features that were once refused, now ported (the name
+    predates them; nothing here raises any more): the live telemetry
+    plane takes a metrics registry and serves with it, its counters
+    holding the stream's tokens; the drain engine serves one greedy
+    request alone (no padding) with the continuous engine's stream."""
+    from repro_torch.obs import MetricsRegistry
     _, (tcfg, tpf, ttable, tinfos) = states
-    # the live telemetry plane: the port has no metrics registry yet, so
-    # any object passed as one is refused
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ElasticEngine(tcfg, tpf, ttable, tinfos, device="cpu",
-                      registry=object())
-    # the drain engine is ported: one greedy request alone (no padding)
-    # gives the continuous engine's stream
+    reg = MetricsRegistry()
     eng = ElasticEngine(tcfg, tpf, ttable, tinfos, device="cpu",
-                        prefill_chunk=8)
+                        prefill_chunk=8, registry=reg)
     prompt = np.arange(3, 14, dtype=np.int32)
     reqs = [Request(prompt=prompt, max_new_tokens=5, budget=1.0)]
-    drain = eng.generate(reqs, mode="drain")[0]
     cont = eng.generate(reqs, mode="continuous")[0]
+    snap = reg.snapshot()
+    assert snap["repro_generated_tokens_total"] == 5
+    assert snap["repro_prefill_tokens_total"] == 11
+    assert snap["repro_requests_finished_total"] == 1
+    drain = eng.generate(reqs, mode="drain")[0]
     np.testing.assert_array_equal(drain.tokens, cont.tokens)
     assert len(drain.tokens) == 16
 
