@@ -29,8 +29,30 @@ Phases, each fatal on failure:
   6. cross   - one training step (batch 2 x 32 tokens, budget row 0) from
                the trained factors on the card and on the CPU: the loss and
                every gradient leaf must agree;
-  7. rwkv6   - the same consolidation of rwkv6-3b at full width cut to 8
-               of its 32 layers, 5 steps; ``wkv6`` and ``lowrank_matmul``
+  19. modes  - run right after phase 6, on phase 5's gpt2-small dense
+               weights and trained factors (full width, 8 x 128): (a) 3
+               steps (5 until the smoke passed 1050 s) of ``--mode
+               dense`` through ``make_train_step`` (under
+               ``remat_blocks``), then one loss and gradient with and
+               without remat from the same state (TOL_TRAIN_LOSS,
+               TOL_TRAIN_GRAD; ms and activation peak of each); (b) 3 steps
+               of ``--mode flexrank`` on the uniform table; (c) 3 steps of
+               ``flexrank_kd`` with Muon, ``apply_updates`` timed by CUDA
+               events and ``newton_schulz`` on the embedding; (b) and (c)
+               must launch ``lowrank_matmul``; (d) one step of each at 2
+               layers card vs CPU (loss, gradients, updated parameters);
+               (e) PowerSGD over (a)'s gradients card vs CPU from one
+               ``init`` (TOL_POWERSGD), its compression ratio; (f) the
+               launcher at full width, ``--mode dense --steps 6
+               --ckpt-every 2``: a real SIGTERM after step 3 through
+               ``PreemptionGuard``, the restart from step 4, against an
+               uninterrupted run (TOL_TRAIN_LOSS, bit identity logged), at
+               2 of the 12 layers;
+               (g) ``nestedness.train(nsl_loss)``, 1000 steps on the 6 x 5
+               target, card vs CPU (TOL_NESTED) and Theorem 4.3's gaps;
+  7. rwkv6   - the same consolidation of rwkv6-3b at full width cut to 4
+               of its 32 layers (8 until the smoke passed 1050 s with phase
+               19), 5 steps; ``wkv6`` and ``lowrank_matmul``
                launched, losses and CE finite; then one training step card
                vs CPU at 2 layers;
   8. zamba2  - the same for zamba2-7b at full width cut to one
@@ -46,8 +68,9 @@ Phases, each fatal on failure:
                the same step through ``paged_mixed_step`` with one token a
                slot (logits within TOL_DECODE, greedy tokens identical); the
                decode kernel launched;
-  10. gemma3 - gemma3-27b at full width cut to 6 of its 62 layers (one
-               period of the 5:1 local:global pattern): the serving
+  10. gemma3 - gemma3-27b at full width cut to 2 of its 62 layers, every
+               2nd global (a windowed layer and a global one: the 5:1
+               local:global pattern's two kinds of layer): the serving
                launcher's state, GAR at its shapes (T 8 and 264), 8
                requests of 1100-1500 prompt tokens (past the 1024-token
                window) and 32 new through ``ElasticEngine(prefill_chunk=256,
@@ -93,7 +116,7 @@ Phases, each fatal on failure:
                mode): streams identical to its plain run.
   13. drain  - the drain engine and the carried decode states: (a) right
                after phase 7, rwkv6-3b's trained factors, table and infos
-               (its optimizer state freed) served at full width (8 of 32
+               (its optimizer state freed) served at full width (4 of 32
                layers) through ``ElasticEngine(max_batch=8, max_len=256)
                .generate`` with ``mode="auto"``, which must route to drain:
                8 requests of 96-128 prompt tokens (each batch's longest
@@ -219,7 +242,9 @@ import gc
 import io
 import json
 import math
+import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -293,6 +318,14 @@ TOL_RECUR_CHUNKED = 2e-4
 # layers and back; the KL gradient is a difference of two softmaxes
 TOL_TRAIN_LOSS = 1e-4          # relative
 TOL_TRAIN_GRAD = 1e-3          # relative to each gradient leaf's max
+# phase 19 (e): PowerSGD's ghat and error card vs CPU, relative to each
+# leaf's gradient max (a float32 QR of the rank-8 projection on two
+# libraries, as the CPU tests hold the port against JAX)
+TOL_POWERSGD = 1e-4
+# phase 19 (g): the nestedness trainer's prefix products U Pi_[r] V^T card
+# vs CPU after 1000 Adam steps, relative to max |M*| (a 1-ulp change of the
+# initial draws moves them by at most 6.4e-7 on the CPU, at 500 steps)
+TOL_NESTED = 1e-5
 PROJECTIONS = ("attn/q", "attn/k", "attn/v", "attn/o", "mlp/gate", "mlp/up",
                "mlp/down")
 
@@ -1510,8 +1543,10 @@ def stream_phase(engine, reqs, plain, dev, max_len) -> dict:
 
 
 def gemma_phase(dev, rng, report, profiling):
-    """Phase 10: gemma3-27b at full width cut to 6 of its 62 layers (one
-    period of the 5:1 local:global pattern): the serving launcher's state,
+    """Phase 10: gemma3-27b at full width cut to 2 of its 62 layers, every
+    2nd global (a 1024-token windowed layer and a global one: both kinds
+    of the 5:1 pattern; 6 layers until the smoke passed 1050 s with
+    phase 19): the serving launcher's state,
     8 requests past the 1024-token window through ``ElasticEngine``, GAR
     at its shapes, the decode check, and one greedy request
     card vs CPU on the deployed row cut to 2 layers. Returns launches by
@@ -1526,8 +1561,8 @@ def gemma_phase(dev, rng, report, profiling):
     from repro_torch.obs import MetricsRegistry
     from repro_torch.serving import ElasticEngine, Request, SamplingParams
     full = get_config("gemma3-27b")
-    cfg = dataclasses.replace(full, segments=(Segment("attn", 6),),
-                              num_layers=6)
+    cfg = dataclasses.replace(full, segments=(Segment("attn", 2),),
+                              num_layers=2, global_every=2)
     for c in (full, cfg):
         n = cm.param_count(tfm.model_spec(c))
         log(f"# gemma3: {c.num_layers} layers: {n / 1e9:.3f} B dense "
@@ -1554,7 +1589,7 @@ def gemma_phase(dev, rng, report, profiling):
     deployed = {r: engine._realize(r) for r in rows}
     log(f"# gemma3 setup: dense init {t_init:.2f} s, calibrate "
         f"{setup['calibrate']:.2f} s, decompose {setup['decompose']:.2f} s "
-        f"(DataSVD, {len(infos)} groups x 6 layers on the card), DP "
+        f"(DataSVD, {len(infos)} groups x 2 layers on the card), DP "
         f"{setup['dp']:.2f} s ({table.table.shape[0]} rows), deploy "
         + ", ".join(f"row {r} (budget {b}) {engine.deploy_seconds[r]:.2f} s"
                     for b, r in zip(budgets, rows))
@@ -1606,7 +1641,7 @@ def gemma_phase(dev, rng, report, profiling):
         if gen.min() < 0 or gen.max() >= cfg.vocab_size:
             fail("gemma3: generated token out of the vocabulary")
     s = engine.last_metrics.summary()
-    log(f"# gemma3 serving: full width, 6 of 62 layers, 8 requests (prompts "
+    log(f"# gemma3 serving: full width, 2 of 62 layers, 8 requests (prompts "
         f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}"
         f", 32 new each, budgets 0.4/1.0 -> rows {rows}), wall {wall:.2f} s,"
         f" {s['tokens_per_s']:.1f} tok/s, ttft mean "
@@ -2039,6 +2074,412 @@ def recurrent_phase(name, layers, keep, kernels, dev, profiling):
                       FR.group_infos(small), cut_depth(dense, cfg, small),
                       dev)
     return launches, med, res, cfg
+
+
+# --------------------------------------------------- training modes
+
+MODE_STEPS = 3                 # steps of each of phase 19's (a)-(c)
+
+
+def _steps(label, step_fn, params, state, batch_at, key_at, lowrank):
+    """``MODE_STEPS`` steps of ``step_fn(params, state, batch, key)``
+    (metrics with ``loss``), each ended by reading its loss. Returns
+    (params, state, lowrank launches, median ms/step after the first,
+    peak device GB)."""
+    lowrank.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(MODE_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch_at(i), key_at(i))
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    launches = lowrank.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 19 {label}: losses not finite: {losses}")
+    med = statistics.median(secs[1:])
+    log(f"# modes {label}: {MODE_STEPS} steps of 8 x 128, losses "
+        f"{[round(x, 5) for x in losses]}, ms/step "
+        f"{[round(x * 1e3, 1) for x in secs]} (median after the first "
+        f"{med * 1e3:.2f}), peak {peak:.2f} GB, lowrank_matmul launches "
+        f"{launches}")
+    return params, state, launches, med * 1e3, peak
+
+
+def _leaf_err(a, b) -> float:
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+
+
+def _cross_modes(cfg, trained, dense, dev, smi):
+    """Phase 19 (d): one step of each of (a)-(c) from the same weights at
+    2 layers on the card and on the CPU: the loss within TOL_TRAIN_LOSS,
+    every gradient leaf and every updated parameter leaf within
+    TOL_TRAIN_GRAD of its max. Where a gradient entry lies within
+    TOL_TRAIN_GRAD of its leaf's max around zero, Adam's normalised step
+    may take either sign on the two devices: such an entry may differ by
+    up to twice the step's learning rate (counted in the log). Muon's
+    matrix leaves are held instead against the same step in float64 from
+    the CPU's gradient (on the card, in float64): the card's within twice
+    the CPU's own distance from it (or TOL_TRAIN_GRAD of the leaf's
+    max). Newton-Schulz in
+    float32 loses the directions whose squared singular value falls
+    below the Gram matrix's rounding, and a 64-token batch's gradients
+    have many."""
+    from repro_torch import threefry
+    from repro_torch.core import flexrank as FR
+    from repro_torch.data import make_source
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import train
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw, muon
+    small = dataclasses.replace(cfg, segments=cfg.segments[:2],
+                                num_layers=2)   # gpt2: a segment a layer
+    fact = cut_depth(trained.params, cfg, small)
+    teacher = cut_depth(dense, cfg, small)
+    tokens = make_source(cfg.vocab_size, 32, 2, seed=1).batch_at(0)["tokens"]
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                total_steps=MODE_STEPS)
+    mcfg = muon.MuonConfig(lr=1e-2, adamw=opt_cfg)
+    table_rows = FR.table_host(trained.table)
+    for label, start, ocfg in (("dense", teacher, opt_cfg),
+                               ("flexrank", fact, opt_cfg),
+                               ("flexrank_kd muon", fact, mcfg)):
+        out = []
+        for device in (dev, torch.device("cpu")):
+            params = cm.tree_map(lambda t: t.detach().to(device).clone()
+                                 .requires_grad_(True), start)
+            if ocfg is mcfg:
+                kd_loss = FR.make_consolidation_loss(
+                    small, FR.group_infos(small), table_rows,
+                    cm.tree_map(lambda t: t.to(device), teacher))
+
+                def loss_fn(p, b, r):
+                    return kd_loss(p, b, r)[0]
+                state = muon.init(params, ocfg)
+            else:
+                loss_fn = SP.make_train_step(small, opt_cfg,
+                                             mode=label).loss_fn
+                state = adamw.init(params)
+            t0 = time.perf_counter()
+            with tfm.remat_blocks():
+                loss = loss_fn(params, {"tokens": torch.as_tensor(
+                    tokens, device=device)}, threefry.prng_key(3))
+                loss.backward()
+            grads = SP.grads_of(params)
+            g_host = [g.detach().cpu().clone() for g in cm.tree_leaves(grads)]
+            params, state, om = train.apply_updates(params, grads, state,
+                                                    ocfg)
+            out.append((float(loss.detach()), g_host,
+                        [p.detach().cpu() for p in cm.tree_leaves(params)],
+                        om["lr"], time.perf_counter() - t0))
+        (l_g, g_g, p_g, _, t_g), (l_c, g_c, p_c, lr, t_c) = out
+        loss_err = abs(l_g - l_c) / abs(l_c)
+        g_worst = max(_leaf_err(a, b) for a, b in zip(g_g, g_c))
+        p_worst, p_name, flips, ns = 0.0, "", 0, []
+        names = [n for n, _ in cm.tree_items(start)]
+        for name, p0, a, b, g in zip(names, cm.tree_leaves(start), p_g, p_c,
+                                     g_c):
+            scale = float(b.abs().max()) + 1e-30
+            err = (a - b).abs()
+            if ocfg is mcfg and p0.dim() >= 2:
+                # the first step: zero momentum, so the Nesterov update is
+                # g (1 + momentum)
+                o = muon.newton_schulz(
+                    g.to(dev).double() * (1 + ocfg.momentum),
+                    ocfg.ns_steps).cpu()
+                step = ocfg.lr * math.sqrt(max(1.0, p0.shape[-2]
+                                               / p0.shape[-1]))
+                ref = p0.detach().cpu().double() - step * o
+                e_card = float((a.double() - ref).abs().max())
+                e_cpu = float((b.double() - ref).abs().max())
+                ns.append((e_card / max(e_cpu, 1e-30), name))
+                e = float(err.max()) / scale
+                if e_card <= 2.0 * e_cpu:
+                    e = 0.0
+            else:
+                noise = g.abs() <= TOL_TRAIN_GRAD * float(g.abs().max())
+                flips += int(((err > TOL_TRAIN_GRAD * scale)
+                              & noise).sum())
+                err = torch.where(noise & (err <= 2.0 * lr + 1e-7),
+                                  torch.zeros_like(err), err)
+                e = float(err.max()) / scale
+            if e > p_worst:
+                p_worst, p_name = e, name
+        ns_line = ""
+        if ns:
+            worst_ns = max(ns)
+            ns_line = (f"; Muon matrix leaves: the card's distance from the "
+                       f"float64 step at most {worst_ns[0]:.2f}x the CPU's "
+                       f"({worst_ns[1]})")
+        log(f"# modes (d) {label}: 2 layers, loss card {l_g:.7f} CPU "
+            f"{l_c:.7f} (rel {loss_err:.2e}), worst gradient leaf "
+            f"{g_worst:.2e} of its max, worst updated parameter leaf "
+            f"{p_worst:.2e} ({p_name or 'none'}; {flips} entries at a "
+            f"noise-level gradient moved by the other sign){ns_line}, step "
+            f"{t_g:.2f} s card, {t_c:.2f} s CPU; {smi}")
+        if not (loss_err < TOL_TRAIN_LOSS and g_worst < TOL_TRAIN_GRAD
+                and p_worst < TOL_TRAIN_GRAD):
+            fail(f"phase 19 (d) {label}: card vs CPU: loss {loss_err:.3e}, "
+                 f"gradient {g_worst:.3e}, parameters {p_worst:.3e}")
+
+
+def _powersgd_check(grads, smi):
+    """Phase 19 (e): ``compress_decompress`` over a gradient tree on the
+    card and on the CPU from the same ``init`` (drawn on the card)."""
+    from repro_torch.models import common as cm
+    from repro_torch.optim import compression as C
+    pcfg = C.PowerSGDConfig()
+    t0 = time.perf_counter()
+    st = C.init(grads, pcfg, seed=0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    st_cpu = C.PowerSGDState(q=cm.tree_map(lambda t: t.cpu(), st.q),
+                             error=cm.tree_map(lambda t: t.cpu(), st.error))
+    g_cpu = cm.tree_map(lambda t: t.detach().cpu(), grads)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    gh, st2, m = C.compress_decompress(grads, st, pcfg)
+    e1.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gh_c, st2_c, m_c = C.compress_decompress(g_cpu, st_cpu, pcfg)
+    t_cpu = time.perf_counter() - t0
+    worst = 0.0
+    for a, b, ea, eb, g in zip(cm.tree_leaves(gh), cm.tree_leaves(gh_c),
+                               cm.tree_leaves(st2.error),
+                               cm.tree_leaves(st2_c.error),
+                               cm.tree_leaves(g_cpu)):
+        scale = float(g.abs().max()) + 1e-30
+        worst = max(worst, float((a.cpu() - b).abs().max()) / scale)
+        if ea.numel():
+            worst = max(worst, float((ea.cpu() - eb).abs().max()) / scale)
+    n_comp = sum(int(q.numel() > 0) for q in cm.tree_leaves(st.q))
+    log(f"# modes (e) powersgd: rank {pcfg.rank}, {n_comp} of "
+        f"{len(cm.tree_leaves(st.q))} leaves compressed, ratio "
+        f"{m['powersgd_ratio']:.5f} ({m['powersgd_comp_bytes']} of "
+        f"{m['powersgd_raw_bytes']} bytes), card {e0.elapsed_time(e1):.2f} "
+        f"ms (init {t_init:.2f} s), CPU {t_cpu:.2f} s; ghat and error card "
+        f"vs CPU worst {worst:.2e} of the leaf's gradient max; {smi}")
+    if m != m_c or not worst < TOL_POWERSGD:
+        fail(f"phase 19 (e): PowerSGD card vs CPU {worst:.3e} (metrics "
+             f"{m} / {m_c})")
+
+
+def _preempt_check(smi):
+    """Phase 19 (f): the launcher at full width, ``--mode dense --steps 6
+    --ckpt-every 2``: run 1 gets a real SIGTERM after step 3 and saves
+    step 4; run 2 resumes there and finishes; an uninterrupted run in
+    another directory. Steps 4-5's losses and the final parameters within
+    TOL_TRAIN_LOSS. The launcher's config is cut to 2 of gpt2's 12 layers
+    (its ``get_config`` patched): at 12 the three runs took 27.3 s of the
+    smoke's budget, most of it 1.5 GB checkpoints."""
+    from unittest import mock
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import common as cm
+
+    def two_layers(arch, smoke=False):
+        """The launcher's config at full width, 2 of its layers (gpt2:
+        a segment a layer)."""
+        cfg = get_config(arch, smoke=smoke)
+        return dataclasses.replace(cfg, segments=cfg.segments[:2],
+                                   num_layers=2)
+    tmp = tempfile.mkdtemp(prefix="smoke19_")
+    stack = contextlib.ExitStack()
+    args = ["--mode", "dense", "--steps", "6", "--ckpt-every", "2",
+            "--seq-len", "128", "--batch", "8"]
+
+    def sigterm_after_3(step):
+        if step == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+    try:
+        stack.enter_context(mock.patch.object(train, "get_config",
+                                              two_layers))
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        t0 = time.perf_counter()
+        _, first = train.main(args + ["--ckpt-dir", a],
+                              step_hook=sigterm_after_3)
+        t1 = time.perf_counter()
+        steps_a = CheckpointManager(a).all_steps()
+        p2, second = train.main(args + ["--ckpt-dir", a])
+        t2 = time.perf_counter()
+        p_full, full = train.main(args + ["--ckpt-dir", b])
+        t3 = time.perf_counter()
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(b) for f in fs)
+    finally:
+        stack.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(first) != 4 or steps_a[-1:] != [4] or len(second) != 2 \
+            or len(full) != 6:
+        fail(f"phase 19 (f): preempted run {len(first)} steps, checkpoints "
+             f"{steps_a}, resumed {len(second)}, uninterrupted {len(full)}")
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(second, full[4:]))
+    worst = max(_leaf_err(x, y.cpu()) for x, y in
+                zip(cm.tree_leaves(p2), cm.tree_leaves(p_full)))
+    same = second == full[4:] and all(
+        torch.equal(x, y) for x, y in zip(cm.tree_leaves(p2),
+                                          cm.tree_leaves(p_full)))
+    log(f"# modes (f) preemption, 2 of 12 layers: run 1 {len(first)} steps "
+        f"then SIGTERM, "
+        f"checkpoints {steps_a} ({t1 - t0:.2f} s), run 2 resumed at 4 "
+        f"({t2 - t1:.2f} s), uninterrupted ({t3 - t2:.2f} s, "
+        f"{size / 1e9:.2f} GB of checkpoints kept); steps 4-5 losses "
+        f"{second} vs {full[4:]} (rel {loss_err:.2e}), final parameters "
+        f"worst {worst:.2e} of a leaf's max, bit-identical: {same}; {smi}")
+    if not (loss_err < TOL_TRAIN_LOSS and worst < TOL_TRAIN_LOSS):
+        fail(f"phase 19 (f): resumed vs uninterrupted: losses "
+             f"{loss_err:.3e}, parameters {worst:.3e}")
+
+
+def _nested_check(smi):
+    """Phase 19 (g): ``nestedness.train(nsl_loss)`` on the 6 x 5 target,
+    1000 steps, on the card and on the CPU from the same draws: every
+    prefix product within TOL_NESTED of max |M*|, and the card's NSL
+    gaps below 5e-3 (Theorem 4.3, as ``tests/test_nestedness_theory.py``
+    asserts)."""
+    from repro_torch.core import nestedness as NS
+    m_star = NS.make_target(np.random.default_rng(7), 6, 5, decay=1.2)
+    out = []
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = NS.train(NS.nsl_loss, m_star, steps=1000, seed=1, device=device)
+        pre = torch.cumsum(torch.einsum("mj,nj->jmn", p.u.double(),
+                                        p.v.double()), 0).cpu()
+        out.append((p, pre, time.perf_counter() - t0))
+    (p_g, pre_g, t_g), (_, pre_c, t_c) = out
+    err = float((pre_g - pre_c).abs().max()) / float(np.abs(m_star).max())
+    gaps = NS.pareto_gaps(p_g, m_star)
+    log(f"# modes (g) nestedness: NSL 1000 steps, card {t_g:.2f} s, CPU "
+        f"{t_c:.2f} s; prefix products card vs CPU {err:.2e} of max |M*|; "
+        f"card gaps {[float(f'{g:.3e}') for g in gaps]}; {smi}")
+    if not (err < TOL_NESTED and gaps.max() < 5e-3):
+        fail(f"phase 19 (g): nestedness card vs CPU {err:.3e}, gaps {gaps}")
+
+
+def modes_phase(cfg, dense, trained, dev, lowrank, smi) -> int:
+    """Phase 19 on phase 5's gpt2-small dense weights (``dense``) and
+    trained factors (``trained``, the ``TrainRun``): (a) dense through
+    ``make_train_step`` with remat, then one loss and gradient with and
+    without remat from the same state; (b) ``flexrank`` mode on the
+    uniform table; (c) ``flexrank_kd`` with Muon, its optimizer step
+    timed by CUDA events; (d)-(g) as their helpers say. Returns the
+    ``lowrank_matmul`` launches of (b) and (c)."""
+    from repro_torch import threefry
+    from repro_torch.core import flexrank as FR
+    from repro_torch.data import make_source
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw, muon
+    source = make_source(cfg.vocab_size, 128, 8, seed=0)
+
+    def batch_at(step):
+        return {"tokens": torch.as_tensor(source.batch_at(step)["tokens"],
+                                          device=dev)}
+
+    def key_at(step):
+        return threefry.fold_in(threefry.prng_key(1), step)
+
+    def fresh(tree):
+        return cm.tree_map(
+            lambda t: t.detach().clone().requires_grad_(True), tree)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                total_steps=MODE_STEPS)
+
+    # (a) dense, remat, then one loss and gradient with and without it
+    step_a = SP.make_train_step(cfg, opt_cfg, mode="dense")
+    params = fresh(dense)
+    params, state, _, ms_a, _ = _steps("(a) dense", step_a, params,
+                                       adamw.init(params), batch_at, key_at,
+                                       lowrank)
+    rows = {}
+    for remat in (True, False):
+        SP.clear_grads(params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with tfm.remat_blocks() if remat else contextlib.nullcontext():
+            loss = step_a.loss_fn(params, batch_at(MODE_STEPS),
+                                  key_at(MODE_STEPS))
+            loss.backward()
+        loss = float(loss.detach())
+        dt = time.perf_counter() - t0
+        rows[remat] = (loss, SP.grads_of(params), dt,
+                       (torch.cuda.max_memory_allocated() - base) / 1e9)
+        SP.clear_grads(params)
+    (l_r, g_r, t_r, m_r), (l_n, g_n, t_n, m_n) = rows[True], rows[False]
+    loss_err = abs(l_r - l_n) / abs(l_n)
+    g_worst = max(_leaf_err(a, b) for a, b in zip(cm.tree_leaves(g_r),
+                                                  cm.tree_leaves(g_n)))
+    same = l_r == l_n and all(torch.equal(a, b) for a, b in zip(
+        cm.tree_leaves(g_r), cm.tree_leaves(g_n)))
+    log(f"# modes (a) remat: loss {l_r:.7f} / {l_n:.7f} without (rel "
+        f"{loss_err:.2e}), worst gradient leaf {g_worst:.2e}, bit-identical:"
+        f" {same}; forward+backward {t_r * 1e3:.1f} ms with remat, "
+        f"{t_n * 1e3:.1f} ms without; activation peak above the state "
+        f"{m_r:.3f} GB with, {m_n:.3f} GB without; {smi}")
+    if not (loss_err < TOL_TRAIN_LOSS and g_worst < TOL_TRAIN_GRAD):
+        fail(f"phase 19 (a): remat vs not: loss {loss_err:.3e}, gradient "
+             f"{g_worst:.3e}")
+    del params, state, g_n, rows
+
+    # (b) flexrank mode on the uniform table, from phase 5's factors
+    params = fresh(trained.params)
+    params, state, launches_b, _, _ = _steps(
+        "(b) flexrank", SP.make_train_step(cfg, opt_cfg, mode="flexrank"),
+        params, adamw.init(params), batch_at, key_at, lowrank)
+    del params, state
+
+    # (c) flexrank_kd with Muon, its optimizer step timed on the card
+    mcfg = muon.MuonConfig(lr=1e-2, adamw=opt_cfg)
+    loss_c = FR.make_consolidation_loss(cfg, trained.infos,
+                                        FR.table_host(trained.table), dense)
+    apply_ms = []
+
+    def muon_step(params, state, batch, key):
+        loss, m = loss_c(params, batch, key)
+        loss.backward()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        params, state, _ = muon.apply_updates(params, SP.grads_of(params),
+                                              state, mcfg)
+        e1.record()
+        SP.clear_grads(params)
+        apply_ms.append((e0, e1))
+        return params, state, m
+    params = fresh(trained.params)
+    params, state, launches_c, ms_c, _ = _steps(
+        "(c) flexrank_kd muon", muon_step, params, muon.init(params, mcfg),
+        batch_at, key_at, lowrank)
+    torch.cuda.synchronize()
+    apply = statistics.median(a.elapsed_time(b) for a, b in apply_ms[1:])
+    emb = state.momentum["embed"]
+    ns_ms = device_ms([lambda: muon.newton_schulz(emb)], reps=5)
+    log(f"# modes (c) muon: apply_updates {apply:.2f} ms of a {ms_c:.2f} "
+        f"ms step ({100 * apply / ms_c:.1f}%), newton_schulz on the "
+        f"embedding {tuple(emb.shape)} {ns_ms:.2f} ms; {smi}")
+    del params, state
+    if min(launches_b, launches_c) <= 0:
+        fail(f"phase 19: lowrank_matmul launches (b) {launches_b}, (c) "
+             f"{launches_c}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _cross_modes(cfg, trained, dense, dev, smi)
+    _powersgd_check(g_r, smi)
+    del g_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    _preempt_check(smi)
+    _nested_check(smi)
+    return launches_b + launches_c
 
 
 # ------------------------------------------------------------ drain
@@ -3752,17 +4193,26 @@ def main() -> int:
     if profiling:
         profile_train(cfg, res, dense)
     cross_train_phase(cfg, res.params, res.table, res.infos, dense, dev)
+
+    phase_done("5-6 training")
+
+    # 19. the other training modes, Muon, PowerSGD, preemption and
+    # restart through the launcher, the nestedness trainer, on phase 5's
+    # weights
+    counts["lowrank_matmul"] += modes_phase(cfg, dense, res, dev,
+                                            lowrank_matmul, smi)
     del res, dense
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase_done("5-6 training")
+    phase_done("19 training modes")
 
-    # 7. rwkv6-3b, 8. zamba2-7b: full width, cut in depth; each then
+    # 7. rwkv6-3b (4 of 32 layers; 8 until the smoke passed 1050 s with
+    # phase 19), 8. zamba2-7b: full width, cut in depth; each then
     # served through drain from its trained state (13 (a), (b))
     drng = np.random.default_rng(13)
     rwkv_counts, _, res, rcfg = recurrent_phase(
-        "rwkv6-3b", (Segment("rwkv", 8),), (Segment("rwkv", 2),),
+        "rwkv6-3b", (Segment("rwkv", 4),), (Segment("rwkv", 2),),
         (wkv6, lowrank_matmul), dev, profiling)
     res.opt_state = None
     gc.collect()
@@ -3822,7 +4272,7 @@ def main() -> int:
 
     phase_done("9 decode")
 
-    # 10. gemma3-27b at full width, 6 of 62 layers
+    # 10. gemma3-27b at full width, 2 of 62 layers (every 2nd global)
     gemma_counts, gemma_gar_err = gemma_phase(dev, rng, report, profiling)
     gar_err = max(gar_err, gemma_gar_err)
     counts["gar_matmul"] += gemma_counts["gar_matmul"]

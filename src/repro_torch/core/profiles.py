@@ -50,3 +50,13 @@ def table_from_profiles(layer_names: Sequence[str],
     return ProfileTable(layer_names=tuple(layer_names), table=table,
                         budgets=tuple(budgets),
                         max_ranks=tuple(int(r) for r in max_ranks))
+
+
+def uniform_table(layer_names: Sequence[str], max_ranks: Sequence[int],
+                  budgets: Sequence[float]) -> ProfileTable:
+    """Baseline: the same relative rank everywhere (no DP), rows made
+    nested by a running maximum. ``--mode flexrank`` trains on it."""
+    rows = [[max(1, int(round(b * r))) for r in max_ranks] for b in budgets]
+    table = np.maximum.accumulate(np.asarray(rows, np.int32), axis=0)
+    return ProfileTable(tuple(layer_names), table, tuple(budgets),
+                        tuple(int(r) for r in max_ranks))

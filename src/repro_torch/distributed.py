@@ -1,9 +1,11 @@
-"""Host-side fault-tolerance helpers of the training loop (a copy of the
-JAX package's ``StragglerMonitor``; the port has no mesh yet)."""
+"""Host-side fault-tolerance helpers of the training loop: copies of the
+JAX package's ``StragglerMonitor`` and ``PreemptionGuard``. The port has
+no mesh yet (ROADMAP A.11)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+import signal
+from typing import List, Sequence
 
 import numpy as np
 
@@ -31,3 +33,25 @@ class StragglerMonitor:
     @property
     def median(self) -> float:
         return float(np.median(self._times)) if self._times else 0.0
+
+
+class PreemptionGuard:
+    """SIGTERM (or the given signals) -> set ``requested``; the training
+    loop checkpoints and exits cleanly at the next step boundary.
+    ``restore`` puts the previous handlers back."""
+
+    def __init__(self, signals: Sequence[int] = (signal.SIGTERM,)):
+        self.requested = False
+        self._prev = {}
+        for s in signals:
+            try:
+                self._prev[s] = signal.signal(s, self._handler)
+            except (ValueError, OSError):
+                pass  # not the main thread, or unsupported
+
+    def _handler(self, signum, frame):
+        self.requested = True
+
+    def restore(self):
+        for s, h in self._prev.items():
+            signal.signal(s, h)

@@ -1,19 +1,27 @@
-"""Decode-state shapes of a cell, without allocating them: the part of the
-JAX package's ``launch/specs.py`` that the cost model reads
-(``frontend_len`` and ``cache_specs``). The state is built on the ``meta``
-device, so a full-size config costs no memory. Its input, parameter and
-optimizer specs and its step functions belong to training's launch
-modes, which are not ported yet.
+"""Decode-state shapes of a cell, and the train step of the launcher's
+modes: the parts of the JAX package's ``launch/specs.py`` that the port
+runs on one device. ``frontend_len`` and ``cache_specs`` feed the cost
+model; the state is built on the ``meta`` device, so a full-size config
+costs no memory. ``make_train_step`` is the reference's step of the
+``dense``, ``flexrank`` and ``flexrank_kd`` modes: the loss and its
+gradients under ``remat_blocks()``, then AdamW. Its input, parameter,
+optimizer and cache shardings belong to a mesh (ROADMAP A.11).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import threefry
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core import distill
+from repro_torch.core import flexrank as FR
+from repro_torch.core.profiles import uniform_table
+from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import adamw
 
 COMPUTE_DTYPE = torch.bfloat16
 INT32 = 4
@@ -60,3 +68,81 @@ def state_nbytes(state) -> int:
         else:
             total += state_nbytes(v)
     return total
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+def grads_of(params) -> Dict:
+    """The gradient tree after ``backward``: a leaf the loss does not reach
+    (zamba2's per-unit ``ln_attn``: the shared block has its own norm) has
+    a zero gradient, as under ``jax.grad``."""
+    return cm.tree_map(lambda p: torch.zeros_like(p) if p.grad is None
+                       else p.grad, params)
+
+
+def clear_grads(params) -> None:
+    for p in cm.tree_leaves(params):
+        p.grad = None
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
+                    mode: str = "dense", num_budgets: int = 7):
+    """Returns ``train_step(params, opt_state, batch, rng,
+    teacher_params=None) -> (params, opt_state, metrics)``, the update in
+    place (``optim/adamw.py``), metrics ``loss`` (a detached device
+    scalar, the loss plus the MoE aux), ``grad_norm`` and ``lr``.
+
+    mode 'dense': the dense forward, cross-entropy plus aux.
+    mode 'flexrank': factorized params under the ranks of budget row
+    ``k = randint(rng, (), 0, K)`` of the uniform table over the first
+    ``num_budgets`` budgets of ``cfg.flexrank``, cross-entropy plus aux.
+    mode 'flexrank_kd': the same, distilled from ``teacher_params`` (the
+    frozen dense model) where given.
+
+    The step's loss, ``loss_fn(params, batch, rng, teacher_params=None)``,
+    is ``train_step.loss_fn``."""
+    infos = (FR.group_infos(cfg)
+             if mode in ("flexrank", "flexrank_kd") else None)
+    table_rows = None
+    if infos:
+        table_rows = uniform_table(
+            [i.path for i in infos], [i.full_rank for i in infos],
+            cfg.flexrank.budgets[:num_budgets]).table
+    kd = mode == "flexrank_kd"
+
+    def loss_fn(params, batch, rng: threefry.Key,
+                teacher_params: Optional[Dict] = None) -> torch.Tensor:
+        tokens = batch["tokens"][:, :-1]
+        labels = batch["tokens"][:, 1:]
+        frontend = batch.get("frontend")
+        ranks = None
+        if infos:
+            k = FR.budget_draw(rng, table_rows.shape[0])
+            ranks = FR.ranks_tree(cfg, infos, table_rows, k)
+        logits, aux = tfm.forward(params, cfg, tokens, ranks=ranks,
+                                  frontend=frontend)
+        if kd and teacher_params is not None:
+            with torch.no_grad():
+                t_logits, _ = tfm.forward(teacher_params, cfg, tokens,
+                                          frontend=frontend)
+            loss = distill.consolidation_loss(
+                logits, t_logits, labels, kd_weight=cfg.flexrank.kd_weight,
+                temperature=cfg.flexrank.kd_temperature)
+        else:
+            loss = distill.cross_entropy(logits, labels)
+        return loss + aux
+
+    def train_step(params, opt_state: adamw.AdamWState, batch,
+                   rng: threefry.Key, teacher_params: Optional[Dict] = None):
+        with tfm.remat_blocks():
+            loss = loss_fn(params, batch, rng, teacher_params)
+            loss.backward()
+        params, opt_state, metrics = adamw.apply_updates(
+            params, grads_of(params), opt_state, opt_cfg)
+        clear_grads(params)
+        return params, opt_state, {"loss": loss.detach(), **metrics}
+
+    train_step.loss_fn = loss_fn
+    return train_step

@@ -22,6 +22,13 @@ Ranks trees mirror the parameters (``{'segments': [{'attn': {'q': r,
 ...}, 'mlp': {...}}, ...], 'shared_attn': {...}}``) with one Python int
 per factorized group, shared by the group's layers.
 
+Under ``remat_blocks()`` (the training step's activation checkpointing)
+every per-layer body that ``run_segment`` walks, a zamba unit's body and
+each Mamba2 layer inside it, runs through
+``torch.utils.checkpoint.checkpoint``: only the layer boundaries stay
+alive and the backward recomputes the rest. Values and gradients do not
+change; the peak memory does.
+
 Public API:
   model_spec(cfg)                                 -> ParamSpec tree
   forward(params, cfg, tokens, ranks=, frontend=) -> (logits, aux)
@@ -36,9 +43,11 @@ Public API:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import contextlib
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, Segment
 from repro_torch.models import attention as attn
@@ -51,6 +60,30 @@ from repro_torch.models.common import ParamSpec
 
 GLOBAL_WINDOW = 1 << 30
 
+# activation checkpointing of every layer body, set by ``remat_blocks``
+_REMAT = {"on": False}
+
+
+@contextlib.contextmanager
+def remat_blocks():
+    """Activation checkpointing for the train step, as the reference's
+    ``remat_blocks`` wraps every scanned body in ``jax.checkpoint``."""
+    prev = _REMAT["on"]
+    _REMAT["on"] = True
+    try:
+        yield
+    finally:
+        _REMAT["on"] = prev
+
+
+def _body(fn: Callable, *args):
+    """``fn(*args)``, through ``checkpoint`` under ``remat_blocks`` when
+    autograd records. The forward draws nothing random, so no RNG state is
+    kept for the recomputation."""
+    if _REMAT["on"] and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 def _attn_block_spec(cfg: ModelConfig, *, moe: bool) -> Dict:
     return {
@@ -298,60 +331,70 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
         moe = cfg.moe is not None and seg.kind == "attn"
         aux = 0.0
         for l in range(seg.count):
-            cache_l = None if cache is None else _self_cache(cache, l)
-            p_l = _layer(params, l)
-            with cm.tap_scope(f"@{l}"):
-                x, _, aux_l = _apply_attn_block(
-                    p_l, x, cfg, positions=positions, window=windows[l],
-                    ranks=ranks, cache=cache_l, moe=moe)
-                skv = _cross_kv(cache, l)
-                if seg.kind == "decoder" and (kv_source is not None
-                                              or skv is not None):
-                    x = _apply_cross_block(p_l["cross"], x, cfg,
-                                           kv_source=kv_source,
-                                           ranks=rget_tree(ranks, "cross"),
-                                           static_kv=skv)
+            def layer(x, l=l):
+                cache_l = None if cache is None else _self_cache(cache, l)
+                p_l = _layer(params, l)
+                with cm.tap_scope(f"@{l}"):
+                    x, _, aux_l = _apply_attn_block(
+                        p_l, x, cfg, positions=positions, window=windows[l],
+                        ranks=ranks, cache=cache_l, moe=moe)
+                    skv = _cross_kv(cache, l)
+                    if seg.kind == "decoder" and (kv_source is not None
+                                                  or skv is not None):
+                        x = _apply_cross_block(
+                            p_l["cross"], x, cfg, kv_source=kv_source,
+                            ranks=rget_tree(ranks, "cross"), static_kv=skv)
+                return x, aux_l
+            x, aux_l = _body(layer, x)
             aux = aux + aux_l
         return x, None if cache is None else dict(
             cache, idx=cache["idx"] + s), aux
     if seg.kind == "encoder":
         for l in range(seg.count):
-            p_l = _layer(params, l)
-            with cm.tap_scope(f"@{l}"):
-                h = cm.rms_norm(x, p_l["ln_attn"], eps=cfg.norm_eps)
-                with cm.tap_scope("attn"):
-                    y, _ = attn.attn_apply(
-                        p_l["attn"], h, cfg, positions=positions,
-                        window=GLOBAL_WINDOW,
-                        ranks=rget_tree(ranks, "attn"), causal=False)
-                x = x + y
-                h = cm.rms_norm(x, p_l["ln_mlp"], eps=cfg.norm_eps)
-                with cm.tap_scope("mlp"):
-                    x = x + attn.ffn_apply(p_l["mlp"], h,
-                                           ranks=rget_tree(ranks, "mlp"))
+            def layer(x, l=l):
+                p_l = _layer(params, l)
+                with cm.tap_scope(f"@{l}"):
+                    h = cm.rms_norm(x, p_l["ln_attn"], eps=cfg.norm_eps)
+                    with cm.tap_scope("attn"):
+                        y, _ = attn.attn_apply(
+                            p_l["attn"], h, cfg, positions=positions,
+                            window=GLOBAL_WINDOW,
+                            ranks=rget_tree(ranks, "attn"), causal=False)
+                    x = x + y
+                    h = cm.rms_norm(x, p_l["ln_mlp"], eps=cfg.norm_eps)
+                    with cm.tap_scope("mlp"):
+                        return x + attn.ffn_apply(
+                            p_l["mlp"], h, ranks=rget_tree(ranks, "mlp"))
+            x = _body(layer, x)
         return x, cache, 0.0
     if seg.kind == "vision_unit":
         sranks = rget_tree(ranks, "selfs")
+        scache = None if cache is None else cache["selfs"]
         for u in range(seg.count):
-            p_u = _layer(params, u)
-            scache = None if cache is None else cache["selfs"]
-            with cm.tap_scope(f"@{u}"):
-                with cm.tap_scope("selfs"):
-                    for l in range(seg.self_per_unit):
-                        cache_l = None if scache is None else {
-                            "k": scache["k"][u, l], "v": scache["v"][u, l],
-                            "idx": scache["idx"]}
-                        with cm.tap_scope(f"@{l}"):
-                            x, _, _ = _apply_attn_block(
-                                _layer(p_u["selfs"], l), x, cfg,
-                                positions=positions, window=GLOBAL_WINDOW,
-                                ranks=sranks, cache=cache_l)
-                skv = _cross_kv(cache, u)
-                if kv_source is not None or skv is not None:
-                    x = _apply_cross_block(p_u["cross"], x, cfg,
-                                           kv_source=kv_source,
-                                           ranks=rget_tree(ranks, "cross"),
-                                           static_kv=skv)
+            def unit(x, u=u):
+                p_u = _layer(params, u)
+                with cm.tap_scope(f"@{u}"):
+                    with cm.tap_scope("selfs"):
+                        for l in range(seg.self_per_unit):
+                            def self_layer(x, l=l):
+                                cache_l = None if scache is None else {
+                                    "k": scache["k"][u, l],
+                                    "v": scache["v"][u, l],
+                                    "idx": scache["idx"]}
+                                with cm.tap_scope(f"@{l}"):
+                                    return _apply_attn_block(
+                                        _layer(p_u["selfs"], l), x, cfg,
+                                        positions=positions,
+                                        window=GLOBAL_WINDOW, ranks=sranks,
+                                        cache=cache_l)[0]
+                            x = _body(self_layer, x)
+                    skv = _cross_kv(cache, u)
+                    if kv_source is not None or skv is not None:
+                        x = _apply_cross_block(
+                            p_u["cross"], x, cfg, kv_source=kv_source,
+                            ranks=rget_tree(ranks, "cross"), static_kv=skv)
+                return x
+            x = _body(unit, x)
         if cache is None:
             return x, None, 0.0
         return x, dict(cache, selfs=dict(cache["selfs"],
@@ -359,19 +402,23 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
             0.0
     if seg.kind == "mamba":
         for l in range(seg.count):
-            state_l = None if cache is None else _layer(cache, l)
-            with cm.tap_scope(f"@{l}"):
-                x, new = _apply_mamba_block(_layer(params, l), x, cfg,
-                                            ranks=ranks, state=state_l)
+            def layer(x, l=l):
+                state_l = None if cache is None else _layer(cache, l)
+                with cm.tap_scope(f"@{l}"):
+                    return _apply_mamba_block(_layer(params, l), x, cfg,
+                                              ranks=ranks, state=state_l)
+            x, new = _body(layer, x)
             if cache is not None:
                 _store(cache, l, new)
         return x, cache, 0.0
     if seg.kind == "rwkv":
         for l in range(seg.count):
-            state_l = None if cache is None else _layer(cache, l)
-            with cm.tap_scope(f"@{l}"):
-                x, new = rwkv_mod.rwkv_apply(_layer(params, l), x, cfg,
-                                             ranks=ranks, state=state_l)
+            def layer(x, l=l):
+                state_l = None if cache is None else _layer(cache, l)
+                with cm.tap_scope(f"@{l}"):
+                    return rwkv_mod.rwkv_apply(_layer(params, l), x, cfg,
+                                               ranks=ranks, state=state_l)
+            x, new = _body(layer, x)
             if cache is not None:
                 _store(cache, l, new)
         return x, cache, 0.0
@@ -379,34 +426,39 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
         raise ValueError(f"unknown segment kind {seg.kind}")
     mranks = rget_tree(ranks, "mambas")
     for u in range(seg.count):
-        p_u = _layer(params, u)
-        mcache = None if cache is None else _layer(cache["mamba"], u)
-        acache = None if cache is None else {
-            "k": cache["attn"]["k"][u], "v": cache["attn"]["v"][u],
-            "idx": cache["attn"]["idx"]}
-        with cm.tap_scope(f"@{u}"):
-            with cm.tap_scope("mambas"):
-                for l in range(seg.mamba_per_unit):
-                    state_l = None if mcache is None else _layer(mcache, l)
-                    with cm.tap_scope(f"@{l}"):
-                        x, new = _apply_mamba_block(
-                            _layer(p_u["mambas"], l), x, cfg, ranks=mranks,
-                            state=state_l)
-                    if mcache is not None:
-                        _store(mcache, l, new)
-            h = cm.rms_norm(x, shared_attn_params["ln_attn"],
-                            eps=cfg.norm_eps)
-            with cm.tap_scope("shared_attn/attn", absolute=True):
-                y, _ = attn.attn_apply(
-                    shared_attn_params["attn"], h, cfg, positions=positions,
-                    window=GLOBAL_WINDOW,
-                    ranks=rget_tree(shared_attn_ranks, "attn"),
-                    cache=acache)
-            x = x + y
-            h = cm.rms_norm(x, p_u["ln_mlp"], eps=cfg.norm_eps)
-            with cm.tap_scope("mlp"):
-                x = x + attn.ffn_apply(p_u["mlp"], h,
-                                       ranks=rget_tree(ranks, "mlp"))
+        def unit(x, u=u):
+            p_u = _layer(params, u)
+            mcache = None if cache is None else _layer(cache["mamba"], u)
+            acache = None if cache is None else {
+                "k": cache["attn"]["k"][u], "v": cache["attn"]["v"][u],
+                "idx": cache["attn"]["idx"]}
+            with cm.tap_scope(f"@{u}"):
+                with cm.tap_scope("mambas"):
+                    for l in range(seg.mamba_per_unit):
+                        def mamba_layer(x, l=l):
+                            state_l = None if mcache is None else _layer(
+                                mcache, l)
+                            with cm.tap_scope(f"@{l}"):
+                                return _apply_mamba_block(
+                                    _layer(p_u["mambas"], l), x, cfg,
+                                    ranks=mranks, state=state_l)
+                        x, new = _body(mamba_layer, x)
+                        if mcache is not None:
+                            _store(mcache, l, new)
+                h = cm.rms_norm(x, shared_attn_params["ln_attn"],
+                                eps=cfg.norm_eps)
+                with cm.tap_scope("shared_attn/attn", absolute=True):
+                    y, _ = attn.attn_apply(
+                        shared_attn_params["attn"], h, cfg,
+                        positions=positions, window=GLOBAL_WINDOW,
+                        ranks=rget_tree(shared_attn_ranks, "attn"),
+                        cache=acache)
+                x = x + y
+                h = cm.rms_norm(x, p_u["ln_mlp"], eps=cfg.norm_eps)
+                with cm.tap_scope("mlp"):
+                    return x + attn.ffn_apply(p_u["mlp"], h,
+                                              ranks=rget_tree(ranks, "mlp"))
+        x = _body(unit, x)
     if cache is None:
         return x, None, 0.0
     return x, {"mamba": cache["mamba"],

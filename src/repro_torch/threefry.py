@@ -1,14 +1,20 @@
-"""Threefry-2x32 and the few ``jax.random`` calls the port reproduces bit
-for bit on the host: ``PRNGKey``, ``fold_in``, ``split`` into two,
-32-bit ``random_bits`` and scalar ``randint``, in jax 0.9.0's
-partitionable threefry layout.
+"""Threefry-2x32 and the few ``jax.random`` calls the port reproduces:
+``PRNGKey``, ``fold_in``, ``split``, 32-bit ``random_bits`` (a scalar on
+the host, or an array of any shape on a device) and scalar ``randint``,
+bit for bit, and float32 ``normal``, in jax 0.9.0's partitionable
+threefry layout.
 
-Words are uint32 values held in Python ints or int64 numpy arrays, every
-sum masked back to 32 bits. A key is a pair of words ``(k0, k1)``.
+Words are uint32 values held in Python ints, int64 numpy arrays or int64
+torch tensors, every sum masked back to 32 bits. A key is a pair of words
+``(k0, k1)`` of Python ints.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -52,6 +58,53 @@ def split2(key: Key) -> Tuple[Key, Key]:
     ``(0, 1)``, each hashed pair a new key."""
     return (threefry2x32(key[0], key[1], 0, 0),
             threefry2x32(key[0], key[1], 0, 1))
+
+
+def split(key: Key, n: int) -> List[Key]:
+    """``jax.random.split(key, n)``: key ``i`` hashes the counter ``(0,
+    i)``."""
+    return [threefry2x32(key[0], key[1], 0, i) for i in range(n)]
+
+
+def random_bits(key: Key, shape: Sequence[int], device=None
+                ) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0,
+    2**32) on ``device``: element ``i`` (row-major) hashes the counter
+    ``(i >> 32, i & 0xFFFFFFFF)``, and its bits are the xor of the two
+    words."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(key[0], key[1], idx >> 32, idx & M32)
+    return (b0 ^ b1).reshape(tuple(shape))
+
+
+_ONE_BITS = int(np.array(1.0, np.float32).view(np.uint32))
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0, device=None) -> torch.Tensor:
+    """float32 ``jax.random.uniform``: the top 23 bits of each draw as the
+    mantissa of a float in [1, 2), minus 1, scaled to [minval, maxval)
+    and clipped below at minval. XLA fuses the scaling into one
+    multiply-add, rounded once; here its float64 result is rounded to
+    float32, which is the same wherever the product and the sum fit a
+    float64 (always where the span is a power of two, as the normal's
+    is)."""
+    bits = random_bits(key, shape, device)
+    f = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    y = (f.double() * span + float(lo)).float()
+    return torch.clamp(y, min=float(lo))
+
+
+def normal(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """float32 ``jax.random.normal``: ``sqrt(2) * erfinv(u)`` for ``u``
+    uniform on ``[nextafter(-1, 0), 1)``. The uniforms are bit for bit the
+    reference's; ``torch.erfinv`` and XLA's may differ in the last bits."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, device)
+    return torch.erfinv(u) * np.float32(np.sqrt(2))
 
 
 def random_bits32(key: Key) -> int:

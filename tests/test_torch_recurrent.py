@@ -463,8 +463,8 @@ def test_two_steps_match_reference_loop():
 def test_launcher_cli_recurrent():
     for arch in ARCHS:
         _, losses = ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
-                                 "--steps", "2", "--seq-len", "16",
-                                 "--batch", "2"])
+                                 "--mode", "flexrank_kd", "--steps", "2",
+                                 "--seq-len", "16", "--batch", "2"])
         assert len(losses) == 2 and all(np.isfinite(losses))
 
 

@@ -364,15 +364,22 @@ def test_four_steps_match_reference_loop(st):
     assert all(np.isfinite(res.eval_after))
 
 
-def test_launcher_cli_and_unported_flags():
-    params, losses = ttrain.main(["--smoke", "--device", "cpu", "--steps",
-                                  "2", "--seq-len", "16", "--batch", "2"])
+def test_launcher_cli_and_unported_flags(tmp_path):
+    """The launcher at the smoke config: the reference's default mode
+    (dense), then every flag the port runs; only ``--mesh-shape`` raises,
+    naming ROADMAP A.11."""
+    base = ["--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "16",
+            "--batch", "2"]
+    params, losses = ttrain.main(base)
     assert len(losses) == 2 and all(np.isfinite(losses))
-    for flags in (["--mode", "dense"], ["--optimizer", "muon"],
-                  ["--grad-compress"], ["--ckpt-dir", "x"],
-                  ["--mesh-shape", "2,2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.main(["--smoke", "--device", "cpu", *flags])
+    assert "w" in params["segments"][0]["attn"]["q"]        # dense
+    for flags in (["--mode", "flexrank_kd"], ["--mode", "flexrank"],
+                  ["--optimizer", "muon"], ["--grad-compress"],
+                  ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "1"]):
+        _, losses = ttrain.main(base + flags)
+        assert len(losses) == 2 and all(np.isfinite(losses)), flags
+    with pytest.raises(NotImplementedError, match="A.11"):
+        ttrain.main(base + ["--mesh-shape", "2,2"])
 
 
 def test_serve_launcher_state_matches_jax(st):
