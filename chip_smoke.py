@@ -47,7 +47,9 @@ Phases, each fatal on failure:
                --ckpt-every 2``: a real SIGTERM after step 3 through
                ``PreemptionGuard``, the restart from step 4, against an
                uninterrupted run (TOL_TRAIN_LOSS, bit identity logged), at
-               2 of the 12 layers;
+               2 of the 12 layers, and the uninterrupted run again with
+               ``--mesh-shape 4,1`` (a 1 x 1 mesh on one card): bit for
+               bit;
                (g) ``nestedness.train(nsl_loss)``, 1000 steps on the 6 x 5
                target, card vs CPU (TOL_NESTED) and Theorem 4.3's gaps;
   7. rwkv6   - the same consolidation of rwkv6-3b at full width cut to 4
@@ -71,8 +73,9 @@ Phases, each fatal on failure:
   10. gemma3 - gemma3-27b at full width cut to 2 of its 62 layers, every
                2nd global (a windowed layer and a global one: the 5:1
                local:global pattern's two kinds of layer): the serving
-               launcher's state, GAR at its shapes (T 8 and 264), 8
-               requests of 1100-1500 prompt tokens (past the 1024-token
+               launcher's state, GAR at its shapes (T 8 and 264), 4
+               requests (8 until the smoke passed 1050 s with phase 20)
+               of 1100-1500 prompt tokens (past the 1024-token
                window) and 32 new through ``ElasticEngine(prefill_chunk=256,
                max_batch=8, max_len=2048)`` at budgets 0.4 and 1.0; the
                decode check of phase 9; one greedy request card vs CPU on
@@ -119,10 +122,12 @@ Phases, each fatal on failure:
                (its optimizer state freed) served at full width (4 of 32
                layers) through ``ElasticEngine(max_batch=8, max_len=256)
                .generate`` with ``mode="auto"``, which must route to drain:
-               8 requests of 96-128 prompt tokens (each batch's longest
-               128, a multiple of rwkv6's chunk) and 32 new at budgets 0.4
-               and 1.0, greedy and temperature 0.8 / top-k 40 mixed in
-               each batch, every prefill, decode step and draw under the
+               4 requests of 96-128 prompt tokens (the batch's longest
+               128, a multiple of rwkv6's chunk) and 32 new at budget 0.4
+               (row 0 alone: 8 requests at 0.4 and 1.0 until the smoke
+               passed 1050 s with phase 20), greedy and temperature 0.8 /
+               top-k 40 mixed in the batch, every prefill, decode step and
+               draw under the
                sync debug mode "error"; ``gar_matmul`` and
                ``topk_mask_sample`` launched; each shorter prompt's stream
                holds its padding; tokens/s, TTFT, prefill and decode ms
@@ -141,9 +146,10 @@ Phases, each fatal on failure:
                ``generate(mode="drain")``: each batch's longest prompt
                against its solo run; equal, or parting at a near tie only
                (``TOL_SPEC_TIE``).
-  14. moe    - deepseek-moe-16b at full width cut to 3 of its 28 layers
-               (the dense layer 0 and two MoE layers: 64 experts, top-6 of
-               1408, 2 shared): the serving launcher's state (one
+  14. moe    - deepseek-moe-16b at full width cut to 2 of its 28 layers
+               (the dense layer 0 and one MoE layer: 64 experts, top-6 of
+               1408, 2 shared; 3 layers until the smoke passed 1050 s with
+               phase 20): the serving launcher's state (one
                whitening per MoE layer's moment for its 64 experts), GAR
                at layer 0's FFN (m 10944) and the shared experts (m
                2816), T 8 and 72; phase 3's prompts, budgets and sampling
@@ -155,13 +161,24 @@ Phases, each fatal on failure:
                the decode iteration of 8 slots (host clock, kernel time
                under ``torch.profiler``, the expert products' share);
                phase 9's decode check at ``capacity_factor =
-               num_experts`` (no drops); one greedy request card vs CPU at
-               2 layers (dense + MoE): a token whose expert set differs
+               num_experts * ceil(4 / top_k)`` (no drops, and both steps'
+               expert products at the same shapes: ``nodrop_capacity``);
+               one greedy request card vs CPU on the same 2 layers: a
+               token whose expert set differs
                must be a near tie of its own routing (``TOL_ROUTE``, each
                logged), the logits agree within ``TOL_MOE_CROSS`` until
                such a token, and the tokens are equal or part at a near
                tie of the logits (``TOL_SPEC_TIE``) or after a routing
                near tie;
+  20. llama4 - right after phase 14, llama4-scout-17b-a16e at full width
+               cut to 1 of its 48 layers (16 experts, top-1 of 8192, one
+               shared; GQA 40/8, a head group of 5; vocab 202048): the
+               predicted seconds first, dense and factorized parameter
+               counts at 1 and 48 layers, then phase 14's checks with
+               every request at budget 0.4 and row 0 alone deployed (GAR at
+               attn/q and mlp/shared/gate, T 8 and 72). Phase 2 holds both
+               attention kernels at its G 5 (T 8, T 72, decode B 8, and
+               ragged cases) and the sampler at V 202048;
   15. mla    - minicpm3-4b at full width cut to 8 of its 62 layers: the
                serving launcher's state, then phase 13's drain checks
                (``generate(mode="auto")`` must route MLA to drain; GAR
@@ -179,7 +196,8 @@ Phases, each fatal on failure:
                8 and 512, and at the multimodal check's T 4096:
                ``frontend_proj``, the encoder's attn/q and mlp/gate, the
                cross attn/k); card vs CPU at 1 + 1 layers. Then the
-               multimodal check at rows 0 and the top one: 4 prompts of 64
+               multimodal check at row 0 (and the top row until the smoke
+               passed 1050 s with phase 20): 4 prompts of 64
                tokens and 4 x 1024 audio frames, 16 greedy tokens (i) by
                ``forward(frontend=)``, (ii) by ``prefill``/``decode_step``
                with the encoder's output every step, (iii) by
@@ -297,6 +315,15 @@ TOL_LOWRANK = 2e-4             # low-rank linear, relative to the output's max
 # (the same plain forms in other float32 orders, GAR within TOL_GAR)
 TOL_DRAIN_FORWARD = 1e-3
 DRAIN_NEW = 32                 # new tokens a phase-13 request
+# the drain phases (13 (a)-(b), 15-17) serve DRAIN_REQUESTS requests at
+# these budgets: row 0 only since the smoke passed 1050 s with phase 20
+# (8 requests at 0.4 and 1.0 until then); the top row repeated GAR at full
+# rank, which phases 3, 10 and 14 serve, and 13 (c) still serves drain at
+# both rows
+DRAIN_BUDGETS = (0.4,)
+DRAIN_REQUESTS = 4
+# phase 10's requests (8 until the smoke passed 1050 s with phase 20)
+GEMMA_REQUESTS = 4
 # phase 14, card vs CPU: a token's routing is a near tie when its k-th and
 # (k+1)-th router probabilities lie within this of each other. The hidden
 # state the router reads differs card vs CPU by the GAR kernel's error
@@ -982,7 +1009,7 @@ def mixed_one_each(params, cfg, cache, tok) -> torch.Tensor:
     return logits[0]
 
 
-def decode_check(cfg, rows, prompts, steps, dev, max_len):
+def decode_check(cfg, rows, prompts, steps, dev, max_len, smi=""):
     """Phase 9 (and the decode part of phase 10): for each budget row
     (``rows``: row -> deployed params), fill a ``PagedKVCache`` with
     ``prompts`` through ``paged_mixed_step`` (one prompt a call), copy it
@@ -1050,7 +1077,7 @@ def decode_check(cfg, rows, prompts, steps, dev, max_len):
         f"{worst:.2e} (bit-identical: {'yes' if worst == 0.0 else 'no'}), "
         f"greedy tokens identical; median step {med_dec:.2f} ms (decode) vs "
         f"{med_mix:.2f} ms (mixed); decode kernel launches {launches} (two "
-        f"a layer)")
+        f"a layer){'; ' + smi if smi else ''}")
     return launches, worst, med_dec, med_mix
 
 
@@ -1546,8 +1573,9 @@ def gemma_phase(dev, rng, report, profiling):
     """Phase 10: gemma3-27b at full width cut to 2 of its 62 layers, every
     2nd global (a 1024-token windowed layer and a global one: both kinds
     of the 5:1 pattern; 6 layers until the smoke passed 1050 s with
-    phase 19): the serving launcher's state,
-    8 requests past the 1024-token window through ``ElasticEngine``, GAR
+    phase 19): the serving launcher's state, GEMMA_REQUESTS requests
+    (8 until the smoke passed 1050 s with phase 20) past the 1024-token
+    window through ``ElasticEngine``, GAR
     at its shapes, the decode check, and one greedy request
     card vs CPU on the deployed row cut to 2 layers. Returns launches by
     kernel and the GAR error."""
@@ -1616,7 +1644,7 @@ def gemma_phase(dev, rng, report, profiling):
 
     prng = np.random.default_rng(2)
     reqs = []
-    for i in range(8):
+    for i in range(GEMMA_REQUESTS):
         plen = int(prng.integers(1100, 1501))
         samp = (SamplingParams(temperature=0.8, top_k=40, seed=200 + i)
                 if i % 2 else None)
@@ -1641,7 +1669,8 @@ def gemma_phase(dev, rng, report, profiling):
         if gen.min() < 0 or gen.max() >= cfg.vocab_size:
             fail("gemma3: generated token out of the vocabulary")
     s = engine.last_metrics.summary()
-    log(f"# gemma3 serving: full width, 2 of 62 layers, 8 requests (prompts "
+    log(f"# gemma3 serving: full width, 2 of 62 layers, {len(reqs)} "
+        f"requests (prompts "
         f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}"
         f", 32 new each, budgets 0.4/1.0 -> rows {rows}), wall {wall:.2f} s,"
         f" {s['tokens_per_s']:.1f} tok/s, ttft mean "
@@ -1656,7 +1685,7 @@ def gemma_phase(dev, rng, report, profiling):
     audit = engine.costaudit.statusz()
     ratios = [c["error_ratio"] for c in audit["cells"]]
     snap = engine.registry.snapshot()
-    if snap["repro_generated_tokens_total"] != 8 * 32:
+    if snap["repro_generated_tokens_total"] != len(reqs) * 32:
         fail(f"gemma3: the registry counted "
              f"{snap['repro_generated_tokens_total']} generated tokens")
     log(f"# gemma3 audit (registry and costaudit=True on this serve): "
@@ -2273,8 +2302,11 @@ def _preempt_check(smi):
     """Phase 19 (f): the launcher at full width, ``--mode dense --steps 6
     --ckpt-every 2``: run 1 gets a real SIGTERM after step 3 and saves
     step 4; run 2 resumes there and finishes; an uninterrupted run in
-    another directory. Steps 4-5's losses and the final parameters within
-    TOL_TRAIN_LOSS. The launcher's config is cut to 2 of gpt2's 12 layers
+    another directory; and the uninterrupted run again with
+    ``--mesh-shape 4,1`` (no checkpoints), which shrinks to the one card
+    and must train bit for bit as without the flag. Steps 4-5's losses
+    and the final parameters within TOL_TRAIN_LOSS. The launcher's config
+    is cut to 2 of gpt2's 12 layers
     (its ``get_config`` patched): at 12 the three runs took 27.3 s of the
     smoke's budget, most of it 1.5 GB checkpoints."""
     from unittest import mock
@@ -2312,6 +2344,8 @@ def _preempt_check(smi):
         t3 = time.perf_counter()
         size = sum(os.path.getsize(os.path.join(r, f))
                    for r, _, fs in os.walk(b) for f in fs)
+        p_mesh, meshed = train.main(args + ["--mesh-shape", "4,1"])
+        t4 = time.perf_counter()
     finally:
         stack.close()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2335,6 +2369,15 @@ def _preempt_check(smi):
     if not (loss_err < TOL_TRAIN_LOSS and worst < TOL_TRAIN_LOSS):
         fail(f"phase 19 (f): resumed vs uninterrupted: losses "
              f"{loss_err:.3e}, parameters {worst:.3e}")
+    mesh_same = meshed == full and all(
+        torch.equal(x, y) for x, y in zip(cm.tree_leaves(p_mesh),
+                                          cm.tree_leaves(p_full)))
+    log(f"# modes (f) --mesh-shape 4,1 ({t4 - t3:.2f} s): 6 steps on a 1 x "
+        f"1 mesh, losses {meshed}, bit-identical to the uninterrupted run: "
+        f"{mesh_same}; {smi}")
+    if not mesh_same:
+        fail("phase 19 (f): --mesh-shape 4,1 trains otherwise than without "
+             "the flag")
 
 
 def _nested_check(smi):
@@ -2485,19 +2528,20 @@ def modes_phase(cfg, dense, trained, dev, lowrank, smi) -> int:
 # ------------------------------------------------------------ drain
 
 def drain_requests(cfg, rng, budgets):
-    """Phase 13's 8 requests: prompts of 96-128 tokens, the first of each
-    budget 128 long (each batch's longest, a multiple of rwkv6's 64-step
-    chunk), DRAIN_NEW new tokens, budgets alternating, greedy and
-    temperature 0.8 / top-k 40 mixed within each budget's batch."""
+    """Phase 13's DRAIN_REQUESTS requests: prompts of 96-128 tokens, the
+    first two 128 long (each batch's longest, a multiple of rwkv6's
+    64-step chunk), DRAIN_NEW new tokens, cycling over ``budgets``, greedy
+    and temperature 0.8 / top-k 40 mixed within each budget's batch."""
     from repro_torch.serving import Request, SamplingParams
     reqs = []
-    for i in range(8):
+    for i in range(DRAIN_REQUESTS):
         plen = 128 if i < 2 else int(rng.integers(96, 129))
         samp = (SamplingParams(temperature=0.8, top_k=40, seed=200 + i)
                 if i % 4 >= 2 else None)
         reqs.append(Request(
             prompt=rng.integers(0, cfg.vocab_size, plen).astype(np.int32),
-            max_new_tokens=DRAIN_NEW, budget=budgets[i % 2], sampling=samp))
+            max_new_tokens=DRAIN_NEW, budget=budgets[i % len(budgets)],
+            sampling=samp))
     return reqs
 
 
@@ -2588,7 +2632,7 @@ def drain_phase(label, cfg, res, small, dev, rng, report, smi):
     params = cm.tree_map(lambda t: t.detach(), res.params)
     engine = ElasticEngine(cfg, params, res.table, res.infos, device=dev,
                            max_batch=8, max_len=256)
-    budgets = (0.4, 1.0)
+    budgets = DRAIN_BUDGETS
     rows = [engine._budget_row(b) for b in budgets]
     with torch.no_grad():
         deployed = {r: engine._realize(r) for r in rows}
@@ -2668,7 +2712,8 @@ def drain_phase(label, cfg, res, small, dev, rng, report, smi):
     log(f"# drain {label}: {len(reqs)} requests (prompts "
         f"{min(len(r.prompt) for r in reqs)}-"
         f"{max(len(r.prompt) for r in reqs)}, {DRAIN_NEW} new each, budgets "
-        f"0.4/1.0 -> rows {rows}, half greedy), wall {wall:.2f} s: "
+        f"{'/'.join(map(str, budgets))} -> rows {rows}, half greedy), wall "
+        f"{wall:.2f} s: "
         f"{s['tokens_per_s']:.1f} tok/s, ttft mean "
         f"{s['ttft_mean_s'] * 1e3:.1f} ms, {s['decode_steps']:.0f} decode "
         f"steps; prefill at B={len(batch)} x {padded.shape[1]} "
@@ -2927,12 +2972,12 @@ def decode_iteration(params, cfg, prompts, dev, steps: int = 8):
             sum(r[1] for r in krows) / 4, prods_us / 4e3, krows)
 
 
-def moe_cross_check(cfg, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
+def moe_cross_check(label, cfg, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
                     calls_cpu, l_gpu, l_cpu) -> None:
-    """Phase 14's card vs CPU greedy request (``cfg`` the cut it ran on):
-    at each step up to the first where the streams part (the feeds are
-    equal until then), every token whose expert set differs card vs CPU
-    must be a routing near tie on the CPU (its own k-th and (k+1)-th
+    """The MoE phases' card vs CPU greedy request (``cfg`` the cut it ran
+    on): at each step up to the first where the streams part (the feeds
+    are equal until then), every token whose expert set differs card vs
+    CPU must be a routing near tie on the CPU (its own k-th and (k+1)-th
     router probabilities within TOL_ROUTE); every near tie is logged,
     whether the expert sets differ or not. While no token's routing has
     differed, the step's logits agree within TOL_MOE_CROSS of their max.
@@ -2943,8 +2988,8 @@ def moe_cross_check(cfg, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
     steps = len(toks_cpu)
     for side, calls in (("card", calls_gpu), ("CPU", calls_cpu)):
         if len(calls) != steps * n_moe:
-            fail(f"deepseek-moe cross-check: {len(calls)} routings recorded "
-                 f"on the {side}, expected {steps * n_moe}")
+            fail(f"{label} cross-check: {len(calls)} routings recorded on "
+                 f"the {side}, expected {steps * n_moe}")
     part = next((i for i, (a, b) in enumerate(zip(toks_gpu, toks_cpu))
                  if a != b), steps)
     routed_apart, worst = None, 0.0
@@ -2953,7 +2998,7 @@ def moe_cross_check(cfg, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
             (e_g, _), (e_c, gap_c) = calls_gpu[j], calls_cpu[j]
             differs = (e_g != e_c).any(-1)
             for t in np.nonzero(~differs & (gap_c <= TOL_ROUTE))[0]:
-                log(f"# deepseek-moe routing near tie: step {i}, MoE layer "
+                log(f"# {label} routing near tie: step {i}, MoE layer "
                     f"{j - i * n_moe}, token {t}: its k-th and (k+1)-th "
                     f"router probabilities {gap_c[t]:.3e} apart on the "
                     "CPU, the same experts on both")
@@ -2964,9 +3009,9 @@ def moe_cross_check(cfg, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
                         f"(k+1)-th router probabilities {gap_c[t]:.3e} "
                         "apart on the CPU")
                 if not gap_c[t] <= TOL_ROUTE:
-                    fail(f"deepseek-moe card vs CPU: routing differs beyond "
-                         f"a near tie ({what})")
-                log(f"# deepseek-moe routing near tie: {what}")
+                    fail(f"{label} card vs CPU: routing differs beyond a "
+                         f"near tie ({what})")
+                log(f"# {label} routing near tie: {what}")
                 if routed_apart is None:
                     routed_apart = i
         if routed_apart is None:
@@ -2975,10 +3020,10 @@ def moe_cross_check(cfg, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
             worst = max(worst, rel)
             if not (rel <= TOL_MOE_CROSS
                     and bool(torch.isfinite(l_gpu[i]).all())):
-                fail(f"deepseek-moe card vs CPU: step {i} logits rel "
-                     f"{rel:.3e} (tolerance {TOL_MOE_CROSS})")
+                fail(f"{label} card vs CPU: step {i} logits rel {rel:.3e} "
+                     f"(tolerance {TOL_MOE_CROSS})")
     n_cmp = min(part + 1, steps) if routed_apart is None else routed_apart
-    log(f"# deepseek-moe card vs CPU logits: worst rel {worst:.2e} over "
+    log(f"# {label} card vs CPU logits: worst rel {worst:.2e} over "
         f"{n_cmp} steps (tolerance {TOL_MOE_CROSS}; compared up to the "
         f"first routing near tie: "
         f"{'none' if routed_apart is None else f'step {routed_apart}'})")
@@ -2987,37 +3032,74 @@ def moe_cross_check(cfg, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
                 f"routing near tie at step {routed_apart}")
         if not (marg_cpu[part] <= TOL_SPEC_TIE
                 or (routed_apart is not None and routed_apart <= part)):
-            fail(f"deepseek-moe: card and CPU part at step {part} beyond a "
-                 f"near tie ({what})")
-        log(f"# deepseek-moe card vs CPU: part at step {part} at a near tie "
+            fail(f"{label}: card and CPU part at step {part} beyond a near "
+                 f"tie ({what})")
+        log(f"# {label} card vs CPU: part at step {part} at a near tie "
             f"({what})")
 
 
-def moe_phase(dev, rng, report, smi, base_reqs):
-    """Phase 14: deepseek-moe-16b at full width cut to 3 of its 28 layers
-    (the dense layer 0 and two MoE layers): the serving launcher's state,
-    GAR at its new shapes, ``base_reqs`` (phase 3's prompts, budgets and
-    sampling) served through the continuous engine, then with lookahead
-    under the sync debug mode "error" (identical streams), one
-    ``moe_apply`` call's time split, the decode iteration's host and
-    kernel time, the decode check at ``capacity_factor = num_experts``,
-    and one greedy request card vs CPU at 2 layers. Returns (launches by
-    kernel, the GAR error)."""
-    from repro_torch.configs import Segment, get_config
+def nodrop_capacity(cfg):
+    """``cfg`` with ``capacity_factor = num_experts * ceil(4 / top_k)``:
+    no pair is dropped, and a batch of T one-token rows (the decode step)
+    gets T times one row's slots (the floor of 4 slots a row, ``models/
+    moe.py:capacity``, included), so ``paged_decode_step`` and
+    ``paged_mixed_step`` run their expert products at the same shapes.
+    At ``num_experts`` alone a top-1 model's decode row keeps the floor's
+    4 slots against the mixed step's 1 a token, and the two steps' batched
+    products (M 32 against 8 at 8 slots) round apart."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=float(m.num_experts * math.ceil(4 / m.top_k))))
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECut:
+    """What an MoE phase serves: ``arch`` at full width cut to
+    ``segments``; the requests' budgets (cycled over phase 3's requests;
+    each budget's row deployed); the (segment, projection) leaves whose
+    GAR is held and timed; the segment whose MoE FFN ``moe_apply_split``
+    times; and the seconds predicted before its first call to the card."""
+    arch: str
+    label: str
+    segments: tuple
+    budgets: tuple
+    gar_leaves: tuple
+    moe_segment: int
+    predicted_s: float
+
+
+def moe_phase(cut: MoECut, dev, rng, report, smi, base_reqs):
+    """Phases 14 and 20: an MoE config at full width cut in depth
+    (``cut``): the serving launcher's state, GAR at its new shapes,
+    ``base_reqs`` (phase 3's prompts and sampling, at ``cut.budgets``)
+    served through the continuous engine, then with lookahead under the
+    sync debug mode "error" (identical streams), one ``moe_apply`` call's
+    time split, the decode iteration's host and kernel time, the decode
+    check at ``capacity_factor = num_experts``, and one greedy request
+    card vs CPU on the same cut. Returns (launches by kernel, the GAR
+    error)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import flexrank as FR
     from repro_torch.kernels import gar_matmul, paged_attention, sampling
     from repro_torch.launch.serve import serving_state
     from repro_torch.launch.train import dense_init
     from repro_torch.models import common as cm
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import Request, ElasticEngine
+    label = cut.label
+    log(f"# {label}: predicted {cut.predicted_s:.0f} s for this phase; "
+        f"{smi}")
     t_phase = time.perf_counter()
-    full = get_config("deepseek-moe-16b")
-    segs = (Segment("attn_dense", 1), Segment("attn", 2))
-    cfg = dataclasses.replace(full, segments=segs, num_layers=3)
+    full = get_config(cut.arch)
+    cfg = dataclasses.replace(full, segments=cut.segments,
+                              num_layers=_layer_count(cut.segments))
+    depth = f"{cfg.num_layers} of {full.num_layers} layers"
     for c in (full, cfg):
         n = cm.param_count(tfm.model_spec(c))
-        log(f"# deepseek-moe: {c.num_layers} layers: {n / 1e9:.3f} B dense "
-            f"parameters, {4 * n / 1e9:.1f} GB in float32")
+        nf = cm.param_count(FR.factorized_spec(c))
+        log(f"# {label}: {c.num_layers} layers: {n / 1e9:.3f} B dense "
+            f"parameters, {4 * n / 1e9:.1f} GB in float32; {nf / 1e9:.3f} B "
+            f"factorized, {4 * nf / 1e9:.1f} GB")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     dense = dense_init(cfg, 0, dev)
@@ -3031,42 +3113,43 @@ def moe_phase(dev, rng, report, smi, base_reqs):
     peak_state = torch.cuda.max_memory_allocated() / 1e9
     engine = ElasticEngine(cfg, params_fact, table, infos, device=dev,
                            prefill_chunk=64, max_batch=8, max_len=256)
-    budgets = (0.4, 1.0)
-    rows = [engine._budget_row(b) for b in budgets]
+    budgets = cut.budgets
+    rows = list(dict.fromkeys(engine._budget_row(b) for b in budgets))
     deployed = {r: engine._realize(r) for r in rows}
     n_exp = sum(int(np.prod(i.lead_dims)) for i in infos
                 if "/experts/" in i.path)
-    log(f"# deepseek-moe setup: dense init {t_init:.2f} s, calibrate "
+    log(f"# {label} setup: dense init {t_init:.2f} s, calibrate "
         f"{setup['calibrate']:.2f} s, decompose {setup['decompose']:.2f} s "
         f"(DataSVD, {len(infos)} groups, {n_exp} expert projections, one "
         f"whitening a layer's moment), DP {setup['dp']:.2f} s "
         f"({table.table.shape[0]} rows), deploy "
-        + ", ".join(f"row {r} (budget {b}) {engine.deploy_seconds[r]:.2f} s"
-                    for b, r in zip(budgets, rows))
+        + ", ".join(f"row {r} {engine.deploy_seconds[r]:.2f} s"
+                    for r in rows)
         + f"; peak device memory {peak_state:.2f} GB building the state; "
         f"{smi}")
-    log(f"# deepseek-moe table: ranks by group {[i.path for i in infos]}: "
+    log(f"# {label} table: ranks by group {[i.path for i in infos]}: "
         + "; ".join(f"row {k} {table.table[k].tolist()}"
                     for k in range(table.table.shape[0])))
 
-    # GAR at the new shapes: layer 0's dense FFN (m 10944) and the shared
-    # experts (m 2816), row 0, at a decode batch and a mixed iteration
+    # GAR at the new shapes, row 0, at a decode batch and a mixed
+    # iteration
     shapes = []
-    for seg, proj in ((0, "mlp/gate"), (1, "mlp/shared/gate")):
+    for seg, proj in cut.gar_leaves:
         leaf = cm.tree_get(deployed[rows[0]]["segments"][seg], proj)
         vt, uh, pi = (leaf["v_tilde"][0], leaf["u_hat"][0],
                       leaf["perm_inv"][0])
         n, r = vt.shape
         for t in (8, 72):
-            shapes.append((f"deepseek-moe {proj} row {rows[0]} T={t} n={n} "
+            shapes.append((f"{label} {proj} row {rows[0]} T={t} n={n} "
                            f"r={r} m={r + uh.shape[0]}", t, vt, uh, pi))
     first = len(report)
     gar_err = check_gar(dev, shapes, rng, report)
     for e in report[first:]:
-        log(kernel_line(e))
+        log(f"{kernel_line(e)}; {smi}")
 
-    reqs = [Request(prompt=rq.prompt, max_new_tokens=32, budget=rq.budget,
-                    sampling=rq.sampling) for rq in base_reqs]
+    reqs = [Request(prompt=rq.prompt, max_new_tokens=32,
+                    budget=budgets[i % len(budgets)], sampling=rq.sampling)
+            for i, rq in enumerate(base_reqs)]
     for k in (gar_matmul, paged_attention, sampling):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3076,24 +3159,24 @@ def moe_phase(dev, rng, report, smi, base_reqs):
               "topk_mask_sample": sampling.launches}
     for rq, rs in zip(reqs, results):
         if len(rs.tokens) != len(rq.prompt) + 32:
-            fail(f"deepseek-moe: request of {len(rq.prompt)} tokens returned "
+            fail(f"{label}: request of {len(rq.prompt)} tokens returned "
                  f"{len(rs.tokens)}")
         gen = rs.tokens[len(rq.prompt):]
         if gen.min() < 0 or gen.max() >= cfg.vocab_size:
-            fail("deepseek-moe: generated token out of the vocabulary")
-    log(f"# deepseek-moe serving: full width, 3 of 28 layers, 8 requests "
-        f"(prompts {min(len(r.prompt) for r in reqs)}-"
-        f"{max(len(r.prompt) for r in reqs)}, 32 new each, budgets 0.4/1.0 "
-        f"-> rows {rows}, half top-k 40), wall {wall:.2f} s, "
-        f"{s['tokens_per_s']:.1f} tok/s, ttft mean "
+            fail(f"{label}: generated token out of the vocabulary")
+    log(f"# {label} serving: full width, {depth}, 8 requests (prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)}, 32 new each, budgets "
+        f"{'/'.join(map(str, budgets))} -> rows {rows}, half top-k 40), "
+        f"wall {wall:.2f} s, {s['tokens_per_s']:.1f} tok/s, ttft mean "
         f"{s['ttft_mean_s'] * 1e3:.1f} ms, {s['mixed_iterations']:.0f} mixed "
         f"iterations, dispatch {s['dispatch_ms_mean']:.2f} ms / host "
         f"{s['host_ms_mean']:.2f} ms per iteration, preemptions "
         f"{s['preemptions']}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
-        f"{json.dumps(counts)}")
+        f"{json.dumps(counts)}; {smi}")
     if min(counts.values()) <= 0:
-        fail(f"deepseek-moe: a kernel of the serving path never launched: "
+        fail(f"{label}: a kernel of the serving path never launched: "
              f"{counts}")
 
     # the same requests with lookahead: the same batches give the same
@@ -3106,79 +3189,92 @@ def moe_phase(dev, rng, report, smi, base_reqs):
         engine.lookahead = False
     for i, (a, b) in enumerate(zip(results, look)):
         if not np.array_equal(a.tokens, b.tokens):
-            fail(f"deepseek-moe lookahead: request {i} differs from the "
+            fail(f"{label} lookahead: request {i} differs from the "
                  "synchronous run")
-    log(f"# deepseek-moe lookahead: {s_look['tokens_per_s']:.1f} tok/s "
+    log(f"# {label} lookahead: {s_look['tokens_per_s']:.1f} tok/s "
         f"(sync {s['tokens_per_s']:.1f}), ttft mean "
         f"{s_look['ttft_mean_s'] * 1e3:.1f} ms, "
         f"{s_look['lookahead_iterations']:.0f} lookahead iterations, "
         f"{s_look['rollbacks']:.0f} rollbacks, overlap share "
         f"{s_look['overlap_fraction']:.4f}; streams identical, no host sync "
-        "in any planned, dispatched and advanced iteration")
+        f"in any planned, dispatched and advanced iteration; {smi}")
 
     # one moe_apply call split, at a decode batch (T 8) and a mixed
     # iteration (T 72), and the decode iteration it sits in
-    moe_p = cm.tree_map(lambda a: a[0],
-                        deployed[rows[0]]["segments"][1]["mlp"])
+    moe_p = cm.tree_map(
+        lambda a: a[0], deployed[rows[0]]["segments"][cut.moe_segment]["mlp"])
     split = moe_apply_split(moe_p, cfg, dev, (8, 72))
     prng = np.random.default_rng(14)
     prompts = [prng.integers(0, cfg.vocab_size, int(prng.integers(90, 160))
                              ).astype(np.int32) for _ in range(8)]
     host_ms, kern_ms, launches, prods_ms, krows = decode_iteration(
         deployed[rows[0]], cfg, prompts, dev)
-    n_moe = segs[1].count
+    n_moe = sum(sg.count for sg in cut.segments if sg.kind == "attn")
     for t, cap, call, prods in split:
-        log(f"# deepseek-moe moe_apply: row {rows[0]}, T={t} (capacity "
-            f"{cap} an expert): {call:.4f} ms a call, expert products "
-            f"{prods:.4f} ms ({100 * prods / call:.1f}%), the rest "
-            f"{call - prods:.4f} ms")
-    log(f"# deepseek-moe decode iteration: row {rows[0]}, 8 slots one token "
-        f"each through paged_mixed_step: {host_ms:.2f} ms on the host's "
-        f"clock, {kern_ms:.3f} ms of kernels in {launches:.0f} launches "
-        f"(busy {100 * kern_ms / host_ms:.1f}%; most: "
+        log(f"# {label} moe_apply: row {rows[0]}, T={t} (capacity {cap} an "
+            f"expert): {call:.4f} ms a call, expert products {prods:.4f} ms "
+            f"({100 * prods / call:.1f}%), the rest {call - prods:.4f} ms; "
+            f"{smi}")
+    log(f"# {label} decode iteration: row {rows[0]}, 8 slots one token each "
+        f"through paged_mixed_step: {host_ms:.2f} ms on the host's clock, "
+        f"{kern_ms:.3f} ms of kernels in {launches:.0f} launches (busy "
+        f"{100 * kern_ms / host_ms:.1f}%; most: "
         + ", ".join(f"{k[:40]} {us / 4e3:.3f} ms" for us, _, k in krows[:3])
         + f"); the kernels of the expert products of its {n_moe} MoE "
         f"layers in the same profile {prods_ms:.3f} ms = "
         f"{100 * prods_ms / kern_ms:.1f}% of its kernel time; {smi}")
 
-    # the decode check without drops: capacity_factor = num_experts
-    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    # the decode check without drops, at the same expert-product shapes in
+    # both steps (``nodrop_capacity``)
+    nodrop = nodrop_capacity(cfg)
     for k in (gar_matmul, paged_attention):
         k.launches = 0
     counts["paged_attention"], _, _, _ = decode_check(
-        nodrop, deployed, prompts, 32, dev, 256)
+        nodrop, deployed, prompts, 32, dev, 256, smi)
     counts["gar_matmul"] += gar_matmul.launches
     counts["paged_prefill_attention"] += paged_attention.launches
 
-    # card vs CPU: one greedy request on the 0.4 row cut to 2 layers (the
-    # dense layer and one MoE layer); a parting only at a near tie of the
-    # logits or of a token's routing
-    small = dataclasses.replace(cfg, segments=(Segment("attn_dense", 1),
-                                               Segment("attn", 1)),
-                                num_layers=2)
-    p_gpu = cut_depth(deployed[rows[0]], cfg, small)
+    # card vs CPU: one greedy request on the first row; a parting only at
+    # a near tie of the logits or of a token's routing
+    p_gpu = deployed[rows[0]]
     p_cpu = cm.tree_map(lambda t: t.cpu(), p_gpu)
     prompt = prng.integers(0, cfg.vocab_size, 128).astype(np.int32)
     calls_gpu, calls_cpu, l_gpu, l_cpu = [], [], [], []
     with torch.no_grad():
         with routing_record(calls_gpu):
-            toks_gpu, _ = greedy_loop(p_gpu, small, prompt, 8, dev, 160,
+            toks_gpu, _ = greedy_loop(p_gpu, cfg, prompt, 8, dev, 160,
                                       logits_out=l_gpu)
         t0 = time.perf_counter()
         with routing_record(calls_cpu):
-            toks_cpu, marg_cpu = greedy_loop(p_cpu, small, prompt, 8,
+            toks_cpu, marg_cpu = greedy_loop(p_cpu, cfg, prompt, 8,
                                              torch.device("cpu"), 160,
                                              logits_out=l_cpu)
         t_cpu = time.perf_counter() - t0
-    moe_cross_check(small, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
+    moe_cross_check(label, cfg, toks_gpu, toks_cpu, marg_cpu, calls_gpu,
                     calls_cpu, l_gpu, l_cpu)
-    log(f"# deepseek-moe cross-check: row {rows[0]} at 2 layers (dense + "
-        f"MoE), {len(prompt)} prompt tokens: card {toks_gpu}, CPU "
-        f"{toks_cpu} ({t_cpu:.1f} s on the CPU)")
-    log(f"# deepseek-moe: {time.perf_counter() - t_phase:.1f} s in all")
+    log(f"# {label} cross-check: row {rows[0]} at {depth}, {len(prompt)} "
+        f"prompt tokens: card {toks_gpu}, CPU {toks_cpu} ({t_cpu:.1f} s on "
+        f"the CPU); {smi}")
+    log(f"# {label}: {time.perf_counter() - t_phase:.1f} s in all "
+        f"(predicted {cut.predicted_s:.0f} s); {smi}")
     del engine, deployed, params_fact, p_gpu, p_cpu
     return counts, gar_err
+
+
+def moe_cuts():
+    """Phase 14's and phase 20's ``MoECut``."""
+    from repro_torch.configs import Segment
+    return (
+        # the dense layer 0 and one MoE layer (64 experts, top-6 of 1408, 2
+        # shared); the second MoE layer went when the smoke passed 1050 s
+        MoECut("deepseek-moe-16b", "deepseek-moe",
+               (Segment("attn_dense", 1), Segment("attn", 1)), (0.4, 1.0),
+               ((0, "mlp/gate"), (1, "mlp/shared/gate")), 1, 75.0),
+        # one MoE layer (16 experts, top-1 of 8192, one shared), GQA 40/8;
+        # row 0 only: the top row repeats GAR at full rank, which gemma3's
+        # row 6 already times
+        MoECut("llama4-scout-17b-a16e", "llama4", (Segment("attn", 1),),
+               (0.4,), ((0, "attn/q"), (0, "mlp/shared/gate")), 0, 190.0))
 
 
 def mla_phase(dev, report, smi):
@@ -3314,9 +3410,10 @@ def _rel_to(a, b) -> float:
 
 
 def multimodal_check(label, cfg, deployed, small, dev, rng, smi):
-    """The multimodal check of phases 16-17 at rows 0 and the top one of
-    ``deployed``: ``multimodal_ways`` on a batch of ``MM_BATCH`` prompts
-    of ``MM_PROMPT`` tokens with the frontend drawn from ``rng`` (audio
+    """The multimodal check of phases 16-17 at each row of ``deployed``
+    (row 0 since the drain phases' top row was cut): ``multimodal_ways``
+    on a batch of ``MM_BATCH`` prompts of ``MM_PROMPT`` tokens with the
+    frontend drawn from ``rng`` (audio
     frames (B, 1024, 1024), vision patches (B, 1601, 7680)): the streams
     of (ii) and (iii) identical, their logits within TOL_DECODE of each
     other, both within TOL_DRAIN_FORWARD of (i); then the frontend stage,
@@ -4111,6 +4208,26 @@ def main() -> int:
         ("vision S=8 V=128256", 8, 128256, False),
         ("vision S=4 V=128256", 4, 128256, False)],
         np.random.default_rng(23), report))
+    # llama4-scout-17b-a16e's serving shapes (phase 20: GQA 40/8, a head
+    # group of 5, so a tile window of 6 tokens, 30 of the 32 rows; vocab
+    # 202048), and ragged ones with a group of 5 (a 10-token chunk over two
+    # windows, a window that cuts a block), from their own generator
+    lrng = np.random.default_rng(26)
+    attn_err = max(attn_err, check_attention(dev, [
+        ("llama4 T=8 decode Hq=40 Hkv=8 D=128 BS=16",
+         (8, 40, 8, 128, 16, 8, 16, 8, 0), (0.0,), (None,)),
+        ("llama4 T=72 decode7+chunk64 Hq=40 Hkv=8 D=128 BS=16",
+         (72, 40, 8, 128, 16, 8, 16, 7, 64), (0.0,), (None,)),
+        ("ragged GQA 10/2 D=40 BS=7", (13, 10, 2, 40, 7, 4, 4, 3, 10),
+         (0.0, 30.0), (None, 9))], lrng, report))
+    dec_err = max(dec_err, check_decode(dev, [
+        ("llama4 B=8 Hq=40 Hkv=8 D=128 BS=16",
+         (8, 40, 8, 128, 16, 16, 90, 256), (0.0,), (None,)),
+        ("ragged B=3 GQA 10/2 D=40 BS=7", (3, 10, 2, 40, 7, 3, 1, 21),
+         (0.0, 30.0), (None, 9))], lrng, report))
+    samp_err = max(samp_err, check_sampling(dev, [
+        ("llama4 S=8 V=202048", 8, 202048, False),
+        ("llama4 S=4 V=202048", 4, 202048, False)], lrng, report))
     for e in report:
         log(kernel_line(e))
 
@@ -4314,18 +4431,20 @@ def main() -> int:
 
     phase_done("13 (c) drain gpt2")
 
-    # 14. deepseek-moe-16b (3 of 28 layers) through the continuous engine
-    # on phase 3's requests
-    moe_counts, err = moe_phase(dev, rng, report, smi, reqs)
-    gar_err = max(gar_err, err)
-    counts["gar_matmul"] += moe_counts["gar_matmul"]
-    counts["paged_attention"] += moe_counts["paged_prefill_attention"]
-    counts["paged_attention_decode"] += moe_counts["paged_attention"]
-    counts["sampling"] += moe_counts["topk_mask_sample"]
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    phase_done("14 deepseek-moe")
+    # 14. deepseek-moe-16b (2 of 28 layers: the dense layer 0 and one MoE
+    # layer; 3 until the smoke passed 1050 s with phase 20), 20.
+    # llama4-scout-17b-a16e (1 of 48 layers, row 0 only) through the
+    # continuous engine on phase 3's requests
+    for cut, tag in zip(moe_cuts(), ("14 deepseek-moe", "20 llama4")):
+        moe_counts, err = moe_phase(cut, dev, rng, report, smi, reqs)
+        gar_err = max(gar_err, err)
+        counts["gar_matmul"] += moe_counts["gar_matmul"]
+        counts["paged_attention"] += moe_counts["paged_prefill_attention"]
+        counts["paged_attention_decode"] += moe_counts["paged_attention"]
+        counts["sampling"] += moe_counts["topk_mask_sample"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done(tag)
 
     # 15. minicpm3-4b (8 of 62 layers) through drain
     mla_counts, err = mla_phase(dev, report, smi)

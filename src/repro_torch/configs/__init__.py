@@ -1,7 +1,9 @@
 """Architecture registry: every config of the JAX package."""
 from typing import List
 
-from repro_torch.configs.base import (FlexRankConfig, ModelConfig, Segment)
+from repro_torch.configs.base import (LM_SHAPES, LONG_CONTEXT_ARCHS,
+                                      FlexRankConfig, ModelConfig, Segment,
+                                      ShapeConfig)
 from repro_torch.configs import (deepseek_7b, deepseek_moe_16b, gemma3_27b,
                                  gpt2_small, llama4_scout_17b_a16e,
                                  llama_3_2_vision_11b, minicpm3_4b, rwkv6_3b,
@@ -34,5 +36,13 @@ def list_archs() -> List[str]:
     return sorted(_MODULES)
 
 
-__all__ = ["FlexRankConfig", "ModelConfig", "Segment", "get_config",
-           "list_archs"]
+def shapes_for(name: str) -> List[ShapeConfig]:
+    """The assigned shape cells of an arch: ``LM_SHAPES``, without
+    ``long_500k`` unless the arch is in ``LONG_CONTEXT_ARCHS``."""
+    return [s for s in LM_SHAPES
+            if s.name != "long_500k" or name in LONG_CONTEXT_ARCHS]
+
+
+__all__ = ["FlexRankConfig", "LM_SHAPES", "LONG_CONTEXT_ARCHS",
+           "ModelConfig", "Segment", "ShapeConfig", "get_config",
+           "list_archs", "shapes_for"]

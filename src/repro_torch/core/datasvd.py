@@ -25,6 +25,11 @@ class Factors(NamedTuple):
     def rank(self) -> int:
         return self.u.shape[-1]
 
+    def reconstruct(self, r: Optional[int] = None) -> torch.Tensor:
+        if r is None:
+            return self.u @ self.v.T
+        return self.u[:, :r] @ self.v[:, :r].T
+
 
 def datasvd_factors(w: torch.Tensor,
                     whitening: Tuple[torch.Tensor, torch.Tensor], *,
@@ -32,7 +37,10 @@ def datasvd_factors(w: torch.Tensor,
     """Whitened SVD factorization of ``w`` (m, n), float32 on the device of
     ``w``. ``whitening``: ``covariance.sqrt_and_inv_sqrt`` of the
     activation moment (n, n) on that device (the experts of one MoE layer
-    share one moment, so the caller computes it once for them)."""
+    share one moment, so the caller computes it once for them). The JAX
+    package's ``datasvd_factors(w, moment, count, max_rank=,
+    damping=)`` is ``datasvd_factors(w, sqrt_and_inv_sqrt(moment, count,
+    damping=damping), max_rank=)`` here."""
     w = w.to(torch.float32)
     s, s_inv = whitening
     p, lam, qt = torch.linalg.svd(w @ s, full_matrices=False)
@@ -54,3 +62,32 @@ def plain_svd_factors(w: torch.Tensor, *,
         p, lam, q = p[:, :max_rank], lam[:max_rank], q[:, :max_rank]
     sqrt_lam = torch.sqrt(lam)
     return Factors(u=p * sqrt_lam[None, :], v=q * sqrt_lam[None, :])
+
+
+def reconstruction_error(w: torch.Tensor, factors: Factors, r: int,
+                         moment: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Frobenius error of the rank-r truncation, data-weighted with
+    ``moment``: ``tr(D Sigma D^T)`` with ``D = W - U_r V_r^T`` and the
+    moment normalized by its trace, so errors compare across layers of
+    different width; plain ``||D||_F^2`` without it."""
+    delta = w.to(torch.float32) - factors.reconstruct(r)
+    if moment is None:
+        return torch.sum(delta * delta)
+    sig = moment / torch.clamp(torch.trace(moment), min=1e-30)
+    return torch.einsum("ij,jk,ik->", delta, sig, delta)
+
+
+def truncation_error_curve(w: torch.Tensor, factors: Factors,
+                           moment: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Errors of every truncation rank r = 1..R. Without a moment, the
+    plain tail energies by the Gram trick (exact for the orthogonal
+    columns of an SVD); with one, ``reconstruction_error`` at each rank,
+    which holds for any factor pair."""
+    if moment is None:
+        lam2 = (torch.sum(factors.u * factors.u, dim=0)
+                * torch.sum(factors.v * factors.v, dim=0))
+        return torch.sum(lam2) - torch.cumsum(lam2, dim=0)
+    return torch.stack([reconstruction_error(w, factors, r, moment)
+                        for r in range(1, factors.rank + 1)])

@@ -94,6 +94,29 @@ def gar_transform(u: torch.Tensor, v: torch.Tensor, r: int, *,
                       v_tilde=v_tilde.to(torch.float32), perm=rows)
 
 
+def gar_apply(gar: GarFactors, x: torch.Tensor) -> torch.Tensor:
+    """Plain forward ``y = W_r x`` for x of shape (..., n), O((m+n-r) r),
+    as the JAX package computes it outside its kernel; ``kernels.ops.
+    gar_forward`` is the kernel's route."""
+    z = x @ gar.v_tilde                           # (..., r)
+    tail = z @ gar.u_hat.T                        # (..., m - r)
+    y_perm = torch.cat([z, tail], dim=-1)
+    return y_perm[..., torch.argsort(gar.perm)]
+
+
+def gar_flops(m: int, n: int, r: int, tokens: int = 1) -> int:
+    """Theoretical MACs of the GAR forward (the paper's O((m+n-r) r))."""
+    return tokens * (n * r + (m - r) * r)
+
+
+def lowrank_flops(m: int, n: int, r: int, tokens: int = 1) -> int:
+    return tokens * (n * r + m * r)
+
+
+def dense_flops(m: int, n: int, tokens: int = 1) -> int:
+    return tokens * m * n
+
+
 def reconstruction(gar: GarFactors) -> torch.Tensor:
     """Dense W_r implied by the GAR form (tests and yardsticks)."""
     eye = torch.eye(gar.rank, dtype=gar.v_tilde.dtype,

@@ -20,7 +20,11 @@ kernels instead (use ``--smoke`` there). The flags are those of
   cross-entropy step, no ranks and no remat, as in the reference.
 Muon takes ten times ``--lr`` for its matrix leaves. ``--grad-compress``
 changes no step on one device, as in the reference (nothing is
-all-reduced). ``--mesh-shape`` raises: a mesh is ROADMAP A.11.
+all-reduced). ``--mesh-shape`` builds the reference's elastic mesh over
+the one device the run uses: ``4,1`` shrinks to 1 x 1 and trains as
+without the flag; a model dimension above 1 fails its assertion.
+The SIGTERM guard is installed before the dense init, as in the
+reference, so a preemption during the set-up saves at step 1.
 
 Each step draws its budget row as the reference does,
 ``randint(fold_in(PRNGKey(seed + 1), step), (), 0, K)``, bit for bit, and
@@ -45,8 +49,10 @@ from repro_torch.core import distill
 from repro_torch.core import flexrank as FR
 from repro_torch.core.profiles import ProfileTable
 from repro_torch.data import calibration_batches, make_source
-from repro_torch.distributed import PreemptionGuard, StragglerMonitor
+from repro_torch.distributed import (PreemptionGuard, StragglerMonitor,
+                                     elastic_remesh)
 from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import single_device_mesh
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw, muon
@@ -159,7 +165,8 @@ def run(cfg, dense_params, source, *, steps: int, lr: float = 1e-3,
         mode: str = "flexrank_kd", optimizer: str = "adamw",
         ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
         eval_before: bool = True,
-        step_hook: Optional[Callable[[int], None]] = None) -> TrainRun:
+        step_hook: Optional[Callable[[int], None]] = None,
+        guard: Optional[PreemptionGuard] = None) -> TrainRun:
     """Train from ``dense_params`` on ``source``'s batches, on the device
     of the dense params, as ``repro.launch.train.main`` does: in the
     flexrank modes build the FlexRank state first (the dense params are
@@ -174,7 +181,10 @@ def run(cfg, dense_params, source, *, steps: int, lr: float = 1e-3,
     ``(params, opt_state)`` every ``ckpt_every`` steps (async) and at the
     end (blocking); on SIGTERM (``PreemptionGuard``) save at the next
     step boundary (blocking) and return with ``preempted``.
-    ``step_hook(step)`` runs after each step, before its saves."""
+    ``step_hook(step)`` runs after each step, before its saves. Without
+    ``guard``, ``run`` installs its own before the first step and restores
+    the old handler before the final eval; a caller's ``guard`` (``main``'s,
+    installed before the set-up) is left to the caller."""
     device = cm.tree_leaves(dense_params)[0].device
     setup: Dict[str, float] = {}
     table = infos = table_rows = None
@@ -235,7 +245,9 @@ def run(cfg, dense_params, source, *, steps: int, lr: float = 1e-3,
 
     before = elastic_eval() if eval_before else []
     monitor = StragglerMonitor()
-    guard = PreemptionGuard()
+    own_guard = guard is None
+    if own_guard:
+        guard = PreemptionGuard()
     losses, rows, secs = [], [], []
     base_key = threefry.prng_key(seed + 1)
 
@@ -274,7 +286,8 @@ def run(cfg, dense_params, source, *, steps: int, lr: float = 1e-3,
         if mgr:
             mgr.save(steps, (params, opt_state), blocking=True)
     finally:
-        guard.restore()
+        if own_guard:
+            guard.restore()
         if mgr:
             mgr.wait()
     after = elastic_eval()
@@ -289,7 +302,10 @@ def run(cfg, dense_params, source, *, steps: int, lr: float = 1e-3,
 def main(argv=None, *, step_hook: Optional[Callable[[int], None]] = None):
     """The command line of ``repro.launch.train``. Returns (params,
     losses) as the reference's ``main`` does; ``step_hook`` goes to
-    ``run``."""
+    ``run``. The SIGTERM guard is installed first, as the reference's
+    ``main`` installs it before the dense init, so a preemption during the
+    set-up or the final eval kills nothing; the old handler is back once
+    ``main`` returns."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt2-small")
     ap.add_argument("--smoke", action="store_true")
@@ -305,7 +321,10 @@ def main(argv=None, *, step_hook: Optional[Callable[[int], None]] = None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh-shape", default=None,
-                    help="not ported yet (raises: ROADMAP A.11)")
+                    help="e.g. 4,1: the reference's elastic mesh over the "
+                         "one device the run uses (the data axis shrinks "
+                         "to 1; a model dimension above 1 fails); default "
+                         "single device")
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "muon"],
                     help="muon: Newton-Schulz orthogonalized momentum for "
                          "matrix params (paper §7's suggested direction)")
@@ -315,10 +334,6 @@ def main(argv=None, *, step_hook: Optional[Callable[[int], None]] = None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.mesh_shape is not None:
-        raise NotImplementedError(
-            "--mesh-shape (ROADMAP A.11: distributed training) is not "
-            "ported yet")
     if args.grad_compress:
         print("[grad-compress] one device: nothing is all-reduced, so no "
               "gradient is compressed; PowerSGD over a data-parallel "
@@ -328,13 +343,25 @@ def main(argv=None, *, step_hook: Optional[Callable[[int], None]] = None):
     torch.backends.cudnn.allow_tf32 = False
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.mesh_shape:
+        shape = tuple(int(x) for x in args.mesh_shape.split(","))
+        mesh = elastic_remesh(shape, ("data", "model")[: len(shape)],
+                              devices=[device])
+        print(f"[mesh] {args.mesh_shape} -> {mesh.shape} on {device}")
+    else:
+        mesh = single_device_mesh(device)
     source = make_source(cfg.vocab_size, args.seq_len, args.batch,
                          seed=args.seed)
-    dense = dense_init(cfg, args.seed, device)
-    result = run(cfg, dense, source, steps=args.steps, lr=args.lr,
-                 seed=args.seed, mode=args.mode, optimizer=args.optimizer,
-                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                 eval_before=False, step_hook=step_hook)
+    guard = PreemptionGuard()
+    try:
+        dense = dense_init(cfg, args.seed, mesh.devices.flat[0])
+        result = run(cfg, dense, source, steps=args.steps, lr=args.lr,
+                     seed=args.seed, mode=args.mode,
+                     optimizer=args.optimizer, ckpt_dir=args.ckpt_dir,
+                     ckpt_every=args.ckpt_every, eval_before=False,
+                     step_hook=step_hook, guard=guard)
+    finally:
+        guard.restore()
     tokens = args.batch * args.seq_len
     if result.step_seconds:
         med = float(np.median(result.step_seconds))

@@ -57,5 +57,9 @@ def test_scan_covers_the_package():
                  "src/repro_torch/optim/muon.py",
                  "src/repro_torch/optim/compression.py",
                  "src/repro_torch/checkpoint/manager.py",
-                 "src/repro_torch/core/nestedness.py"):
+                 "src/repro_torch/core/nestedness.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/distributed.py",
+                 "src/repro_torch/core/covariance.py",
+                 "src/repro_torch/core/profiles.py"):
         assert must in names

@@ -366,8 +366,10 @@ def test_four_steps_match_reference_loop(st):
 
 def test_launcher_cli_and_unported_flags(tmp_path):
     """The launcher at the smoke config: the reference's default mode
-    (dense), then every flag the port runs; only ``--mesh-shape`` raises,
-    naming ROADMAP A.11."""
+    (dense), then every flag. ``--mesh-shape`` holds the reference's
+    behaviour on one device: ``4,1`` shrinks to 1 x 1 and trains, ``2,2``
+    fails the reference's assertion (it raised ``NotImplementedError``
+    before the one-device mesh was ported)."""
     base = ["--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "16",
             "--batch", "2"]
     params, losses = ttrain.main(base)
@@ -375,10 +377,12 @@ def test_launcher_cli_and_unported_flags(tmp_path):
     assert "w" in params["segments"][0]["attn"]["q"]        # dense
     for flags in (["--mode", "flexrank_kd"], ["--mode", "flexrank"],
                   ["--optimizer", "muon"], ["--grad-compress"],
-                  ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "1"]):
+                  ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "1"],
+                  ["--mesh-shape", "4,1"]):
         _, losses = ttrain.main(base + flags)
         assert len(losses) == 2 and all(np.isfinite(losses)), flags
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(AssertionError,
+                       match="1 devices cannot host model dim 2"):
         ttrain.main(base + ["--mesh-shape", "2,2"])
 
 
