@@ -242,6 +242,25 @@ Phases, each fatal on failure:
                ``paged_sample_step``, ``paged_mixed_step`` and the three
                serving kernels, launches printed; (e) the serving launcher
                at ``--smoke`` with every new flag.
+  21. dist   - right after the build, the training launcher's mesh path
+               (``dist_check.py`` beside this script, two rank processes):
+               deepseek-moe-16b at full width cut to 2 of 28 layers (the
+               dense layer 0 and one MoE layer), seeded random weights,
+               ``--mode dense`` with AdamW, 2 steps of 2 x 64 tokens at no
+               drop and no aux loss; (a) a world of one over NCCL, started
+               as the launcher starts it (the backend chosen from the
+               card's UUID), at mesh 1 x 1 (``moe_apply_ep`` with one
+               'model' rank) against the run without a process group:
+               losses and parameters bit for bit; (b) two ranks on the
+               card over gloo at (2, 1) and (1, 2) against (a)'s run
+               (losses within TOL_TRAIN_LOSS, each parameter leaf within
+               TOL_DIST_PARAM of its scale but for TOL_DIST_LEAF_SHARE of
+               its entries, which stay within Adam's travel), every rank
+               of a 'model' group's leaves bit for bit alike, the logits
+               under (1, 2) against the forward without a mesh within
+               TOL_GAR; each step's ms, its gradient all-reduce's, the two
+               all-to-alls of the MoE call and each rank's peak memory
+               printed.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
@@ -349,6 +368,16 @@ TOL_TRAIN_GRAD = 1e-3          # relative to each gradient leaf's max
 # leaf's gradient max (a float32 QR of the rank-8 projection on two
 # libraries, as the CPU tests hold the port against JAX)
 TOL_POWERSGD = 1e-4
+# phase 21: the parameters after two AdamW steps across ranks against the
+# one-rank run, relative to each leaf's scale, the larger of its max and
+# the learning rates summed (tests/test_torch_dist.py's bound); an entry
+# whose gradient is rounding noise around zero takes Adam's normalised
+# step of either sign, as phase 19 (d) allows, so at most this share of
+# each leaf's entries (rounded up: one entry of a leaf under 1e6) may pass
+# it, each within twice the learning rates summed
+TOL_DIST_PARAM = 2e-3
+TOL_DIST_LEAF_SHARE = 1e-6
+DIST_DEADLINE = 240            # seconds for phase 21's two rank processes
 # phase 19 (g): the nestedness trainer's prefix products U Pi_[r] V^T card
 # vs CPU after 1000 Adam steps, relative to max |M*| (a 1-ulp change of the
 # initial draws moves them by at most 6.4e-7 on the CPU, at 500 steps)
@@ -2200,8 +2229,8 @@ def _cross_modes(cfg, trained, dense, dev, smi):
                 loss.backward()
             grads = SP.grads_of(params)
             g_host = [g.detach().cpu().clone() for g in cm.tree_leaves(grads)]
-            params, state, om = train.apply_updates(params, grads, state,
-                                                    ocfg)
+            params, state, om = SP.apply_updates(params, grads, state,
+                                                 ocfg)
             out.append((float(loss.detach()), g_host,
                         [p.detach().cpu() for p in cm.tree_leaves(params)],
                         om["lr"], time.perf_counter() - t0))
@@ -3991,6 +4020,54 @@ def _layer_count(segments) -> int:
                for s in segments)
 
 
+def dist_phase(smi: str) -> None:
+    """Phase 21: the launcher's mesh path in rank processes on the card
+    (``dist_check.py`` beside this script, which raises on a failed
+    check); prints its numbers beside the card's name and power limit."""
+    import dist_check
+
+    def port():
+        import socket
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+    d = tempfile.mkdtemp(prefix="dist_check_")
+    spec = dict(arch="deepseek-moe-16b", smoke=False, cut=True,
+                device="cuda", backend_a="nccl", batch=2, seq=64, steps=2,
+                port_a=port(), port_b=port(), dir=d,
+                tol_loss=TOL_TRAIN_LOSS, tol_param=TOL_DIST_PARAM,
+                leaf_share=TOL_DIST_LEAF_SHARE, tol_logits=TOL_GAR)
+    try:
+        try:
+            r = dist_check.run_pair(spec, DIST_DEADLINE)
+        except RuntimeError as e:
+            fail(f"phase 21: {e}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"# dist: deepseek-moe-16b 2 of 28 layers, {r['params'] / 1e9:.3f} "
+        f"B parameters, dense init {r['init_s']:.2f} s; {smi}")
+    log(f"# dist (a) no group, then the launcher's world of one "
+        f"({r['a_backend']}, chosen from the card's UUID) at 1 x 1: losses "
+        f"{r['a_losses']} bit for bit, parameters bit for bit; step ms "
+        f"{[round(x, 1) for x in r['a_step_ms']]} without a group, "
+        f"{[round(x, 1) for x in r['a_world_step_ms']]} in the world")
+    for key in ("2x1", "1x2"):
+        b = r[key]
+        log(f"# dist (b) gloo {key}: losses {b['losses']} (rel "
+            f"{b['loss_err']:.2e}), parameters at most {b['param_err']:.2e} "
+            f"of a leaf's scale ({b['param_leaf']}); leaves with entries "
+            f"past TOL_DIST_PARAM [past, allowed]: {b['past']}; step ms "
+            f"{[round(x, 1) for x in b['step_ms']]}, "
+            f"gradient all-reduce ms "
+            f"{[round(x, 1) for x in b['allreduce_ms']]}, peak GB per rank "
+            f"{[round(x, 2) for x in b['peak_gb']]}")
+    log(f"# dist (b) 1x2 logits against the forward without a mesh: "
+        f"{r['logits_err']:.2e} of their max; all-to-all of "
+        f"{r['a2a_bytes'] / 1e6:.1f} MB ms: dispatch "
+        f"{[round(x, 2) for x in r['a2a_ms']['dispatch']]}, return "
+        f"{[round(x, 2) for x in r['a2a_ms']['return']]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs on an "
@@ -4039,6 +4116,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"#   {k}: {line.strip()}")
 
+    phase_done("1 build")
+
+    # 21. the training launcher's mesh path, while the card is empty
+    dist_phase(smi)
+    phase_done("21 dist")
+
     # main-path state (its deployed GAR leaves feed the kernel checks)
     cfg = get_config("gpt2-small")
     t0 = time.perf_counter()
@@ -4059,7 +4142,7 @@ def main() -> int:
         + ", ".join(f"row {r} (budget {b}) {engine.deploy_seconds[r]:.2f} s"
                     for b, r in zip(budgets, rows)))
 
-    phase_done("1 build and setup")
+    phase_done("1 setup")
 
     # 2. kernels
     rng = np.random.default_rng(0)

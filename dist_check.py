@@ -1,0 +1,374 @@
+"""The training launcher's mesh path on the ranks of one machine: phase 21
+of ``chip_smoke.py`` on one card, and its rehearsal on the CPU.
+
+  PYTHONPATH=src python dist_check.py SPEC.json RANK
+
+(``run_pair`` starts both ranks; ``chip_smoke.py`` and
+``tests/test_torch_dist.py`` call it.)
+
+Every run is two steps of ``launch/train.py:run`` (``--mode dense``,
+AdamW) from the same seeded dense weights, at no drop and no aux loss:
+the function that every mesh computes alike (the per-slice capacity and
+the per-slice aux are the expert-parallel path's own).
+
+Rank 0 runs (a) alone: the run without a process group, then the same
+in a world of one started as the launcher starts it
+(``distributed.init_world_from_env``, which must choose ``backend_a``:
+NCCL on the card, gloo on the CPU) at mesh 1 x 1,
+which takes ``moe_apply_ep`` with one 'model' rank: losses and parameters
+bit for bit. It then writes ``a_done`` in the spec's directory and joins
+a world of two over gloo, which the caller starts rank 1 into: (b) the
+runs at (2, 1) and (1, 2), each held against (a)'s run without a group
+(the whole batch on one rank): losses within ``tol_loss`` relative; each
+parameter leaf (the experts gathered) within ``tol_param`` of its scale,
+the larger of its max and the learning rates summed (a leaf that starts
+at zero, a norm's offset, has a max of about that sum), but for at most
+``ceil(leaf_share * size)`` entries of the leaf (an entry whose gradient
+is rounding noise around zero takes Adam's normalised step of either
+sign, as phase 19 (d) of ``chip_smoke.py`` allows), which stay within
+twice the learning rates summed, the most two runs' Adam steps can part
+by; every leaf with an entry past its bound is reported; the leaves of
+every rank of a 'model' group bit for bit alike (by a digest of their
+bits); then the model's logits under (1, 2), the experts split, against
+the forward without a mesh, within ``tol_logits`` of their max, and the
+two all-to-alls of that MoE call timed at its shapes.
+
+A failed check raises, so the rank exits non-zero; rank 0 writes
+``result.json`` (losses, step, all-reduce and all-to-all ms, each rank's
+peak memory) into the spec's directory.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import json
+import math
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import distributed as D
+from repro_torch.configs import Segment, get_config
+from repro_torch.data import make_source
+from repro_torch.distributed import collectives as C
+from repro_torch.launch import train
+from repro_torch.models import common as cm
+from repro_torch.models import moe
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import adamw
+
+LR = 1e-3                      # the launcher's default, which run takes
+NAMES = ("data", "model")
+TIMEOUT = datetime.timedelta(seconds=60)
+
+
+def config(spec: dict):
+    """The spec's arch (cut to its dense layer 0 and one MoE layer with
+    ``cut``) at no drop and no aux loss."""
+    cfg = get_config(spec["arch"], smoke=spec["smoke"])
+    if spec["cut"]:
+        cfg = dataclasses.replace(cfg, num_layers=2, segments=(
+            Segment("attn_dense", 1), Segment("attn", 1)))
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=float(m.num_experts), router_aux_weight=0.0))
+
+
+@contextlib.contextmanager
+def ep_calls():
+    """The 'model' group size of every ``moe_apply_ep`` body call."""
+    sizes = []
+    real = moe._moe_inner
+
+    def counting(x_col, router_w, experts, ranks, cfg, group):
+        sizes.append(1 if group is None else dist.get_world_size(group))
+        return real(x_col, router_w, experts, ranks, cfg, group)
+    moe._moe_inner = counting
+    try:
+        yield sizes
+    finally:
+        moe._moe_inner = real
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _train(cfg, dense, spec, mesh):
+    source = make_source(cfg.vocab_size, spec["seq"], spec["batch"], seed=0)
+    return train.run(cfg, dense, source, steps=spec["steps"], lr=LR,
+                     mode="dense", eval_before=False, mesh=mesh,
+                     log=lambda m: None)
+
+
+def _host(tree) -> dict:
+    return {p: t.detach().cpu() for p, t in cm.tree_items(tree)}
+
+
+def _digest(t: torch.Tensor) -> tuple:
+    """The sum of a float32 tensor's bits as int64, and its float64 sum:
+    equal for equal tensors, and unequal for a change of any bit but by
+    the rarest chance."""
+    return (int(t.detach().contiguous().view(torch.int32).sum(
+        dtype=torch.int64)), float(t.detach().double().sum()))
+
+
+def _peak(dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else 0.0)
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def run_a(spec, cfg, dense, dev, out) -> tuple:
+    """(a): returns the run without a group's losses and parameters (on
+    the host)."""
+    with ep_calls() as calls:
+        plain = _train(cfg, dense, spec, None)
+    if set(calls) != {1}:
+        raise AssertionError(f"(a) no group: EP calls {calls}")
+    losses, params = plain.losses, _host(plain.params)
+    out["a_step_ms"] = [s * 1e3 for s in plain.step_seconds]
+    del plain
+    # the launcher's own start: the backend chosen from the card's id
+    env = dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(spec["port_a"]))
+    os.environ.update(env)
+    try:
+        backend = D.init_world_from_env(dev, timeout=TIMEOUT)
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    try:
+        if backend != spec["backend_a"]:
+            raise AssertionError(f"(a) a world of one on {dev} chose "
+                                 f"{backend}, not {spec['backend_a']}")
+        out["a_backend"] = backend
+        mesh = D.elastic_remesh((1, 1), NAMES)
+        with ep_calls() as calls:
+            one = _train(cfg, dense, spec, mesh)
+        if not calls or set(calls) != {1}:
+            raise AssertionError(f"(a) world of one: EP calls {calls}")
+        if one.losses != losses:
+            raise AssertionError(f"(a) losses {one.losses} against "
+                                 f"{losses} without a group")
+        for p, t in _host(one.params).items():
+            if not torch.equal(t, params[p]):
+                raise AssertionError(f"(a) {p} differs from the run "
+                                     "without a group")
+        out["a_losses"] = losses
+        out["a_world_step_ms"] = [s * 1e3 for s in one.step_seconds]
+        del one
+    finally:
+        D.shutdown_world()
+    return losses, params
+
+
+def run_b(spec, cfg, dense, dev, rank, ref, out) -> None:
+    """(b) on this rank of the gloo world of two (``ref``: (a)'s losses and
+    parameters on rank 0, None elsewhere)."""
+    steps = spec["steps"]
+    opt = adamw.AdamWConfig(lr=LR, warmup_steps=min(100, steps // 10 + 1),
+                            total_steps=steps)
+    # the most two runs' Adam steps can part by: each step at most lr in
+    # size, of either sign
+    lr_sum = sum(adamw.schedule_lr(opt, k) for k in range(1, steps + 1))
+    travel = 2.0 * lr_sum * (1 + 1e-3)
+    D.init_world("gloo", device=dev, rank=rank, world_size=2,
+                 init_method=f"tcp://127.0.0.1:{spec['port_b']}",
+                 timeout=TIMEOUT)
+    try:
+        for shape in ((2, 1), (1, 2)):
+            key = f"{shape[0]}x{shape[1]}"
+            mesh = D.elastic_remesh(shape, NAMES)
+            _reset_peak(dev)
+            with ep_calls() as calls:
+                res = _train(cfg, dense, spec, mesh)
+            if set(calls) != {shape[1]}:
+                raise AssertionError(f"(b) {key}: EP calls {calls}")
+            peaks = [None, None]
+            dist.all_gather_object(peaks, _peak(dev))
+            digests = [None, None]
+            dist.all_gather_object(digests, {
+                p: _digest(t) for p, t in cm.tree_items(res.params)})
+            whole, _ = res.full_state()
+            if rank == 0:
+                for p, dg in digests[0].items():
+                    split = shape[1] > 1 and "/experts/" in p
+                    if not split and digests[1][p] != dg:
+                        raise AssertionError(f"(b) {key}: {p} differs "
+                                             "across the ranks")
+                losses, params = ref
+                err = float(np.max(np.abs(np.subtract(res.losses, losses))
+                                   / np.abs(losses)))
+                if err > spec["tol_loss"]:
+                    raise AssertionError(f"(b) {key}: losses {res.losses} "
+                                         f"against {losses} ({err:.3e})")
+                past, worst, name = {}, 0.0, ""
+                for p, t in cm.tree_items(whole):
+                    diff = (t.detach().cpu() - params[p]).abs()
+                    if float(diff.max()) > travel:
+                        raise AssertionError(
+                            f"(b) {key}: {p} moved {float(diff.max()):.3e} "
+                            f"from the one-rank run, past Adam's travel "
+                            f"{travel:.3e}")
+                    scale = max(float(params[p].abs().max()), lr_sum)
+                    n_past = int((diff > spec["tol_param"] * scale).sum())
+                    allowed = math.ceil(spec["leaf_share"] * diff.numel())
+                    if n_past:
+                        past[p] = [n_past, allowed]
+                    if n_past > allowed:
+                        raise AssertionError(
+                            f"(b) {key}: {p}: {n_past} of {diff.numel()} "
+                            f"entries past {spec['tol_param']} of its scale "
+                            f"{scale:.3e} (at most {allowed}; worst "
+                            f"{float(diff.max()) / scale:.3e})")
+                    if float(diff.max()) / scale > worst:
+                        worst, name = float(diff.max()) / scale, p
+                out[key] = {"losses": res.losses, "loss_err": err,
+                            "param_err": worst, "param_leaf": name,
+                            "past": past,
+                            "step_ms": [s * 1e3 for s in res.step_seconds],
+                            "allreduce_ms": [s * 1e3
+                                             for s in res.sync_seconds],
+                            "peak_gb": peaks}
+            del res, whole
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        logits_check(spec, cfg, dense, dev, rank, out)
+    finally:
+        D.shutdown_world()
+
+
+def logits_check(spec, cfg, dense, dev, rank, out) -> None:
+    """The forward's logits under (1, 2), each rank with its half of the
+    experts, against the forward without a mesh; then the two all-to-alls
+    of that MoE call at its shapes, timed."""
+    mesh = D.elastic_remesh((1, 2), NAMES)
+    dims = D.expert_dims(mesh, cm.axes_tree(tfm.model_spec(cfg)), dense)
+    part = D.shard_tree(dense, dims, mesh)
+    tokens = torch.as_tensor(make_source(
+        cfg.vocab_size, spec["seq"], spec["batch"], seed=0).batch_at(0)[
+            "tokens"][:, :-1], device=dev)
+    with torch.no_grad():
+        with D.mesh_context(mesh):
+            got, _ = tfm.forward(part, cfg, tokens)
+        if rank == 0:
+            want, _ = tfm.forward(dense, cfg, tokens)
+            err = float((got - want).abs().max() / want.abs().max())
+            if err > spec["tol_logits"]:
+                raise AssertionError(f"(b) logits under (1, 2): {err:.3e} "
+                                     "of their max")
+            out["logits_err"] = err
+    del part, got
+    m = cfg.moe
+    tc = spec["batch"] * spec["seq"] // 2
+    cap = int(np.ceil(tc * m.top_k * m.capacity_factor / m.num_experts))
+    group = mesh.group("model")
+    x = torch.randn(m.num_experts, cap, cfg.d_model, device=dev)
+    times = {"dispatch": [], "return": []}
+    for _ in range(4):
+        for name in times:
+            y = x if name == "dispatch" else x.reshape(
+                m.num_experts // 2, 2, cap, cfg.d_model).transpose(
+                    0, 1).contiguous()
+            _sync(dev)
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            C.all_to_all(y, group)
+            _sync(dev)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    out["a2a_ms"] = {k: v[1:] for k, v in times.items()}
+    out["a2a_bytes"] = x.numel() * x.element_size()
+
+
+def run_pair(spec: dict, deadline: float) -> dict:
+    """Run the two ranks as processes (rank 1 once rank 0 has written
+    ``a_done``) and return rank 0's ``result.json``. A rank that fails,
+    or the pair past ``deadline`` seconds, raises ``RuntimeError`` with
+    the ranks' last output; every process is stopped before returning."""
+    import subprocess
+    d = spec["dir"]
+    path = os.path.join(d, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = (os.path.join(here, "src") + os.pathsep
+                         + env.get("PYTHONPATH", ""))
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in (0, 1)]
+    procs = []
+
+    def start(r):
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), path, str(r)],
+            env=env, stdout=logs[r], stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        start(0)
+        while True:
+            codes = [p.poll() for p in procs]
+            if any(c not in (None, 0) for c in codes) or \
+                    time.perf_counter() - t0 > deadline:
+                break
+            if len(procs) == 1 and os.path.exists(os.path.join(d, "a_done")):
+                start(1)
+            if len(procs) == 2 and codes == [0, 0]:
+                break
+            if len(procs) == 1 and codes == [0]:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        tails = ""
+        for r in range(len(procs)):
+            with open(os.path.join(d, f"rank{r}.log")) as f:
+                tails += f"--- rank {r} (exit {codes[r]})\n{f.read()[-3000:]}"
+        raise RuntimeError(f"ranks exited {codes} after "
+                           f"{time.perf_counter() - t0:.1f} s\n{tails}")
+    with open(os.path.join(d, "result.json")) as f:
+        return json.load(f)
+
+
+def main(spec_path: str, rank: int) -> int:
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec["device"])
+    cfg = config(spec)
+    out: dict = {}
+    t0 = time.perf_counter()
+    dense = train.dense_init(cfg, 0, dev)
+    _sync(dev)
+    out["init_s"] = time.perf_counter() - t0
+    ref = None
+    if rank == 0:
+        ref = run_a(spec, cfg, dense, dev, out)
+        open(os.path.join(spec["dir"], "a_done"), "w").close()
+    run_b(spec, cfg, dense, dev, rank, ref, out)
+    if rank == 0:
+        out["params"] = cm.param_count(tfm.model_spec(cfg))
+        with open(os.path.join(spec["dir"], "result.json"), "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1], int(sys.argv[2])))

@@ -1,27 +1,34 @@
 """Decode-state shapes of a cell, and the train step of the launcher's
 modes: the parts of the JAX package's ``launch/specs.py`` that the port
-runs on one device. ``frontend_len`` and ``cache_specs`` feed the cost
+runs. ``frontend_len`` and ``cache_specs`` feed the cost
 model; the state is built on the ``meta`` device, so a full-size config
 costs no memory. ``make_train_step`` is the reference's step of the
 ``dense``, ``flexrank`` and ``flexrank_kd`` modes: the loss and its
-gradients under ``remat_blocks()``, then AdamW. Its input, parameter,
-optimizer and cache shardings belong to a mesh (ROADMAP A.11).
+gradients under ``remat_blocks()``, then AdamW, through ``step``, the one
+step body of the port, which the launcher's ``train_step`` takes too. The reference's input,
+parameter, optimizer and cache shardings and its prefill and decode
+steps serve only its XLA dry run, which has no counterpart here
+(ROADMAP §A); the launcher's placements are ``distributed.sharding``'s.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+import time
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import distributed as D
 from repro_torch import threefry
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import distill
 from repro_torch.core import flexrank as FR
 from repro_torch.core.profiles import uniform_table
+from repro_torch.distributed import collectives as C
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, muon
 
 COMPUTE_DTYPE = torch.bfloat16
 INT32 = 4
@@ -87,12 +94,60 @@ def clear_grads(params) -> None:
         p.grad = None
 
 
+OptConfig = Union[adamw.AdamWConfig, muon.MuonConfig]
+
+
+def apply_updates(params, grads, opt_state, opt_cfg: OptConfig, *,
+                  grad_norm=None):
+    """The optimizer step of ``opt_cfg``'s kind, in place."""
+    if isinstance(opt_cfg, muon.MuonConfig):
+        return muon.apply_updates(params, grads, opt_state, opt_cfg,
+                                  grad_norm=grad_norm)
+    return adamw.apply_updates(params, grads, opt_state, opt_cfg,
+                               grad_norm=grad_norm)
+
+
+def step(params, opt_state, forward: Callable[[], Tuple[torch.Tensor, Dict]],
+         opt_cfg: OptConfig, *, remat: bool = False, mesh=None,
+         shard_dims=None):
+    """The body of every training step: ``forward() -> (loss, metrics)``
+    and its backward in ``mesh``'s context (under ``remat_blocks`` with
+    ``remat``); under a mesh with groups, the gradients averaged over its
+    data axes and the clipping norm counting the leaves split over
+    'model' along ``shard_dims`` once; then the in-place update of
+    ``opt_cfg``'s kind, and the gradients cleared. Returns (params,
+    opt_state, loss, metrics): the forward's metrics with the optimizer's
+    (``grad_norm``, ``lr``) and ``sync``, the seconds of the gradients'
+    all-reduce (0 without one)."""
+    with D.mesh_context(mesh), (tfm.remat_blocks() if remat
+                                else contextlib.nullcontext()):
+        loss, metrics = forward()
+        loss.backward()
+    grads = grads_of(params)
+    norm, sync = None, 0.0
+    if mesh is not None:
+        group = mesh.group(D.data_axes(mesh))
+        if group is not None:
+            t0 = time.perf_counter()
+            C.all_reduce_mean_(cm.tree_leaves(grads), group)
+            if loss.device.type == "cuda":
+                torch.cuda.synchronize(loss.device)
+            sync = time.perf_counter() - t0
+        norm = D.split_global_norm(grads, shard_dims, mesh)
+    params, opt_state, om = apply_updates(params, grads, opt_state, opt_cfg,
+                                          grad_norm=norm)
+    clear_grads(params)
+    return params, opt_state, loss, {**metrics, **om, "sync": sync}
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
                     mode: str = "dense", num_budgets: int = 7):
     """Returns ``train_step(params, opt_state, batch, rng,
     teacher_params=None) -> (params, opt_state, metrics)``, the update in
     place (``optim/adamw.py``), metrics ``loss`` (a detached device
-    scalar, the loss plus the MoE aux), ``grad_norm`` and ``lr``.
+    scalar, this rank's loss plus the MoE aux), ``grad_norm`` and ``lr``.
+    It runs ``step`` under the current mesh, whose 'model' ranks hold
+    their part of the expert leaves.
 
     mode 'dense': the dense forward, cross-entropy plus aux.
     mode 'flexrank': factorized params under the ranks of budget row
@@ -111,6 +166,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
             [i.path for i in infos], [i.full_rank for i in infos],
             cfg.flexrank.budgets[:num_budgets]).table
     kd = mode == "flexrank_kd"
+    axes = cm.axes_tree(FR.factorized_spec(cfg) if infos
+                        else tfm.model_spec(cfg))
 
     def loss_fn(params, batch, rng: threefry.Key,
                 teacher_params: Optional[Dict] = None) -> torch.Tensor:
@@ -136,13 +193,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
 
     def train_step(params, opt_state: adamw.AdamWState, batch,
                    rng: threefry.Key, teacher_params: Optional[Dict] = None):
-        with tfm.remat_blocks():
-            loss = loss_fn(params, batch, rng, teacher_params)
-            loss.backward()
-        params, opt_state, metrics = adamw.apply_updates(
-            params, grads_of(params), opt_state, opt_cfg)
-        clear_grads(params)
-        return params, opt_state, {"loss": loss.detach(), **metrics}
+        mesh = D.get_current_mesh()
+        dims = None if mesh is None else D.expert_dims(mesh, axes, params)
+        params, opt_state, loss, m = step(
+            params, opt_state,
+            lambda: (loss_fn(params, batch, rng, teacher_params), {}),
+            opt_cfg, remat=True, mesh=mesh, shard_dims=dims)
+        return params, opt_state, {"loss": loss.detach(),
+                                   "grad_norm": m["grad_norm"],
+                                   "lr": m["lr"]}
 
     train_step.loss_fn = loss_fn
     return train_step

@@ -106,6 +106,11 @@ def instantiate(specs: PyTree, generator: torch.Generator, *,
     return tree_map(make, specs, is_leaf=is_spec)
 
 
+def axes_tree(specs: PyTree) -> PyTree:
+    """The logical-axes tree mirroring a spec tree's parameters."""
+    return tree_map(lambda s: s.axes, specs, is_leaf=is_spec)
+
+
 def param_count(specs: PyTree) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_leaves(specs, is_spec))
 

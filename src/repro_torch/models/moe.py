@@ -15,9 +15,13 @@ one factor pair per expert. The expert products are batched ``einsum``s,
 as the reference leaves them to XLA; the shared experts go through
 ``common.linear`` like every other projection.
 
-The reference's expert-parallel ``moe_apply_ep`` falls back to
-``moe_apply`` without a mesh, so one card runs ``moe_apply`` wherever the
-reference calls either.
+``moe_apply_ep`` is the reference's expert-parallel path, which the
+attention block takes for every uncached call of more than one token:
+each rank of the 'model' axis routes its own contiguous chunk of the
+sequence, two all-to-alls carry the (expert, slot) buffers to the ranks
+that hold the experts and back, and each rank runs its ``E / n_model``
+experts (``distributed.collectives`` has the backward of each step).
+Without a mesh, or where the sizes do not divide, it is ``moe_apply``.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.meshctx import data_axes, get_current_mesh
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamSpec, linear
 
@@ -183,4 +189,119 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     ce = (top_e[..., 0, None] == torch.arange(e, device=dev)).float().mean(
         dim=(0, 1))
     aux = e * torch.sum(me * ce) * m.router_aux_weight
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel path
+# ---------------------------------------------------------------------------
+
+def _moe_inner(x_col: torch.Tensor, router_w: torch.Tensor, experts: Dict,
+               ranks: Dict, cfg: ModelConfig, group
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's per-rank body. x_col: (Tc, d), this rank's tokens;
+    ``experts``: this rank's ``E / n`` experts; ``group``: the 'model'
+    ranks (None for one). Returns (out (Tc, d), aux: the mean over the
+    ranks of each one's load-balancing loss)."""
+    m = cfg.moe
+    e, k = m.num_experts, m.top_k
+    tc, d = x_col.shape
+    n = 1 if group is None else torch.distributed.get_world_size(group)
+    e_loc = e // n
+
+    probs = torch.softmax(x_col.float() @ router_w, dim=-1)       # (Tc, E)
+    top_p, top_e = route(probs, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # capacity of this slice's tokens, not of a batch row
+    cap = max(int(math.ceil(tc * k * m.capacity_factor / e)), 4)
+    flat_e = top_e.reshape(-1)                                    # (Tc*K,)
+    slot, keep = (t[0] for t in assign_slots(top_e[None], e, cap))
+    gate = top_p.reshape(-1) * keep.to(top_p.dtype)
+    dest = flat_e * cap + torch.where(keep, slot, torch.full_like(slot, cap))
+    token_idx = torch.arange(tc * k, device=x_col.device) // k
+    ex_in = torch.zeros((e * cap + 1, d), dtype=x_col.dtype,
+                        device=x_col.device)
+    ex_in[torch.where(keep, dest, torch.full_like(dest, e * cap))] = \
+        x_col[token_idx]
+    ex_in = ex_in[:-1].reshape(e, cap, d)
+
+    # exchange: (E, C, d) -> (E_loc, C * n, d), rank j's slots j-th
+    ex_in = C.all_to_all(ex_in, group).reshape(n, e_loc, cap, d)
+    ex_in = ex_in.transpose(0, 1).reshape(1, e_loc, n * cap, d)
+    h = cm.swiglu(
+        expert_linear(experts["gate"], ex_in, rank=ranks.get("gate")),
+        expert_linear(experts["up"], ex_in, rank=ranks.get("up")))
+    ex_out = expert_linear(experts["down"], h, rank=ranks.get("down"))
+    # return exchange: (E_loc, C * n, d) -> (E, C, d)
+    ex_out = ex_out.reshape(e_loc, n, cap, d).transpose(0, 1)
+    ex_out = C.all_to_all(ex_out.contiguous(), group).reshape(e * cap, d)
+
+    back = torch.where(keep, dest, torch.zeros_like(dest))
+    gathered = ex_out[back] * gate[:, None].to(ex_out.dtype)
+    out = gathered.reshape(tc, k, d).sum(dim=1)
+
+    me = probs.mean(dim=0)
+    ce = (top_e[:, 0, None] == torch.arange(e, device=x_col.device)
+          ).float().mean(dim=0)
+    aux = C.mean(e * torch.sum(me * ce) * m.router_aux_weight, group)
+    return out.to(x_col.dtype), aux
+
+
+def _whole_experts(experts: Dict, cfg: ModelConfig, group) -> Dict:
+    """The expert leaves whole on every rank of ``group``: each rank holds
+    its ``E / n`` (the fallback below runs every expert)."""
+    def whole(t):
+        return t if t.shape[0] == cfg.moe.num_experts else \
+            C.gather(t, 0, group)
+    return cm.tree_map(whole, experts)
+
+
+def moe_apply_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                 ranks: Optional[Dict] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel MoE of the current mesh (training and prefill).
+    x: (B, S, D), this rank's batch rows; the expert leaves of ``p`` hold
+    this rank's ``E / n_model`` experts. Tokens split over 'model' by
+    contiguous sequence chunks, each chunk's (B, S / n_model) tokens one
+    slice; the shared experts run on the full ``x``. Returns (output,
+    aux_loss). Falls back to ``moe_apply`` without a mesh or a 'model'
+    axis, or where the sizes do not divide, as the reference does."""
+    mesh = get_current_mesh()
+    m = cfg.moe
+    b, s, d = x.shape
+    if mesh is None or "model" not in mesh.axis_names:
+        return moe_apply(p, x, cfg, ranks=ranks)
+    n_model = mesh.shape["model"]
+    n_data = mesh.size(data_axes(mesh))
+    group = mesh.group("model")
+    # the reference's guard, over its global batch (b * n_data rows). Its
+    # in_specs split s itself over 'model', so a shape that passes with
+    # s % n_model != 0 fails there as here: the tests hold shapes where
+    # both divide
+    if m.num_experts % n_model or (b * n_data * s) % (n_data * n_model):
+        return moe_apply(dict(p, experts=_whole_experts(p["experts"], cfg,
+                                                        group)),
+                         x, cfg, ranks=ranks)
+    if s % n_model:
+        raise ValueError(f"sequence {s} does not split over {n_model} "
+                         "'model' ranks")
+    r = ranks or {}
+    x_col = C.scatter(x, 1, group)                    # (B, S / n, D)
+    bl, sl, _ = x_col.shape
+    out, aux = _moe_inner(
+        x_col.reshape(bl * sl, d),
+        C.reduce_grad(p["router"]["w"].float(), group), p["experts"],
+        {k: cm.rget(r, "experts", k) for k in ("gate", "up", "down")},
+        cfg, group)
+    out = C.gather(out.reshape(bl, sl, d), 1, group)
+    if m.num_shared:
+        sh = cm.swiglu(
+            linear(p["shared"]["gate"], x, rank=cm.rget(r, "shared", "gate"),
+                   tap="shared/gate"),
+            linear(p["shared"]["up"], x, rank=cm.rget(r, "shared", "up"),
+                   tap="shared/up"))
+        out = out + linear(p["shared"]["down"], sh,
+                           rank=cm.rget(r, "shared", "down"),
+                           tap="shared/down")
     return out, aux

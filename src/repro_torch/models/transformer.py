@@ -234,8 +234,14 @@ def _apply_attn_block(p, x, cfg, *, positions, window, ranks, cache=None,
     h = cm.rms_norm(x, p["ln_mlp"], eps=cfg.norm_eps)
     with cm.tap_scope("mlp"):
         if moe:
-            y, aux = moe_mod.moe_apply(p["mlp"], h, cfg,
-                                       ranks=rget_tree(ranks, "mlp"))
+            # the reference's choice: expert-parallel for every uncached
+            # call of more than one token (moe_apply_ep is moe_apply
+            # without a mesh)
+            apply_fn = (moe_mod.moe_apply_ep
+                        if cache is None and h.shape[1] > 1
+                        else moe_mod.moe_apply)
+            y, aux = apply_fn(p["mlp"], h, cfg,
+                              ranks=rget_tree(ranks, "mlp"))
         else:
             y, aux = attn.ffn_apply(p["mlp"], h,
                                     ranks=rget_tree(ranks, "mlp")), 0.0

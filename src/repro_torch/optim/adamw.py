@@ -67,11 +67,13 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(tree: PyTree, max_norm: float
+def clip_by_global_norm(tree: PyTree, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[PyTree, torch.Tensor]:
     """Scale every leaf by ``min(1, max_norm / norm)``; returns (new tree,
-    norm)."""
-    norm = global_norm(tree)
+    norm). ``norm`` defaults to the tree's global norm."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return cm.tree_map(lambda g: (g * scale).to(g.dtype), tree), norm
 
@@ -85,14 +87,21 @@ def init(params: PyTree) -> AdamWState:
 
 @torch.no_grad()
 def apply_updates(params: PyTree, grads: PyTree, state: AdamWState,
-                  cfg: AdamWConfig) -> Tuple[PyTree, AdamWState, dict]:
+                  cfg: AdamWConfig, *,
+                  grad_norm: Optional[torch.Tensor] = None
+                  ) -> Tuple[PyTree, AdamWState, dict]:
     """One AdamW step, in place (see the module note). Returns (params,
     state, metrics) with the same parameter and moment tensors, updated;
-    metrics hold ``grad_norm`` (a device scalar) and ``lr``."""
+    metrics hold ``grad_norm`` (a device scalar) and ``lr``. ``grad_norm``
+    is the global norm of the gradients where ``grads`` holds only this
+    rank's part of some leaves (the launcher's expert split); by default,
+    that of ``grads``."""
+    if grad_norm is None:
+        grad_norm = global_norm(grads)
     if cfg.clip_norm:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, grad_norm)
     else:
-        gnorm = global_norm(grads)
+        gnorm = grad_norm
     step = state.step + 1
     lr = schedule_lr(cfg, step)
     b1c = float(_F32(1.0) - _F32(cfg.b1) ** _F32(step))

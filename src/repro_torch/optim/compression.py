@@ -6,11 +6,12 @@ P = G Q, orthonormalise P, Q' = G^T P, Ghat = P Q'^T; error feedback keeps
 G - Ghat for the next step. A stacked leaf (L, m, n) is one matrix (L,
 m * n), as in the reference (unlike Muon's slice-by-slice rule).
 
-On one device there is nothing to all-reduce: ``compress_decompress``
-takes the mean of one replica, the identity, as the reference does with
-``axis_name=None``. Compressing a data-parallel all-reduce needs a mesh of
-cards (ROADMAP A.11). The initial Q of each leaf is the reference's own
-draw (``threefry.split`` and ``threefry.normal``).
+With ``axis_name`` the mean runs over that axis of the current mesh
+(``distributed.mesh_context``), as the reference's ``pmean`` under
+``shard_map`` does, at its three points: the leaves passed through
+whole, ``G Q`` and ``G^T P``. Without it the mean is of one replica, the
+identity. The initial Q of each leaf is the reference's own draw
+(``threefry.split`` and ``threefry.normal``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import threefry
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import get_current_mesh
 from repro_torch.models import common as cm
 
 PyTree = Any
@@ -70,33 +73,52 @@ def init(params: PyTree, cfg: PowerSGDConfig, seed: int = 0
                          error=_unflatten(params, errs))
 
 
+def _pmean(axis_name: Optional[str]):
+    """The mean over ``axis_name`` of the current mesh, as a function of a
+    tensor."""
+    if axis_name is None:
+        return lambda x: x
+    mesh = get_current_mesh()
+    if mesh is None:
+        raise NameError(f"unbound axis name: {axis_name} (no current mesh)")
+    if axis_name not in mesh.axis_names:
+        raise NameError(f"unbound axis name: {axis_name} (mesh axes "
+                        f"{mesh.axis_names})")
+    group = mesh.group(axis_name)
+
+    def pmean(x):
+        x = x.clone()
+        C.all_reduce_mean_([x], group)
+        return x
+    return pmean
+
+
 @torch.no_grad()
 def compress_decompress(grads: PyTree, state: PowerSGDState,
                         cfg: PowerSGDConfig, *,
                         axis_name: Optional[str] = None
                         ) -> Tuple[PyTree, PowerSGDState, dict]:
-    """Rank-r approximation of ``grads`` as one replica's all-reduce
-    (``axis_name=None``, the only case on one device). Returns
-    (approximate gradients, new state, metrics with the bytes sent raw and
-    compressed and their ratio)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "PowerSGD across a mesh axis is not ported yet (ROADMAP A.11: "
-            "distributed training)")
+    """Rank-r approximate mean of ``grads`` over the ranks of
+    ``axis_name`` on the current mesh (one replica's, the identity, with
+    ``axis_name=None``). Returns (approximate mean gradients, new state,
+    metrics with the bytes sent raw and compressed and their ratio). An
+    axis name without a current mesh, or that the mesh lacks, raises, as
+    ``jax.lax.pmean`` does on an unbound axis."""
+    pmean = _pmean(axis_name)
     out_g, out_q, out_e = [], [], []
     raw_bytes = comp_bytes = 0
     for g, q, e in zip(cm.tree_leaves(grads), cm.tree_leaves(state.q),
                        cm.tree_leaves(state.error)):
         if q.numel() == 0:
-            out_g.append(g)
+            out_g.append(pmean(g))
             out_q.append(q)
             out_e.append(e)
             raw_bytes += g.numel() * 4
             comp_bytes += g.numel() * 4
             continue
         gm = _as_matrix(g.float() + e.float() if cfg.ef else g.float())
-        p, _ = torch.linalg.qr(gm @ q)
-        q_new = gm.T @ p
+        p, _ = torch.linalg.qr(pmean(gm @ q))
+        q_new = pmean(gm.T @ p)
         ghat = (p @ q_new.T).reshape(g.shape)
         out_g.append(ghat.to(g.dtype))
         out_q.append(q_new)

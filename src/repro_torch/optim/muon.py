@@ -82,10 +82,12 @@ def init(params: PyTree, cfg: MuonConfig) -> MuonState:
 
 @torch.no_grad()
 def apply_updates(params: PyTree, grads: PyTree, state: MuonState,
-                  cfg: MuonConfig) -> Tuple[PyTree, MuonState, dict]:
+                  cfg: MuonConfig, *, grad_norm=None
+                  ) -> Tuple[PyTree, MuonState, dict]:
     """One step, in place (see the module note): Muon for the matrix
     leaves (each slice of a stacked one on its own), AdamW for the rest.
-    Returns (params, state, AdamW's metrics).
+    Returns (params, state, AdamW's metrics). ``grad_norm`` goes to
+    AdamW's clipping (``adamw.apply_updates``).
 
     The slices of every matrix leaf of one (m, n) shape go through
     ``newton_schulz`` as one batch: a slice's result is its own either
@@ -96,7 +98,7 @@ def apply_updates(params: PyTree, grads: PyTree, state: MuonState,
     # exact copies of the matrix leaves before the AdamW pass
     before = torch._foreach_mul([leaves[i] for i in idx], 1.0)
     params, adamw_state, metrics = adamw.apply_updates(
-        params, grads, state.adamw_state, cfg.adamw)
+        params, grads, state.adamw_state, cfg.adamw, grad_norm=grad_norm)
     gs = cm.tree_leaves(grads)
     moms = cm.tree_leaves(state.momentum)
     g32 = [gs[i].float() for i in idx]

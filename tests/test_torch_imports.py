@@ -1,5 +1,5 @@
 """Import hygiene of the port: nothing under ``src/repro_torch`` and
-nothing in ``chip_smoke.py`` imports JAX or the JAX package (``repro``).
+nothing in ``chip_smoke.py`` or its ``dist_check.py`` imports JAX or the JAX package (``repro``).
 Found by an AST scan, so imports inside functions count too."""
 import ast
 from pathlib import Path
@@ -8,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "dist_check.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -59,7 +59,12 @@ def test_scan_covers_the_package():
                  "src/repro_torch/checkpoint/manager.py",
                  "src/repro_torch/core/nestedness.py",
                  "src/repro_torch/launch/mesh.py",
-                 "src/repro_torch/distributed.py",
+                 "src/repro_torch/distributed/__init__.py",
+                 "src/repro_torch/distributed/world.py",
+                 "src/repro_torch/distributed/meshctx.py",
+                 "src/repro_torch/distributed/sharding.py",
+                 "src/repro_torch/distributed/collectives.py",
+                 "dist_check.py",
                  "src/repro_torch/core/covariance.py",
                  "src/repro_torch/core/profiles.py"):
         assert must in names

@@ -24,6 +24,7 @@ from repro.optim import compression as JC
 from repro_torch import bridge, threefry
 from repro_torch.core import nestedness as TN
 from repro_torch.models import common as tcm
+from repro_torch import distributed as tdist
 from repro_torch.optim import compression as TC
 
 torch.set_num_threads(1)
@@ -209,8 +210,18 @@ def test_powersgd_three_steps_match_jax():
     assert torch.equal(gt["c"], torch.as_tensor(g["c"]))
 
 
-def test_powersgd_over_a_mesh_axis_waits_for_a11():
+@pytest.mark.parametrize("mesh, error", [
+    (None, NameError),
+    (tdist.Mesh(tdist.device_array(["cpu"], (1,)), ("model",)), NameError),
+    (tdist.Mesh(tdist.device_array(["cpu"] * 2, (2, 1)), ("data", "model")),
+     RuntimeError)], ids=["no mesh", "no such axis", "no group"])
+def test_powersgd_over_an_axis_with_no_group_raises(mesh, error):
+    """``axis_name`` names an axis of the current mesh with a process
+    group over its ranks (``tests/test_torch_dist.py`` runs it across
+    ranks); without a mesh, or the axis, it raises, as ``jax.lax.pmean``
+    does on an unbound axis name, and so does an axis of two ranks on a
+    mesh built without groups."""
     st = TC.init({"a": torch.zeros(256, 256)}, TC.PowerSGDConfig())
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with tdist.mesh_context(mesh), pytest.raises(error):
         TC.compress_decompress({"a": torch.zeros(256, 256)}, st,
                                TC.PowerSGDConfig(), axis_name="data")

@@ -443,15 +443,19 @@ DECODE_SHAPES = ((256, 1), (256, 8), (256, 32), (4096, 16))
 @pytest.mark.parametrize("arch", list_archs())
 def test_memory_traffic_matches_reference_at_full_size(arch):
     """Every decode component on one device (the reference at an empty
-    mesh), exactly, at a few buckets; other kinds are refused."""
+    mesh, the audit's call), exactly, at a few buckets; and a train and
+    a prefill step there (``tests/test_torch_dist.py`` holds the mesh
+    divisors)."""
     assert arch in tlist_archs()
     jcfg, tcfg = jget(arch), tget(arch)
     for seq, batch in DECODE_SHAPES:
         j = jtraffic(jcfg, JShape("x", seq, batch, "decode"), mesh_shape={})
         t = ttraffic(tcfg, TShape("x", seq, batch, "decode"))
         assert t == j and list(t) == list(j), (seq, batch)
-    with pytest.raises(ValueError):
-        ttraffic(tcfg, TShape("x", 128, 2, "train"))
+    for kind in ("train", "prefill"):
+        j = jtraffic(jcfg, JShape("x", 128, 2, kind), mesh_shape={})
+        t = ttraffic(tcfg, TShape("x", 128, 2, kind))
+        assert t == j and list(t) == list(j), kind
 
 
 # ---------------------------------------------------------- cost audit
