@@ -261,6 +261,26 @@ Phases, each fatal on failure:
                TOL_GAR; each step's ms, its gradient all-reduce's, the two
                all-to-alls of the MoE call and each rank's peak memory
                printed.
+  22. dryrun - run last (``launch/dryrun.py``): (a) two production cells
+               on the host as rank 0 of a fake world, deepseek-moe-16b
+               ``train_4k`` on (16, 16) (its all-to-alls from
+               ``moe_apply_ep``, 4 experts a rank) and zamba2-7b
+               ``long_500k`` on (2, 16, 16) (a batch of one held whole),
+               each record's figures printed, ``status`` ``ok``; (b)
+               gpt2-small at full depth, one rank (a 1 x 1 mesh, no
+               group), 8 x 128 tokens, one dense AdamW step: traced on
+               ``meta``, then the same step on the card (after one
+               untraced warm-up call) under the same counter: FLOPs,
+               products and collective bytes equal, and the step's own
+               high-water mark on the card (``max_memory_allocated``
+               after ``reset_peak_memory_stats``, less what was allocated
+               before) within TOL_DRYRUN_PEAK of the meta trace's plus
+               DRYRUN_PEAK_SLACK bytes; ``t_compute`` beside the step's
+               ms, no gate; (c) the same counts equal for a ``flexrank``
+               train step (``lowrank_matmul`` launched) and a ``gar``
+               decode step over a 256-position cache (``gar_matmul``
+               launched), each kernel's counted work equal to its plain
+               version's on ``meta``.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and a JSON line of per-kernel numbers. Exits
@@ -298,6 +318,8 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+ROOFLINE_NOTE = ("roofline at an NVIDIA H100 80GB HBM3 700 W's datasheet "
+                 "peaks: 989 TFLOP/s bf16, 3.35 TB/s, 50 GB/s a link")
 TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 on the tensor cores
 L2_BYTES = 50 * 2**20
 TOL_ATTN = 2e-5                # float32 attention, absolute
@@ -382,6 +404,13 @@ DIST_DEADLINE = 240            # seconds for phase 21's two rank processes
 # vs CPU after 1000 Adam steps, relative to max |M*| (a 1-ulp change of the
 # initial draws moves them by at most 6.4e-7 on the CPU, at 500 steps)
 TOL_NESTED = 1e-5
+# phase 22 (b): the card's high-water mark over one dense step against the
+# meta trace's (live tensor bytes as the dispatcher sees them): a share
+# for the caching allocator's 512-byte rounding and an op's internal
+# scratch, and a fixed allowance for cuBLAS's workspaces, which the
+# allocator holds outside any op's output
+TOL_DRYRUN_PEAK = 0.05
+DRYRUN_PEAK_SLACK = 64 << 20
 PROJECTIONS = ("attn/q", "attn/k", "attn/v", "attn/o", "mlp/gate", "mlp/up",
                "mlp/down")
 
@@ -4068,6 +4097,96 @@ def dist_phase(smi: str) -> None:
         f"{[round(x, 2) for x in r['a2a_ms']['return']]}")
 
 
+def dryrun_phase(dev, smi: str) -> None:
+    """Phase 22: the dry run's figures, on the host and against the card
+    (module note)."""
+    from repro_torch import distributed as D
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import gar_matmul, lowrank_matmul
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import trace_analysis as TA
+
+    for arch, shape, multi in (("deepseek-moe-16b", "train_4k", False),
+                               ("zamba2-7b", "long_500k", True)):
+        rec = DR.run_cell(arch, shape, multi_pod=multi, mode="dense",
+                          out_dir=None)
+        if rec["status"] != "ok":
+            fail(f"phase 22 (a) {arch} {shape}: {rec.get('error')}")
+        b, coll = rec["bytes_per_device"], rec["collectives"]
+        log(f"# dryrun (a) {arch} {shape} on {rec['mesh']}, rank 0 of a "
+            f"fake world (local batch {rec['local_batch']}): "
+            f"{rec['hlo_flops_per_device'] / 1e12:.2f} TFLOP, "
+            f"{rec['dot_count']} products; collective GB "
+            + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in coll.items() if v)
+            + f"; argument {b['argument'] / 1e9:.2f} GB, peak "
+            f"{b['peak'] / 1e9:.2f} GB (placed "
+            f"{rec['placed']['bytes_per_device']['total'] / 1e9:.2f} GB); "
+            f"t_compute {rec['t_compute']:.4g} s, t_memory "
+            f"{rec['t_memory']:.4g} s, t_collective "
+            f"{rec['t_collective']:.4g} s, {rec['bottleneck']}-bound, "
+            f"useful {rec['useful_flops_ratio']:.4f}; traced in "
+            f"{rec['trace_s']:.1f} s ({ROOFLINE_NOTE})")
+    D.shutdown_world()
+
+    cfg = get_config("gpt2-small")
+    mesh = DR.make_mesh((1, 1), ("data", "model"), devices=[dev])
+
+    def both(label, shape, mode, kernel=None):
+        """The step traced on meta and on the card; returns the two
+        traces' figures and the card step's high-water mark and ms."""
+        meta_step, meta_args, facts = DR.build_step(
+            cfg, shape, mesh, mode, dtype=torch.float32)
+        with D.mesh_context(mesh):
+            _, meta = TA.trace(meta_step, *meta_args)
+        step, args, _ = DR.build_step(cfg, shape, mesh, mode, device=dev,
+                                      dtype=torch.float32)
+        with D.mesh_context(mesh):
+            step(*args)                   # warm-up: cuBLAS's handles
+        torch.cuda.synchronize()
+        gc.collect()
+        launched = None if kernel is None else kernel.launches
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        with D.mesh_context(mesh):
+            _, card = TA.trace(step, *args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        high = torch.cuda.max_memory_allocated(dev) - before
+        for key in ("flops_dot", "dot_count", "collective_bytes",
+                    "kernel_work"):
+            if meta[key] != card[key]:
+                fail(f"phase 22 {label}: {key} {meta[key]} on meta, "
+                     f"{card[key]} on the card")
+        if kernel is not None and kernel.launches == launched:
+            fail(f"phase 22 {label}: {kernel.__name__} not launched")
+        log(f"# dryrun {label}: gpt2-small full depth, {shape.global_batch}"
+            f" x {shape.seq_len} ({shape.kind}, {mode}"
+            + (f", budget row {facts['budget_k']}" if "budget_k" in facts
+               else "") + f"): {meta['flops_dot']:.6g} FLOPs, "
+            f"{meta['dot_count']} products, collective bytes "
+            f"{meta['collective_bytes_total']:.0f} on meta and on the card"
+            + "".join(f"; {k} work {w}" for k, w in
+                      card["kernel_work"].items())
+            + f"; step high-water: meta {meta['bytes']['temp']} B (peak "
+            f"{meta['bytes']['peak']} B), card trace "
+            f"{card['bytes']['temp']} B, card allocator {high} B "
+            f"(max_memory_allocated {torch.cuda.max_memory_allocated(dev)}"
+            f" B); t_compute {meta['flops_dot'] / DR.PEAK_FLOPS * 1e3:.4f}"
+            f" ms (datasheet peak) vs the step {ms:.1f} ms traced; {smi}")
+        return meta, high
+
+    meta, high = both("(b)", ShapeConfig("chip", 128, 8, "train"), "dense")
+    want = meta["bytes"]["temp"]
+    if abs(high - want) > TOL_DRYRUN_PEAK * want + DRYRUN_PEAK_SLACK:
+        fail(f"phase 22 (b): the card's step high-water {high} B against "
+             f"the meta trace's {want} B")
+    both("(c) flexrank", ShapeConfig("chip", 128, 8, "train"), "flexrank",
+         lowrank_matmul)
+    both("(c) gar decode", ShapeConfig("chip", 256, 8, "decode"), "gar",
+         gar_matmul)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs on an "
@@ -4572,6 +4691,10 @@ def main() -> int:
     counts["sampling"] += tel_counts["topk_mask_sample"]
 
     phase_done("18 telemetry")
+
+    # 22. the dry run's figures (a fake world in this process: run last)
+    dryrun_phase(dev, smi)
+    phase_done("22 dryrun")
 
     # numbers, one entry per kernel, at its largest main-path shape
     replaces = {

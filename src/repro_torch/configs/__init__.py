@@ -1,5 +1,5 @@
 """Architecture registry: every config of the JAX package."""
-from typing import List
+from typing import List, Tuple
 
 from repro_torch.configs.base import (LM_SHAPES, LONG_CONTEXT_ARCHS,
                                       FlexRankConfig, ModelConfig, Segment,
@@ -25,6 +25,13 @@ _MODULES = {
 }
 
 
+# the dry run's archs, in the reference's order: every arch but gpt2-small
+ASSIGNED_ARCHS: Tuple[str, ...] = (
+    "llama4-scout-17b-a16e", "deepseek-moe-16b", "stablelm-1.6b",
+    "minicpm3-4b", "gemma3-27b", "deepseek-7b", "zamba2-7b",
+    "seamless-m4t-medium", "llama-3.2-vision-11b", "rwkv6-3b")
+
+
 def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: "
@@ -43,6 +50,6 @@ def shapes_for(name: str) -> List[ShapeConfig]:
             if s.name != "long_500k" or name in LONG_CONTEXT_ARCHS]
 
 
-__all__ = ["FlexRankConfig", "LM_SHAPES", "LONG_CONTEXT_ARCHS",
-           "ModelConfig", "Segment", "ShapeConfig", "get_config",
+__all__ = ["ASSIGNED_ARCHS", "FlexRankConfig", "LM_SHAPES",
+           "LONG_CONTEXT_ARCHS", "ModelConfig", "Segment", "ShapeConfig", "get_config",
            "list_archs", "shapes_for"]

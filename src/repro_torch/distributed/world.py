@@ -13,7 +13,9 @@ has a process group for each axis and, where a mesh has both 'pod' and
 ``unravel_index(r, shape)``, so the last axis ('model') is the innermost.
 A mesh of devices given by the caller, or of the one device of a run
 without ``torch.distributed``, has no groups: it records devices and axis
-names only.
+names only. A fake world (``init_world("fake", ...)``) is one process
+standing for one rank of many: its groups are made as for gloo and NCCL,
+and its collectives move nothing.
 """
 from __future__ import annotations
 
@@ -119,19 +121,32 @@ def init_world(backend: str, *, device, rank: int = -1,
     is ``init_method``, or ``store``, or ``env://``), and record every
     rank's device. The backend is the caller's choice: NCCL for a card per
     rank, gloo for ranks on the CPU or sharing a card
-    (``init_world_from_env`` chooses)."""
+    (``init_world_from_env`` chooses).
+
+    ``"fake"`` is a world of one process: this rank alone, whose
+    collectives return at once and move nothing (``FakeStore`` by
+    default, every rank's device this one's). The dry run traces one rank
+    of a production mesh in it, on ``meta`` tensors; ``backend_for``
+    never picks it."""
     device = torch.device(device)
     if device.type == "cuda":
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
+    if backend == "fake":
+        # registers the backend and its store with torch.distributed
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        store = store if store is not None else FakeStore()
     if store is None and init_method is None:
         init_method = "env://"
     dist.init_process_group(backend, init_method=init_method, store=store,
                             rank=rank, world_size=world_size,
                             timeout=timeout)
-    names: List[Optional[str]] = [None] * dist.get_world_size()
-    dist.all_gather_object(names, str(device))
+    if backend == "fake":
+        names = [str(device)] * dist.get_world_size()
+    else:
+        names: List[Optional[str]] = [None] * dist.get_world_size()
+        dist.all_gather_object(names, str(device))
     _WORLD.update(devices=[torch.device(n) for n in names], timeout=timeout,
                   backend=backend)
 

@@ -3,6 +3,10 @@
 A CPU tensor takes the plain PyTorch version (``ref``); a CUDA tensor
 launches the hand-written kernel, or the kernel's wrapper raises. There is
 no knob and no fallback from a failed launch to the plain version.
+
+Under a step trace (``launch/trace_analysis.py``) each entry reports the
+work of the plain version it stands for: counted as it runs where the
+plain version runs, replayed on ``meta`` where the kernel launches.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from repro_torch.kernels import paged_attention as _attn
 from repro_torch.kernels import sampling as _samp
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import wkv6 as _wkv
+from repro_torch.launch import trace_analysis as TA
 
 
 def gar_forward(x: torch.Tensor, v_tilde: torch.Tensor, u_hat: torch.Tensor,
@@ -26,14 +31,21 @@ def gar_forward(x: torch.Tensor, v_tilde: torch.Tensor, u_hat: torch.Tensor,
     rank ``u_hat`` is (0, r) and ``z`` is the whole output."""
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
+    v_tilde, u_hat = v_tilde.to(x.dtype), u_hat.to(x.dtype)
     if x.is_cuda:
-        y = _gar.gar_matmul(xf.contiguous(), v_tilde.to(x.dtype).contiguous(),
-                            u_hat.to(x.dtype).contiguous(),
-                            perm_inv.contiguous())
+        TA.count_kernel("gar_matmul", _gar_plain, xf, v_tilde, u_hat,
+                        perm_inv)
+        y = _gar.gar_matmul(xf.contiguous(), v_tilde.contiguous(),
+                            u_hat.contiguous(), perm_inv.contiguous())
         return y.reshape(*lead, -1)
-    z, tail = ref.gar_matmul_ref(xf, v_tilde.to(x.dtype), u_hat.to(x.dtype))
-    y = torch.cat([z, tail], dim=-1)[:, perm_inv]
+    with TA.plain_kernel("gar_matmul"):
+        y = _gar_plain(xf, v_tilde, u_hat, perm_inv)
     return y.reshape(*lead, -1)
+
+
+def _gar_plain(xf, v_tilde, u_hat, perm_inv):
+    z, tail = ref.gar_matmul_ref(xf, v_tilde, u_hat)
+    return torch.cat([z, tail], dim=-1)[:, perm_inv]
 
 
 class _LowRank(torch.autograd.Function):
@@ -51,9 +63,12 @@ class _LowRank(torch.autograd.Function):
         ctx.save_for_backward(x, v, u)
         ctx.kr = _lr.kept_rank(v.shape[1], rank)
         if x.is_cuda:
+            TA.count_kernel("lowrank_matmul", ref.lowrank_matmul_ref, x, v,
+                            u, rank)
             return _lr.lowrank_matmul(x.contiguous(), v.contiguous(),
                                       u.contiguous(), rank)
-        return ref.lowrank_matmul_ref(x, v, u, rank)
+        with TA.plain_kernel("lowrank_matmul"):
+            return ref.lowrank_matmul_ref(x, v, u, rank)
 
     @staticmethod
     def backward(ctx, dy):
@@ -125,23 +140,25 @@ class _Recurrence(torch.autograd.Function):
     takes ``jax.grad`` of its chunked form."""
 
     @staticmethod
-    def forward(ctx, kernel, plain, chunk, *args):
+    def forward(ctx, name, kernel, plain, chunk, *args):
         ctx.plain, ctx.chunk = plain, chunk
         ctx.save_for_backward(*args)
         if args[0].is_cuda:
+            TA.count_kernel(name, plain, *args, chunk)
             return kernel(*(t.contiguous() for t in args))
-        return plain(*args, chunk)
+        with TA.plain_kernel(name):
+            return plain(*args, chunk)
 
     @staticmethod
     def backward(ctx, dy):
         args = [t.detach().requires_grad_(need) for t, need in
-                zip(ctx.saved_tensors, ctx.needs_input_grad[3:])]
+                zip(ctx.saved_tensors, ctx.needs_input_grad[4:])]
         wanted = [t for t in args if t.requires_grad]
         with torch.enable_grad():
             y = ctx.plain(*args, ctx.chunk)
             grads = iter(torch.autograd.grad(y, wanted, dy))
-        return (None, None, None, *(next(grads) if t.requires_grad else None
-                                    for t in args))
+        return (None, None, None, None,
+                *(next(grads) if t.requires_grad else None for t in args))
 
 
 def wkv6_forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,7 +167,8 @@ def wkv6_forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """RWKV6 WKV recurrence from a zero state. r/k/v/w: (B, S, H, N), w the
     decays in (0, 1); u: (H, N). Returns y (B, S, H, N). ``chunk`` is the
     plain version's chunk length. Differentiable in every input."""
-    return _Recurrence.apply(_wkv.wkv6, _wkv_plain, chunk, r, k, v, w, u)
+    return _Recurrence.apply("wkv6", _wkv.wkv6, _wkv_plain, chunk, r, k, v,
+                             w, u)
 
 
 def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -160,7 +178,8 @@ def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (B, S, H, P); dt: (B, S, H) step sizes; a: (H,) negative decay rates;
     b/c: (B, S, G, N) with G dividing H. Returns y (B, S, H, P). ``chunk``
     is the plain version's chunk length. Differentiable in every input."""
-    return _Recurrence.apply(_ssd.ssd, _ssd_plain, chunk, x, dt, a, b, c)
+    return _Recurrence.apply("ssd", _ssd.ssd, _ssd_plain, chunk, x, dt, a,
+                             b, c)
 
 
 def paged_attention_forward(q, k_pool, v_pool, block_tables, context_lens,
@@ -172,13 +191,17 @@ def paged_attention_forward(q, k_pool, v_pool, block_tables, context_lens,
     Returns (B, Hq, D)."""
     if q.is_cuda:
         i32 = torch.int32
+        TA.count_kernel("paged_attention", ref.paged_attention_ref, q,
+                        k_pool, v_pool, block_tables, context_lens,
+                        softcap=softcap, window=window)
         return _attn.paged_attention(
             q.contiguous(), k_pool, v_pool, block_tables.to(i32).contiguous(),
             context_lens.to(i32).contiguous(), softcap=softcap,
             window=window)
-    return ref.paged_attention_ref(q, k_pool, v_pool, block_tables,
-                                   context_lens, softcap=softcap,
-                                   window=window)
+    with TA.plain_kernel("paged_attention"):
+        return ref.paged_attention_ref(q, k_pool, v_pool, block_tables,
+                                       context_lens, softcap=softcap,
+                                       window=window)
 
 
 def paged_prefill_attention_forward(q, k_pool, v_pool, block_tables,
@@ -190,13 +213,18 @@ def paged_prefill_attention_forward(q, k_pool, v_pool, block_tables,
     ``paged_attention_forward``. Returns (T, Hq, D)."""
     if q.is_cuda:
         i32 = torch.int32
+        TA.count_kernel("paged_prefill_attention",
+                        ref.paged_prefill_attention_ref, q, k_pool, v_pool,
+                        block_tables, slot_ids, context_lens,
+                        softcap=softcap, window=window)
         return _attn.paged_prefill_attention(
             q.contiguous(), k_pool, v_pool, block_tables.to(i32).contiguous(),
             slot_ids.to(i32).contiguous(), context_lens.to(i32).contiguous(),
             softcap=softcap, window=window)
-    return ref.paged_prefill_attention_ref(q, k_pool, v_pool, block_tables,
-                                           slot_ids, context_lens,
-                                           softcap=softcap, window=window)
+    with TA.plain_kernel("paged_prefill_attention"):
+        return ref.paged_prefill_attention_ref(
+            q, k_pool, v_pool, block_tables, slot_ids, context_lens,
+            softcap=softcap, window=window)
 
 
 def topk_mask_sample_forward(logits, temperature, top_k, u, *,
@@ -218,10 +246,14 @@ def topk_mask_sample_forward(logits, temperature, top_k, u, *,
         thr = (threshold if threshold is not None
                else torch.full(logits.shape[:1], -math.inf,
                                dtype=torch.float32, device=logits.device))
+        TA.count_kernel("topk_mask_sample", ref.topk_mask_sample_ref,
+                        logits, temperature, threshold, u,
+                        return_probs=return_probs)
         return _samp.topk_mask_sample(logits.float().contiguous(),
                                       temperature.contiguous(),
                                       thr.contiguous(), u.contiguous(),
                                       return_probs=return_probs)
-    tokens, probs = ref.topk_mask_sample_ref(logits, temperature, threshold,
-                                             u, return_probs=return_probs)
+    with TA.plain_kernel("topk_mask_sample"):
+        tokens, probs = ref.topk_mask_sample_ref(
+            logits, temperature, threshold, u, return_probs=return_probs)
     return (tokens, probs) if return_probs else tokens

@@ -1,20 +1,25 @@
-"""Decode-state shapes of a cell, and the train step of the launcher's
-modes: the parts of the JAX package's ``launch/specs.py`` that the port
-runs. ``frontend_len`` and ``cache_specs`` feed the cost
-model; the state is built on the ``meta`` device, so a full-size config
-costs no memory. ``make_train_step`` is the reference's step of the
-``dense``, ``flexrank`` and ``flexrank_kd`` modes: the loss and its
-gradients under ``remat_blocks()``, then AdamW, through ``step``, the one
-step body of the port, which the launcher's ``train_step`` takes too. The reference's input,
-parameter, optimizer and cache shardings and its prefill and decode
-steps serve only its XLA dry run, which has no counterpart here
-(ROADMAP §A); the launcher's placements are ``distributed.sharding``'s.
+"""The inputs, parameters, optimizer state and decode state of an (arch x
+shape) cell, their placements on a mesh, and the step functions (train,
+prefill, decode): the JAX package's ``launch/specs.py``.
+
+Nothing here allocates for a full-size model: inputs and caches are
+``meta`` tensors, parameters and optimizer state ``ParamSpec`` trees
+(``models.common.instantiate`` on ``meta`` makes them tensors). The dry run
+(``launch/dryrun.py``) traces the steps on them; the cost model reads
+``cache_specs``; the training launcher runs ``step``, the one step body
+of the port.
+
+Placements are the port's (``distributed.sharding``): tuples of mesh
+axes a dimension, built with the reference's rules. They state the
+layout of the reference's XLA program; the port's ranks execute the
+batch rows over the data axes and the experts over 'model', and hold the
+rest whole (``distributed/sharding.py``).
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,6 +35,8 @@ from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw, muon
 
+PyTree = Any
+
 COMPUTE_DTYPE = torch.bfloat16
 INT32 = 4
 
@@ -42,15 +49,218 @@ def frontend_len(cfg: ModelConfig) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str,
+                                                              torch.Tensor]:
+    """``meta`` stand-ins for every model input of the cell: tokens (B, S
+    + 1) for train, (B, S) for prefill, (B, 1) for decode (its cache
+    carries the sequence), int32; the frontend's frames (B, T_f,
+    frontend_dim) in ``COMPUTE_DTYPE`` for vlm and audio, except at
+    decode, whose cross-attention K/V are in its state."""
+    b, s = shape.global_batch, shape.seq_len
+    n = {"train": s + 1, "prefill": s}.get(shape.kind, 1)
+    out = {"tokens": torch.empty((b, n), dtype=torch.int32, device="meta")}
+    fl = frontend_len(cfg)
+    if fl and shape.kind != "decode":
+        out["frontend"] = torch.empty((b, fl, cfg.frontend_dim),
+                                      dtype=COMPUTE_DTYPE, device="meta")
+    return out
+
+
+def input_shardings(mesh: D.Mesh, cfg: ModelConfig, shape: ShapeConfig
+                    ) -> Dict[str, D.Placement]:
+    """The inputs' rows over the data axes; a batch of one held whole."""
+    bspec = D.batch_spec(mesh, extra_dims=1)
+    out = {"tokens": bspec if shape.global_batch > 1 else (None, None)}
+    if frontend_len(cfg) and shape.kind != "decode":
+        out["frontend"] = (bspec[0] if shape.global_batch > 1 else None,
+                           None, None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# params / optimizer
+# ---------------------------------------------------------------------------
+
+def model_param_specs(cfg: ModelConfig, *, mode: str = "dense",
+                      budget_index: Optional[int] = None
+                      ) -> Tuple[PyTree, PyTree]:
+    """(spec tree, logical axes tree) of the ``dense``, ``flexrank`` /
+    ``flexrank_kd`` (factorized), ``flexrank_sliced`` (factors cut to one
+    budget's ranks) and ``gar`` (deployed at one budget) modes."""
+    if mode == "dense":
+        spec = tfm.model_spec(cfg)
+    elif mode in ("flexrank", "flexrank_kd"):
+        spec = FR.factorized_spec(cfg)
+    elif mode == "flexrank_sliced":
+        spec = _sliced_spec(cfg, budget_index)
+    elif mode == "gar":
+        spec = _gar_spec(cfg, budget_index if budget_index is not None
+                         else -2)
+    else:
+        raise ValueError(mode)
+    return spec, cm.axes_tree(spec)
+
+
+def _sliced_spec(cfg: ModelConfig, budget_index: Optional[int]) -> PyTree:
+    """The factorized spec with each group's rank that of row
+    ``budget_index`` (default: the middle row) of the uniform table,
+    rounded up to a multiple of 256 where the full rank is 256 or more."""
+    infos = FR.group_infos(cfg)
+    tbl = uniform_table([i.path for i in infos], [i.full_rank for i in infos],
+                        cfg.flexrank.budgets)
+    k = budget_index if budget_index is not None else tbl.table.shape[0] // 2
+
+    def _round(r, full):
+        return min(full, int(-(-r // 256) * 256)) if full >= 256 else r
+    row = {i.path: _round(int(tbl.table[k][i.col]), i.full_rank)
+           for i in infos}
+    excl = cfg.flexrank.exclude
+    return cm.factorize_spec(
+        tfm.model_spec(cfg),
+        predicate=lambda path, sp: not any(t in path for t in excl),
+        max_rank_fn=lambda path, sp: row.get(path))
+
+
+def _gar_spec(cfg: ModelConfig, budget_index: int) -> PyTree:
+    """The factorized spec deployed as GAR at budget ``budget_index``
+    (0.5 where the index is out of range): rank ``r`` with ``r (m + n -
+    r) = frac m n``, leaves ``u_hat`` (m - r, r), ``v_tilde`` (n, r) and
+    an int32 ``perm_inv`` (m,)."""
+    budgets = cfg.flexrank.budgets
+    frac = (budgets[budget_index]
+            if -len(budgets) <= budget_index < len(budgets) else 0.5)
+
+    def conv(tree):
+        if isinstance(tree, dict) and {"u", "v"} <= set(tree) \
+                and cm.is_spec(tree.get("u")):
+            u, v = tree["u"], tree["v"]
+            lead, lead_axes = u.shape[:-2], u.axes[:-2]
+            m, n, rf = u.shape[-2], v.shape[-2], u.shape[-1]
+            r = int(np.floor(((m + n) - np.sqrt((m + n) ** 2
+                                                - 4 * frac * m * n)) / 2))
+            r = max(min(r, rf - 1, m - 1, n - 1), 1)
+            return {
+                "u_hat": cm.ParamSpec(lead + (m - r, r),
+                                      lead_axes + (u.axes[-2], cm.RANK)),
+                "v_tilde": cm.ParamSpec(lead + (n, r),
+                                        lead_axes + (v.axes[-2], cm.RANK)),
+                "perm_inv": cm.ParamSpec(lead + (m,), lead_axes + (None,),
+                                         "zeros", torch.int32),
+            }
+        if isinstance(tree, dict):
+            return {k: conv(v_) for k, v_ in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v_) for v_ in tree]
+        return tree
+
+    return conv(FR.factorized_spec(cfg))
+
+
+def optimizer_specs(param_specs: PyTree) -> adamw.AdamWState:
+    """The AdamW state's spec tree: an int32 step, float32 moments."""
+    def as_f32():
+        return cm.tree_map(
+            lambda s: cm.ParamSpec(s.shape, s.axes, "zeros", torch.float32),
+            param_specs, is_leaf=cm.is_spec)
+    return adamw.AdamWState(step=cm.ParamSpec((), (), "zeros", torch.int32),
+                            mu=as_f32(), nu=as_f32())
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
-                dtype=COMPUTE_DTYPE) -> Dict:
+                dtype=COMPUTE_DTYPE, device="meta") -> Dict:
     """The decode state of ``shape`` (batch ``global_batch``, ``seq_len``
-    positions) on ``meta``: shapes and dtypes only. Cross-attention K/V
-    buffers are included for vlm/audio (precomputed once a request)."""
+    positions), on ``meta`` by default: shapes and dtypes only.
+    Cross-attention K/V buffers are included for vlm/audio (precomputed
+    once a request)."""
     ckv = frontend_len(cfg) if cfg.family in ("vlm", "audio") else 0
     return tfm.init_decode_state(cfg, shape.global_batch, shape.seq_len,
-                                 dtype=dtype, device="meta",
+                                 dtype=dtype, device=device,
                                  cross_kv_len=ckv)
+
+
+# key -> {dimension from the right: mesh axis}, and "seq": the sequence
+# dimension that a batch of one places on 'data'
+_CACHE_RULES = {
+    "k": {-2: "model", -4: "batch", "seq": -3},
+    "v": {-2: "model", -4: "batch", "seq": -3},
+    "cross_k": {-2: "model", -4: "batch"},
+    "cross_v": {-2: "model", -4: "batch"},
+    "c_kv": {-3: "batch", "seq": -2},
+    "k_rope": {-3: "batch", "seq": -2},
+    "conv": {-1: "model", -3: "batch"},
+    "ssd": {-3: "model", -4: "batch"},
+    "wkv": {-3: "model", -4: "batch"},
+    "shift_t": {-2: "batch"},
+    "shift_c": {-2: "batch"},
+}
+
+
+def _cache_placement(mesh: D.Mesh, key: Optional[str], shp, batch1: bool
+                     ) -> D.Placement:
+    nd = len(shp)
+    rule = _CACHE_RULES.get(key)
+    if rule is None:
+        return ()
+    d_ax = D.data_axes(mesh)
+    spec = [None] * nd
+    for off, ax in rule.items():
+        if off == "seq" or nd + off < 0:
+            continue
+        i = nd + off
+        if ax == "model" and "model" in mesh.axis_names:
+            n = mesh.shape["model"]
+            if shp[i] % n == 0:
+                spec[i] = ("model",)
+            elif key in ("k", "v") and nd >= 3 and shp[nd - 3] % n == 0:
+                # kv-heads that do not divide 'model' (8 heads on 16
+                # ranks): the cache's sequence goes there instead
+                spec[nd - 3] = ("model",)
+        elif ax == "batch" and not batch1 and d_ax:
+            if shp[i] % mesh.size(d_ax) == 0:
+                spec[i] = d_ax
+    if batch1 and "seq" in rule and "data" in mesh.axis_names:
+        i = nd + rule["seq"]
+        if 0 <= i < nd and shp[i] % mesh.shape["data"] == 0:
+            spec[i] = ("data",)
+    return tuple(spec)
+
+
+def cache_shardings(mesh: D.Mesh, cfg: ModelConfig, shape: ShapeConfig,
+                    caches: PyTree) -> PyTree:
+    """The decode state's placements: kv-heads and state heads on
+    'model', the batch over the data axes; a batch of one (long-context
+    decode) places the *sequence* on 'data' instead, the
+    sequence-parallel KV layout. ``pos``, ``idx`` and leaves without a
+    rule are replicated (``()``)."""
+    batch1 = shape.global_batch == 1
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, key) for v in node]
+        if isinstance(node, torch.Tensor):
+            return _cache_placement(mesh, key, tuple(node.shape), batch1)
+        return None if node is None else ()
+    return walk(caches, None)
+
+
+def shard_shape(mesh: D.Mesh, placement: D.Placement,
+                shape) -> Tuple[int, ...]:
+    """A leaf's shape on one device under ``placement``: each placed
+    dimension over the size of its axes."""
+    dims = tuple(shape)
+    spec = tuple(placement) + (None,) * (len(dims) - len(placement))
+    return tuple(d if e is None else d // mesh.size(e)
+                 for d, e in zip(dims, spec))
 
 
 def state_nbytes(state) -> int:
@@ -166,8 +376,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
             [i.path for i in infos], [i.full_rank for i in infos],
             cfg.flexrank.budgets[:num_budgets]).table
     kd = mode == "flexrank_kd"
-    axes = cm.axes_tree(FR.factorized_spec(cfg) if infos
-                        else tfm.model_spec(cfg))
+    spec = FR.factorized_spec(cfg) if infos else tfm.model_spec(cfg)
+    axes = cm.axes_tree(spec)
 
     def loss_fn(params, batch, rng: threefry.Key,
                 teacher_params: Optional[Dict] = None) -> torch.Tensor:
@@ -194,7 +404,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
     def train_step(params, opt_state: adamw.AdamWState, batch,
                    rng: threefry.Key, teacher_params: Optional[Dict] = None):
         mesh = D.get_current_mesh()
-        dims = None if mesh is None else D.expert_dims(mesh, axes, params)
+        # the split of the whole leaves: a rank's part (E / n experts)
+        # need not divide 'model' again
+        dims = None if mesh is None else D.expert_dims(mesh, axes, spec)
         params, opt_state, loss, m = step(
             params, opt_state,
             lambda: (loss_fn(params, batch, rng, teacher_params), {}),
@@ -205,3 +417,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
 
     train_step.loss_fn = loss_fn
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, batch) -> next-token logits (B, V)``."""
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits, _ = tfm.forward(params, cfg, batch["tokens"],
+                                    frontend=batch.get("frontend"))
+        return logits[:, -1]
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``decode_step(params, state, batch) -> (logits (B, V), state)``,
+    the state updated in place."""
+    def decode_step(params, state, batch):
+        with torch.no_grad():
+            logits, state = tfm.decode_step(params, cfg, state,
+                                            batch["tokens"],
+                                            kv_source=batch.get("frontend"))
+        return logits[:, 0], state
+    return decode_step

@@ -91,9 +91,16 @@ def tree_leaves(tree: PyTree, is_leaf=None) -> list:
 def instantiate(specs: PyTree, generator: torch.Generator, *,
                 device=None, dtype=None) -> PyTree:
     """Materialize tensors from specs; normal leaves draw from
-    ``generator`` scaled by ``1/sqrt(fan_in)``, in leaf order."""
+    ``generator`` scaled by ``1/sqrt(fan_in)``, in leaf order. On the
+    ``meta`` device every leaf is ``torch.empty`` and the generator is
+    not touched: a draw there would cost the host the whole model's
+    random numbers for tensors that hold none."""
+    meta = device is not None and torch.device(device).type == "meta"
+
     def make(s: ParamSpec):
         dt = dtype or s.dtype
+        if meta:
+            return torch.empty(s.shape, dtype=dt, device="meta")
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=dt, device=device)
         if s.init == "ones":

@@ -115,8 +115,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         l_mat = torch.exp(rel.masked_fill(~tri, -torch.inf)).to(x.dtype)
         scores = torch.einsum("bihn,bjhn->bijh", c_c, b_c)
         y_c = torch.einsum("bijh,bijh,bjhp->bihp", scores, l_mat, xdt)
-        decay_in = torch.exp(cum).to(x.dtype)
-        y_c = y_c + torch.einsum("bihn,bih,bhnp->bihp", c_c, decay_in, state)
+        # the carried state may be wider than x (a float32 state under
+        # bfloat16 weights): the product promotes, as ``jnp.einsum`` does
+        wide = torch.promote_types(x.dtype, state.dtype)
+        decay_in = torch.exp(cum).to(wide)
+        y_c = y_c + torch.einsum("bihn,bih,bhnp->bihp", c_c.to(wide),
+                                 decay_in, state.to(wide))
         to_end = torch.exp(cum[:, -1:, :] - cum).to(x.dtype)
         s_c = torch.einsum("bjh,bjhn,bjhp->bhnp", to_end, b_c, xdt)
         state = state * torch.exp(cum[:, -1, :])[:, :, None, None].to(

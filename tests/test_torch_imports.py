@@ -48,6 +48,8 @@ def test_scan_covers_the_package():
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/launch/costmodel.py",
                  "src/repro_torch/launch/specs.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/trace_analysis.py",
                  "src/repro_torch/obs/metrics.py",
                  "src/repro_torch/obs/ringtrace.py",
                  "src/repro_torch/obs/watchdog.py",

@@ -80,6 +80,21 @@ class Rank:
 
     # ----------------------------------------------------------- jobs
 
+    def count(self, job):
+        """The dry run's step of a smoke cell (``dryrun.build_step``) on
+        this rank's CPU tensors, traced: its counts (``trace_counts``)."""
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun
+        from repro_torch.launch import trace_analysis as TA
+        cfg = get_config(job["arch"], smoke=True)
+        shape = ShapeConfig("t", job["seq"], job["batch"], job["step"])
+        mesh = self.mesh()
+        step, args, _ = dryrun.build_step(cfg, shape, mesh, job["mode"],
+                                          device="cpu", dtype=torch.float32)
+        with D.mesh_context(mesh):
+            _, fig = TA.trace(step, *args)
+        self.out.update(trace_counts(fig))
+
     def moe(self, job):
         """``moe_apply_ep`` forward and backward on this rank's rows and
         experts, at each capacity: the loss ``sum(out * ct) + aux /
@@ -220,6 +235,17 @@ class Rank:
                          log=lambda m: None)
         self.out["sigterm/preempted"] = np.bool_(res.preempted)
         self.out["sigterm/steps"] = np.int64(len(res.losses))
+
+
+def trace_counts(fig: dict) -> dict:
+    """A trace's work counts as arrays: flops and dots, and each kind's
+    collective bytes and calls."""
+    out = {"flops": np.float64(fig["flops_dot"]),
+           "dots": np.int64(fig["dot_count"])}
+    for k, v in fig["collective_bytes"].items():
+        out[f"bytes/{k}"] = np.float64(v)
+        out[f"calls/{k}"] = np.int64(fig["collective_counts_dynamic"][k])
+    return out
 
 
 def _nest(flat: dict) -> dict:
