@@ -78,9 +78,10 @@ Phases, each fatal on failure:
                of 1100-1500 prompt tokens (past the 1024-token
                window) and 32 new through ``ElasticEngine(prefill_chunk=256,
                max_batch=8, max_len=2048)`` at budgets 0.4 and 1.0; the
-               decode check of phase 9; one greedy request card vs CPU on
-               the 0.4 row cut to 2 layers; every kernel of the path
-               launched; then the spec check of phase 11 on the same
+               decode check of phase 9 (its card vs CPU request on 2
+               layers went when phase 21 took gpt2-small's partitioned
+               flexrank run and the smoke passed 1050 s); every kernel of
+               the path launched; then the spec check of phase 11 on the same
                engine and requests, with the draft rank that makes row 0
                (already deployed) the top row's draft row;
   11. spec   - nested self-speculative decoding of gpt2-small on phase 3's
@@ -221,7 +222,8 @@ Phases, each fatal on failure:
                engine) and on (an engine built with ``RingTracer(4096)``,
                ``MetricsRegistry()``, ``Watchdog`` at its default
                thresholds with a postmortem directory, ``costaudit=True``)
-               in turns, three each: streams identical to phase 3's; a
+               in turns, one each (three each until phase 21 took
+               the partitioned runs): streams identical to phase 3's; a
                thread scrapes a ``StatusServer`` on port 0 (``/metrics``,
                ``/statusz``, ``/debug/trace?last_s=30``) every 0.25 s of an
                on-run and once after, at least once mid-run, each answer
@@ -399,7 +401,8 @@ TOL_POWERSGD = 1e-4
 # it, each within twice the learning rates summed
 TOL_DIST_PARAM = 2e-3
 TOL_DIST_LEAF_SHARE = 1e-6
-DIST_DEADLINE = 240            # seconds for phase 21's two rank processes
+DIST_DEADLINE = 300            # seconds for phase 21's two rank processes
+DIST_LOWRANK_LAYERS = 2        # phase 21 (c): gpt2-small's depth, of 12
 # phase 19 (g): the nestedness trainer's prefix products U Pi_[r] V^T card
 # vs CPU after 1000 Adam steps, relative to max |M*| (a 1-ulp change of the
 # initial draws moves them by at most 6.4e-7 on the CPU, at 500 steps)
@@ -1817,29 +1820,6 @@ def gemma_phase(dev, rng, report, profiling):
     counts["paged_attention"], _, _, _ = decode_check(
         cfg, deployed, prompts, GEMMA_DECODE_STEPS, dev, 2048)
 
-    # card vs CPU: one greedy request on the 0.4 row cut to 2 (local)
-    # layers, past the window; the deployed row moves to the CPU
-    small = dataclasses.replace(cfg, segments=(Segment("attn", 2),),
-                                num_layers=2)
-    p_gpu = cut_depth(deployed[rows[0]], cfg, small)
-    p_cpu = cm.tree_map(lambda t: t.cpu(), p_gpu)
-    prompt = prng.integers(0, cfg.vocab_size, 1100).astype(np.int32)
-    with torch.no_grad():
-        toks_gpu, marg_gpu = greedy_loop(p_gpu, small, prompt, 8, dev, 1152)
-        t0 = time.perf_counter()
-        toks_cpu, marg_cpu = greedy_loop(p_cpu, small, prompt, 8,
-                                         torch.device("cpu"), 1152)
-        t_cpu = time.perf_counter() - t0
-    log(f"# gemma3 cross-check: row {rows[0]} at 2 layers, 1100 prompt "
-        f"tokens: card {toks_gpu}, CPU {toks_cpu} ({t_cpu:.1f} s on the "
-        f"CPU), top-2 margins card {[float(f'{m:.2e}') for m in marg_gpu]} "
-        "of the logits' max")
-    if toks_gpu != toks_cpu:
-        for i, (a, b) in enumerate(zip(toks_gpu, toks_cpu)):
-            if a != b:
-                fail(f"gemma3: card and CPU part at step {i}: top-2 margin "
-                     f"{marg_gpu[i]:.3e} on the card, {marg_cpu[i]:.3e} on "
-                     "the CPU, of the logits' max")
     for k in ("gar_matmul", "paged_prefill_attention", "topk_mask_sample"):
         counts[k] += spec_counts[k]
     return counts, gar_err
@@ -3825,7 +3805,7 @@ def telemetry_phase(engine, reqs, plain, spec_plain, draft_rank) -> dict:
                 fail(f"telemetry {label}: request {i} returned "
                      f"{b.tokens[-8:]}, plane off {a.tokens[-8:]}")
 
-    # (a) off, on, on, off, off, on; every on-run scraped live
+    # (a) off, then on, the on-run scraped live
     server = obs.StatusServer(port=0)
     server.start()
     for k in kernels.values():
@@ -3833,7 +3813,7 @@ def telemetry_phase(engine, reqs, plain, spec_plain, draft_rank) -> dict:
     turns = {False: [], True: []}
     audits, scrapes, fired = [], [], []
     try:
-        for turn, on in enumerate((False, True, True, False, False, True)):
+        for turn, on in enumerate((False, True)):
             if not on:
                 res, wall, s = serve_timed(engine, reqs)
                 same(f"(a) off turn {turn}", plain, res)
@@ -4065,7 +4045,8 @@ def dist_phase(smi: str) -> None:
                 device="cuda", backend_a="nccl", batch=2, seq=64, steps=2,
                 port_a=port(), port_b=port(), dir=d,
                 tol_loss=TOL_TRAIN_LOSS, tol_param=TOL_DIST_PARAM,
-                leaf_share=TOL_DIST_LEAF_SHARE, tol_logits=TOL_GAR)
+                leaf_share=TOL_DIST_LEAF_SHARE, tol_logits=TOL_GAR,
+                lowrank={"arch": "gpt2-small", "layers": DIST_LOWRANK_LAYERS})
     try:
         try:
             r = dist_check.run_pair(spec, DIST_DEADLINE)
@@ -4089,7 +4070,28 @@ def dist_phase(smi: str) -> None:
             f"{[round(x, 1) for x in b['step_ms']]}, "
             f"gradient all-reduce ms "
             f"{[round(x, 1) for x in b['allreduce_ms']]}, peak GB per rank "
-            f"{[round(x, 2) for x in b['peak_gb']]}")
+            f"{[round(x, 2) for x in b['peak_gb']]}; {len(b['split'])} "
+            f"leaves cut over 'model'; {smi}")
+    for rank, sz in enumerate(r["1x2"]["bytes"]):
+        log(f"# dist (b) 1x2 rank {rank}: parameters {sz['have']['params']} "
+            f"B, AdamW moments {sz['have']['optimizer']} B; the dry run's "
+            f"placed at (1, 2): parameters {sz['placed']['params']} B, "
+            f"optimizer {sz['placed']['optimizer']} B (its int32 step "
+            f"beside the moments); {smi}")
+    c = r["c"]
+    log(f"# dist (c) gpt2-small {DIST_LOWRANK_LAYERS} of 12 layers, "
+        f"--mode flexrank, gloo 1x2 against one rank without a group: "
+        f"losses {c['losses']} (rel {c['loss_err']:.2e}), parameters at "
+        f"most {c['param_err']:.2e} of a leaf's scale ({c['param_leaf']}); "
+        f"past [past, allowed]: {c['past']}; step ms "
+        f"{[round(x, 1) for x in c['step_ms']]} (one rank: "
+        f"{[round(x, 1) for x in r['c_one']['step_ms']]}); {smi}")
+    for rank, cr in enumerate(c["ranks"]):
+        log(f"# dist (c) 1x2 rank {rank}: {cr['calls']} low-rank products, "
+            f"lowrank_matmul launches {cr['launches']} (one rank without a "
+            f"group: {r['c_one']['calls']} products, "
+            f"{r['c_one']['launches']} launches); (x, v, u) shapes "
+            f"{cr['shapes']}; {smi}")
     log(f"# dist (b) 1x2 logits against the forward without a mesh: "
         f"{r['logits_err']:.2e} of their max; all-to-all of "
         f"{r['a2a_bytes'] / 1e6:.1f} MB ms: dispatch "
@@ -4354,6 +4356,14 @@ def main() -> int:
                     np.float32) / math.sqrt(n), device=dev),
                 torch.as_tensor(rng.standard_normal((m, r)).astype(
                     np.float32) / math.sqrt(r), device=dev))
+    # a tensor-parallel shard (phase 21 (c), gpt2-small at (1, 2)): attn/q
+    # column-parallel, v gathered whole and this rank's 384 of u's rows
+    q = cm.tree_get(params_fact["segments"][0], "attn/q")
+    kr = int(table.table[last][[i.path for i in infos].index(
+        "segments/0/attn/q")])
+    lr_cases.append((f"attn/q shard of 2 row {last} T=128 n=768 "
+                     f"r={q['v'].shape[-1]} rank={kr} m=384", 128,
+                     q["v"][0], q["u"][0][:384].contiguous(), kr))
     v, u = rand_lowrank(17, 29, 7)
     for rank in (3, 0, 7, None):
         lr_cases.append((f"ragged T=33 n=17 r=7 m=29 rank={rank}", 33, v, u,

@@ -20,18 +20,32 @@ bit for bit. It then writes ``a_done`` in the spec's directory and joins
 a world of two over gloo, which the caller starts rank 1 into: (b) the
 runs at (2, 1) and (1, 2), each held against (a)'s run without a group
 (the whole batch on one rank): losses within ``tol_loss`` relative; each
-parameter leaf (the experts gathered) within ``tol_param`` of its scale,
+parameter leaf (every leaf cut over 'model' gathered: at (1, 2) the
+experts, and tensor-parallel the heads, the shared experts' and the
+dense FFN's columns and the vocabulary) within ``tol_param`` of its scale,
 the larger of its max and the learning rates summed (a leaf that starts
 at zero, a norm's offset, has a max of about that sum), but for at most
 ``ceil(leaf_share * size)`` entries of the leaf (an entry whose gradient
 is rounding noise around zero takes Adam's normalised step of either
 sign, as phase 19 (d) of ``chip_smoke.py`` allows), which stay within
 twice the learning rates summed, the most two runs' Adam steps can part
-by; every leaf with an entry past its bound is reported; the leaves of
-every rank of a 'model' group bit for bit alike (by a digest of their
-bits); then the model's logits under (1, 2), the experts split, against
-the forward without a mesh, within ``tol_logits`` of their max, and the
-two all-to-alls of that MoE call timed at its shapes.
+by; every leaf with an entry past its bound is reported; the whole
+leaves of every rank of a 'model' group bit for bit alike (by a digest of
+their bits); at (1, 2) each rank's bytes of parameters and AdamW moments
+equal to the dry run's ``placed`` for the same cell and mesh
+(``launch/dryrun.py``, float32 parameters; ``placed`` counts the
+reference's int32 step too, which the port keeps as a Python int); then
+the model's logits under (1, 2), every leaf split, gathered over the
+vocabulary, against the forward without a mesh, within ``tol_logits`` of
+their max, and the two all-to-alls of that MoE call timed at its shapes.
+
+With ``lowrank`` in the spec, (c): ``lowrank["arch"]`` at
+``lowrank["layers"]`` layers, ``--mode flexrank`` (calibration, DataSVD
+and DP on each rank, then two steps of the uniform table's rows), run
+without a group on rank 0 before the world of two and at (1, 2) in it,
+held as (b) holds its runs; each rank counts the low-rank products it
+runs (``kernels/ops.py:lowrank_2d``), their operand shapes and, on the
+card, ``lowrank_matmul``'s launches.
 
 A failed check raises, so the rank exits non-zero; rank 0 writes
 ``result.json`` (losses, step, all-reduce and all-to-all ms, each rank's
@@ -56,8 +70,13 @@ from repro_torch import distributed as D
 from repro_torch.configs import Segment, get_config
 from repro_torch.data import make_source
 from repro_torch.distributed import collectives as C
+from repro_torch.configs import ShapeConfig
+from repro_torch.kernels import lowrank_matmul, ops
+from repro_torch.launch import dryrun
+from repro_torch.launch import specs as SP
 from repro_torch.launch import train
 from repro_torch.models import common as cm
+from repro_torch.models import tp
 from repro_torch.models import moe
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
@@ -77,6 +96,36 @@ def config(spec: dict):
     m = cfg.moe
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         m, capacity_factor=float(m.num_experts), router_aux_weight=0.0))
+
+
+def lowrank_config(spec: dict):
+    """(c)'s config: ``lowrank["arch"]`` cut to ``lowrank["layers"]``
+    blocks of its one segment."""
+    lr = spec["lowrank"]
+    cfg = get_config(lr["arch"], smoke=spec["smoke"])
+    seg = cfg.segments[0]
+    return dataclasses.replace(cfg, num_layers=lr["layers"], segments=(
+        dataclasses.replace(seg, count=lr["layers"]),))
+
+
+@contextlib.contextmanager
+def lowrank_calls():
+    """The (x, v, u) shapes of every low-rank product run, and the kernel's
+    launches over the block."""
+    shapes = []
+    real = ops.lowrank_2d
+
+    def counting(x, v, u, rank):
+        shapes.append((tuple(x.shape), tuple(v.shape), tuple(u.shape)))
+        return real(x, v, u, rank)
+    ops.lowrank_2d = counting
+    before = lowrank_matmul.launches
+    box = {"shapes": shapes}
+    try:
+        yield box
+    finally:
+        ops.lowrank_2d = real
+        box["launches"] = lowrank_matmul.launches - before
 
 
 @contextlib.contextmanager
@@ -100,10 +149,10 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _train(cfg, dense, spec, mesh):
+def _train(cfg, dense, spec, mesh, mode="dense"):
     source = make_source(cfg.vocab_size, spec["seq"], spec["batch"], seed=0)
     return train.run(cfg, dense, source, steps=spec["steps"], lr=LR,
-                     mode="dense", eval_before=False, mesh=mesh,
+                     mode=mode, eval_before=False, mesh=mesh,
                      log=lambda m: None)
 
 
@@ -173,16 +222,99 @@ def run_a(spec, cfg, dense, dev, out) -> tuple:
     return losses, params
 
 
-def run_b(spec, cfg, dense, dev, rank, ref, out) -> None:
-    """(b) on this rank of the gloo world of two (``ref``: (a)'s losses and
-    parameters on rank 0, None elsewhere)."""
+def _travel(spec) -> tuple:
+    """(the learning rates summed, the most two runs' Adam steps can part
+    by: each step at most lr in size, of either sign)."""
     steps = spec["steps"]
     opt = adamw.AdamWConfig(lr=LR, warmup_steps=min(100, steps // 10 + 1),
                             total_steps=steps)
-    # the most two runs' Adam steps can part by: each step at most lr in
-    # size, of either sign
     lr_sum = sum(adamw.schedule_lr(opt, k) for k in range(1, steps + 1))
-    travel = 2.0 * lr_sum * (1 + 1e-3)
+    return lr_sum, 2.0 * lr_sum * (1 + 1e-3)
+
+
+def _split(res) -> dict:
+    """Each parameter path of a run: whether its leaf is cut over
+    'model' on this mesh."""
+    n = res.mesh.size("model")
+    return {p: n > 1 and d is not None for (p, _), d in zip(
+        cm.tree_items(res.params), D.sharding.dim_leaves(res.shard_dims))}
+
+
+def _held(spec, key, res, ref, rank, out) -> dict:
+    """Hold a run of the world of two against ``ref`` (rank 0's losses and
+    parameters of the run without a group): the whole leaves alike on
+    both ranks, losses and the gathered parameters (module note). Returns
+    the figures (on rank 0; empty elsewhere)."""
+    lr_sum, travel = _travel(spec)
+    digests = [None, None]
+    dist.all_gather_object(digests, {
+        p: _digest(t) for p, t in cm.tree_items(res.params)})
+    split = _split(res)
+    whole, _ = res.full_state()
+    if rank != 0:
+        return {}
+    for p, dg in digests[0].items():
+        if not split[p] and digests[1][p] != dg:
+            raise AssertionError(f"{key}: {p} differs across the ranks")
+    losses, params = ref
+    err = float(np.max(np.abs(np.subtract(res.losses, losses))
+                       / np.abs(losses)))
+    if err > spec["tol_loss"]:
+        raise AssertionError(f"{key}: losses {res.losses} against "
+                             f"{losses} ({err:.3e})")
+    past, worst, name = {}, 0.0, ""
+    for p, t in cm.tree_items(whole):
+        diff = (t.detach().cpu() - params[p]).abs()
+        if float(diff.max()) > travel:
+            raise AssertionError(
+                f"{key}: {p} moved {float(diff.max()):.3e} from the "
+                f"one-rank run, past Adam's travel {travel:.3e}")
+        scale = max(float(params[p].abs().max()), lr_sum)
+        n_past = int((diff > spec["tol_param"] * scale).sum())
+        allowed = math.ceil(spec["leaf_share"] * diff.numel())
+        if n_past:
+            past[p] = [n_past, allowed]
+        if n_past > allowed:
+            raise AssertionError(
+                f"{key}: {p}: {n_past} of {diff.numel()} entries past "
+                f"{spec['tol_param']} of its scale {scale:.3e} (at most "
+                f"{allowed}; worst {float(diff.max()) / scale:.3e})")
+        if float(diff.max()) / scale > worst:
+            worst, name = float(diff.max()) / scale, p
+    return {"losses": res.losses, "loss_err": err, "param_err": worst,
+            "param_leaf": name, "past": past,
+            "split": sorted(p for p, c in split.items() if c),
+            "step_ms": [s * 1e3 for s in res.step_seconds],
+            "allreduce_ms": [s * 1e3 for s in res.sync_seconds]}
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in cm.tree_leaves(tree))
+
+
+def placed_check(spec, cfg, res, mesh) -> dict:
+    """This rank's bytes of parameters and AdamW moments against the dry
+    run's ``placed`` for the cell at ``mesh``: its bfloat16 parameters
+    count 2 bytes an entry, the rank's float32 ones 4."""
+    pspecs, paxes = SP.model_param_specs(cfg, mode="dense")
+    cell = ShapeConfig("dist", spec["seq"], spec["batch"], "train")
+    want = dict(dryrun.placed(cfg, cell, mesh, pspecs, paxes, "dense",
+                              fsdp=False)["bytes_per_device"])
+    want["params"] = want["params"] * 4 // 2
+    have = {"params": _nbytes(res.params),
+            "optimizer": _nbytes(res.opt_state.mu)
+            + _nbytes(res.opt_state.nu)}
+    # placed counts the reference's int32 step beside the moments
+    if have["params"] != want["params"] or \
+            have["optimizer"] != want["optimizer"] - 4:
+        raise AssertionError(f"bytes {have} against placed {want}")
+    return {"have": have, "placed": {k: want[k] for k in have}}
+
+
+def run_b(spec, cfg, dense, dev, rank, ref, out, ref_c=None) -> None:
+    """(b) on this rank of the gloo world of two (``ref``: (a)'s losses and
+    parameters on rank 0, None elsewhere), then (c) where the spec asks
+    (``ref_c``: its run without a group on rank 0)."""
     D.init_world("gloo", device=dev, rank=rank, world_size=2,
                  init_method=f"tcp://127.0.0.1:{spec['port_b']}",
                  timeout=TIMEOUT)
@@ -197,64 +329,63 @@ def run_b(spec, cfg, dense, dev, rank, ref, out) -> None:
                 raise AssertionError(f"(b) {key}: EP calls {calls}")
             peaks = [None, None]
             dist.all_gather_object(peaks, _peak(dev))
-            digests = [None, None]
-            dist.all_gather_object(digests, {
-                p: _digest(t) for p, t in cm.tree_items(res.params)})
-            whole, _ = res.full_state()
+            sizes = [None, None]
+            dist.all_gather_object(sizes, placed_check(spec, cfg, res, mesh)
+                                   if shape[1] > 1 else None)
+            held = _held(spec, f"(b) {key}", res, ref, rank, out)
             if rank == 0:
-                for p, dg in digests[0].items():
-                    split = shape[1] > 1 and "/experts/" in p
-                    if not split and digests[1][p] != dg:
-                        raise AssertionError(f"(b) {key}: {p} differs "
-                                             "across the ranks")
-                losses, params = ref
-                err = float(np.max(np.abs(np.subtract(res.losses, losses))
-                                   / np.abs(losses)))
-                if err > spec["tol_loss"]:
-                    raise AssertionError(f"(b) {key}: losses {res.losses} "
-                                         f"against {losses} ({err:.3e})")
-                past, worst, name = {}, 0.0, ""
-                for p, t in cm.tree_items(whole):
-                    diff = (t.detach().cpu() - params[p]).abs()
-                    if float(diff.max()) > travel:
-                        raise AssertionError(
-                            f"(b) {key}: {p} moved {float(diff.max()):.3e} "
-                            f"from the one-rank run, past Adam's travel "
-                            f"{travel:.3e}")
-                    scale = max(float(params[p].abs().max()), lr_sum)
-                    n_past = int((diff > spec["tol_param"] * scale).sum())
-                    allowed = math.ceil(spec["leaf_share"] * diff.numel())
-                    if n_past:
-                        past[p] = [n_past, allowed]
-                    if n_past > allowed:
-                        raise AssertionError(
-                            f"(b) {key}: {p}: {n_past} of {diff.numel()} "
-                            f"entries past {spec['tol_param']} of its scale "
-                            f"{scale:.3e} (at most {allowed}; worst "
-                            f"{float(diff.max()) / scale:.3e})")
-                    if float(diff.max()) / scale > worst:
-                        worst, name = float(diff.max()) / scale, p
-                out[key] = {"losses": res.losses, "loss_err": err,
-                            "param_err": worst, "param_leaf": name,
-                            "past": past,
-                            "step_ms": [s * 1e3 for s in res.step_seconds],
-                            "allreduce_ms": [s * 1e3
-                                             for s in res.sync_seconds],
-                            "peak_gb": peaks}
-            del res, whole
+                out[key] = dict(held, peak_gb=peaks, bytes=sizes)
+            del res
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         logits_check(spec, cfg, dense, dev, rank, out)
+        if "lowrank" in spec:
+            lowrank_check(spec, dev, rank, ref_c, out)
     finally:
         D.shutdown_world()
 
 
-def logits_check(spec, cfg, dense, dev, rank, out) -> None:
-    """The forward's logits under (1, 2), each rank with its half of the
-    experts, against the forward without a mesh; then the two all-to-alls
-    of that MoE call at its shapes, timed."""
+def lowrank_run(spec, dev, mesh):
+    """(c)'s run on ``mesh`` (None: without a group), counting its
+    low-rank products."""
+    cfg = lowrank_config(spec)
+    dense = train.dense_init(cfg, 0, dev)
+    with lowrank_calls() as box:
+        res = _train(cfg, dense, spec, mesh, mode="flexrank")
+    return res, box
+
+
+def lowrank_check(spec, dev, rank, ref_c, out) -> None:
+    """(c) at (1, 2): held against the run without a group; each rank's
+    product count, shapes and launches."""
     mesh = D.elastic_remesh((1, 2), NAMES)
-    dims = D.expert_dims(mesh, cm.axes_tree(tfm.model_spec(cfg)), dense)
+    res, box = lowrank_run(spec, dev, mesh)
+    counts = [None, None]
+    dist.all_gather_object(counts, {
+        "calls": len(box["shapes"]), "launches": box["launches"],
+        "shapes": sorted({str(s) for s in box["shapes"]})})
+    held = _held(spec, "(c) 1x2", res, ref_c, rank, out)
+    if rank == 0:
+        # every factorized product runs on each rank, through the kernel
+        # on the card, as often as it does on one rank without a group
+        one = out["c_one"]
+        got = [(c["calls"], c["launches"]) for c in counts]
+        if got != [(one["calls"], one["launches"])] * 2 or (
+                dev.type == "cuda" and one["launches"] == 0):
+            raise AssertionError(
+                f"(c) 1x2: (products, lowrank_matmul launches) a rank "
+                f"{got}, one rank without a group "
+                f"{(one['calls'], one['launches'])}")
+        out["c"] = dict(held, ranks=counts)
+
+
+def logits_check(spec, cfg, dense, dev, rank, out) -> None:
+    """The forward's logits under (1, 2), each rank with its half of every
+    cut leaf, gathered over the vocabulary, against the forward without a
+    mesh; then the two all-to-alls of that MoE call at its shapes,
+    timed."""
+    mesh = D.elastic_remesh((1, 2), NAMES)
+    dims = D.rank_dims(cfg, mesh, cm.axes_tree(tfm.model_spec(cfg)), dense)
     part = D.shard_tree(dense, dims, mesh)
     tokens = torch.as_tensor(make_source(
         cfg.vocab_size, spec["seq"], spec["batch"], seed=0).batch_at(0)[
@@ -262,6 +393,7 @@ def logits_check(spec, cfg, dense, dev, rank, out) -> None:
     with torch.no_grad():
         with D.mesh_context(mesh):
             got, _ = tfm.forward(part, cfg, tokens)
+            got = tp.whole_vocab(got, cfg.vocab_size)
         if rank == 0:
             want, _ = tfm.forward(dense, cfg, tokens)
             err = float((got - want).abs().max() / want.abs().max())
@@ -358,11 +490,18 @@ def main(spec_path: str, rank: int) -> int:
     dense = train.dense_init(cfg, 0, dev)
     _sync(dev)
     out["init_s"] = time.perf_counter() - t0
-    ref = None
+    ref = ref_c = None
     if rank == 0:
         ref = run_a(spec, cfg, dense, dev, out)
+        if "lowrank" in spec:
+            one, box = lowrank_run(spec, dev, None)
+            ref_c = one.losses, _host(one.params)
+            out["c_one"] = {"calls": len(box["shapes"]),
+                            "launches": box["launches"],
+                            "step_ms": [s * 1e3 for s in one.step_seconds]}
+            del one
         open(os.path.join(spec["dir"], "a_done"), "w").close()
-    run_b(spec, cfg, dense, dev, rank, ref, out)
+    run_b(spec, cfg, dense, dev, rank, ref, out, ref_c)
     if rank == 0:
         out["params"] = cm.param_count(tfm.model_spec(cfg))
         with open(os.path.join(spec["dir"], "result.json"), "w") as f:

@@ -299,7 +299,7 @@ def make_consolidation_loss(cfg: ModelConfig, infos: List[GroupInfo],
         loss = distill.consolidation_loss(
             student_logits, teacher_logits, labels,
             kd_weight=cfg.flexrank.kd_weight,
-            temperature=cfg.flexrank.kd_temperature)
+            temperature=cfg.flexrank.kd_temperature, vocab=cfg.vocab_size)
         return loss + aux, {"loss": loss.detach(), "budget_k": k}
 
     return loss_fn
@@ -312,7 +312,8 @@ def eval_budget_loss(params, cfg, infos, table_rows, batch, k: int) -> float:
     ranks = ranks_tree(cfg, infos, table_rows, k)
     with torch.no_grad():
         logits, _ = tfm.forward(params, cfg, tokens, ranks=ranks)
-        return float(distill.cross_entropy(logits, labels))
+        return float(distill.cross_entropy(logits, labels,
+                                           vocab=cfg.vocab_size))
 
 
 # float64 bytes of a GAR transform call's working copies (some 3 m r for U

@@ -1,7 +1,7 @@
 """The distributed runtime: ranks and their mesh (``world``), the current
-mesh and the logical axis rules (``meshctx``), placements and the elastic
-re-mesh (``sharding``), the collectives of the expert-parallel path
-(``collectives``), and the host-side helpers of the training loop:
+mesh and the logical axis rules (``meshctx``), placements, the elastic
+re-mesh and the cut of a tree over 'model' (``sharding``), the
+collectives of the expert- and tensor-parallel paths (``collectives``), and the host-side helpers of the training loop:
 copies of the JAX package's ``StragglerMonitor`` and ``PreemptionGuard``,
 and ``timed_step``."""
 from __future__ import annotations
@@ -18,8 +18,9 @@ from repro_torch.distributed.meshctx import (Placement, data_axes,
                                              get_current_mesh,
                                              logical_to_spec, mesh_context,
                                              set_current_mesh)
-from repro_torch.distributed.sharding import (batch_spec, elastic_remesh,
-                                              expert_dims, param_shardings,
+from repro_torch.distributed.sharding import (batch_spec, deferred,
+                                              elastic_remesh, model_dims,
+                                              param_shardings, rank_dims,
                                               replicated, seq_sharded_cache,
                                               shard_tree,
                                               split_global_norm,

@@ -15,6 +15,16 @@ that each rank then uses alike: its gradient is 1/n on each rank.
 ``all_reduce_mean_`` averages tensors in place outside autograd (the
 gradients), ``reduce_host`` a number of the host (a loss, a flag).
 
+The tensor-parallel products (``models/tp.py``) use Megatron's pair:
+``reduce_grad`` (its f: identity forward, the gradient summed over the
+axis) where a replicated value enters a product of which each rank
+computes a part, and ``reduce_from`` (its g: the sum over the axis
+forward, identity backward) where the ranks' partial results become one
+replicated value.
+``reduce_scatter`` sums over the axis and keeps this rank's part (the
+backward of a factor gathered for a product of which each rank computes
+a part).
+
 An axis of one rank (no group) makes every function the identity.
 """
 from __future__ import annotations
@@ -39,6 +49,17 @@ def _own_chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = _group_size(group)
     size = x.shape[dim] // n
     return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of every rank's ``x``, this rank's equal part along
+    ``dim`` (one ``reduce_scatter_tensor`` along the leading dimension)."""
+    n = _group_size(group)
+    lead = x.movedim(dim, 0).contiguous()
+    out = torch.empty((lead.shape[0] // n,) + tuple(lead.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, lead, group=group)
+    return out.movedim(0, dim)
 
 
 class _Scatter(torch.autograd.Function):
@@ -91,6 +112,18 @@ class _ReduceGrad(torch.autograd.Function):
         return g, None
 
 
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _Mean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -127,6 +160,12 @@ def reduce_grad(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceGrad.apply(x, group)
 
 
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x``; backward: the gradient as it is, the
+    same on every rank (Megatron's g)."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
 def mean(x: torch.Tensor, group) -> torch.Tensor:
     """The mean of ``x`` over the group; backward: the gradient over n."""
     return x if group is None else _Mean.apply(x, group)
@@ -159,6 +198,19 @@ def reduce_host(value: float, group, op: str = "mean") -> float:
                     else dist.ReduceOp.SUM, group=group)
     out = float(t.item())
     return out / _group_size(group) if op == "mean" else out
+
+
+@torch.no_grad()
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of every rank's ``x``, this rank's equal part along
+    ``dim``, outside autograd."""
+    return x if group is None else _reduce_scatter(x, dim, group)
+
+
+@torch.no_grad()
+def own_chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's equal part of ``x`` along ``dim``, outside autograd."""
+    return x if group is None else _own_chunk(x, dim, group)
 
 
 @torch.no_grad()

@@ -5,12 +5,15 @@ functions of the JAX package's ``distributed/sharding.py``.
 A placement is the counterpart of a ``PartitionSpec`` (``meshctx``). XLA
 takes a ``NamedSharding`` as an instruction; here a placement is a
 statement of where each dimension lives, and the launcher acts on the
-part it runs: the expert dimension over 'model' (``expert_dims``) and
-the batch rows over the data axes. The other 'model' placements (the
-reference's Megatron-style split of the projections, which XLA's
-partitioner carries out) are held whole on every rank of the axis, the
-same function computed on each; ``fsdp=True`` is placement arithmetic
-only.
+part it runs: the batch rows over the data axes, and over 'model' the
+dimension ``model_dims`` gives each leaf (experts, heads, kv-heads, MLP,
+vocabulary or rank, as ``param_shardings`` places them). The rank
+program (``models/tp.py``, ``models/moe.py:moe_apply_ep``) carries out
+the reference's Megatron-style split that XLA's partitioner derives.
+``rank_dims`` is ``model_dims`` less the leaves that the rank program
+does not run split yet (``deferred``): those are held whole on every
+rank of the axis, the same function computed on each. ``fsdp=True`` is
+placement arithmetic only.
 """
 from __future__ import annotations
 
@@ -151,24 +154,67 @@ def dim_leaves(dims: PyTree) -> list:
     return [dims]
 
 
-def expert_dims(mesh: Mesh, axes: PyTree, shapes: PyTree) -> PyTree:
-    """For each leaf, the dimension the launcher splits over 'model': its
-    'experts' dimension where ``param_shardings`` places it there, else
-    None."""
+def model_dims(mesh: Mesh, axes: PyTree, shapes: PyTree) -> PyTree:
+    """For each leaf, the dimension ``param_shardings`` (``fsdp=False``)
+    places on ('model',), after the divisibility fallback; None for a
+    leaf held whole."""
     specs = iter(cm.tree_leaves(param_shardings(mesh, axes, shapes),
                                 is_leaf=is_placement))
 
     def dim(a):
         spec = next(specs)
-        if cm.EXPERTS in a and spec[a.index(cm.EXPERTS)] == ("model",):
-            return a.index(cm.EXPERTS)
-        return None
+        hit = [i for i, e in enumerate(spec) if e == ("model",)]
+        return hit[0] if hit else None
     return cm.tree_map(dim, axes, is_leaf=_is_axes_leaf)
+
+
+_GAR_LEAVES = ("u_hat", "v_tilde", "perm_inv")
+
+
+def deferred(cfg, path: str, *, decode: bool = False) -> Optional[str]:
+    """Why the rank program holds the leaf at ``path`` (a ``tree_items``
+    path of the model's spec) whole though ``model_dims`` splits it, or
+    None where it runs it split: the recurrent blocks (rwkv, mamba, a
+    zamba unit and its shared attention) and MLA's attention, whose
+    head layout runs through a carried state or a latent cache; the GAR
+    form, whose output permutation does not follow the head split; and
+    at decode the experts (the cached step runs ``moe_apply`` over whole
+    experts)."""
+    toks = path.split("/")
+    if toks[-1] in _GAR_LEAVES:
+        return "GAR form"
+    if toks[0] == "shared_attn":
+        return "zamba shared attention"
+    if toks[0] == "segments":
+        kind = cfg.segments[int(toks[1])].kind
+        if kind in ("rwkv", "mamba", "zamba_unit"):
+            return f"{kind} block"
+        if cfg.mla is not None and kind in ("attn", "attn_dense") \
+                and toks[2] == "attn":
+            return "MLA attention"
+        if decode and "experts" in toks:
+            return "experts at decode"
+    return None
+
+
+def rank_dims(cfg, mesh: Mesh, axes: PyTree, shapes: PyTree, *,
+              decode: bool = False) -> PyTree:
+    """``model_dims`` with None where the rank program holds the leaf
+    whole (``deferred``): the split this rank's step executes."""
+    dims = model_dims(mesh, axes, shapes)
+    paths = [p for p, _ in cm.tree_items(axes, is_leaf=_is_axes_leaf)]
+    it = iter(zip(paths, dim_leaves(dims)))
+
+    def keep(_):
+        path, d = next(it)
+        return None if d is None or deferred(cfg, path, decode=decode) \
+            else d
+    return cm.tree_map(keep, axes, is_leaf=_is_axes_leaf)
 
 
 def _paired(tree: PyTree, dims: PyTree) -> list:
     """The leaves of ``tree`` beside those of ``dims``, which must be of
-    the same tree (``expert_dims`` of its own spec)."""
+    the same tree (``model_dims`` of its own spec)."""
     leaves, ds = cm.tree_leaves(tree), dim_leaves(dims)
     if len(ds) != len(leaves):
         raise ValueError(f"{len(ds)} dims for a tree of {len(leaves)} "

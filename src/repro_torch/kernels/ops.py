@@ -48,45 +48,58 @@ def _gar_plain(xf, v_tilde, u_hat, perm_inv):
     return torch.cat([z, tail], dim=-1)[:, perm_inv]
 
 
-class _LowRank(torch.autograd.Function):
-    """Masked low-rank linear on 2-d ``x``. The forward is the kernel (the
-    plain version on CPU tensors); the backward is the masked products in
-    plain PyTorch, as the reference has no backward kernel and leaves its
+def lowrank_2d(x: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
+               rank: Optional[int]) -> torch.Tensor:
+    """``((x @ v) * [col < rank]) @ u^T`` of 2-d ``x``, outside autograd:
+    the kernel on CUDA tensors, its plain version on CPU tensors."""
+    if x.is_cuda:
+        TA.count_kernel("lowrank_matmul", ref.lowrank_matmul_ref, x, v, u,
+                        rank)
+        return _lr.lowrank_matmul(x.contiguous(), v.contiguous(),
+                                  u.contiguous(), rank)
+    with TA.plain_kernel("lowrank_matmul"):
+        return ref.lowrank_matmul_ref(x, v, u, rank)
+
+
+def lowrank_grads(x, v, u, kr: int, dy, needs):
+    """The gradients (dx, dv, du) of ``lowrank_2d`` at ``dy``, each where
+    ``needs`` (three flags) asks for it: the masked products in plain
+    PyTorch, as the reference has no backward kernel and leaves its
     gradients to XLA's products of the plain branch. The masked columns of
     ``z`` are zero, so the products run over the kept columns only and the
-    gradients of the masked factor columns are zero:
-    ``dz = dy @ u_k``, ``dx = dz @ v_k^T``, ``dv_k = x^T @ dz``,
-    ``du_k = dy^T @ (x @ v_k)`` with ``_k`` the first kr columns."""
+    gradients of the masked factor columns are zero: ``dz = dy @ u_k``,
+    ``dx = dz @ v_k^T``, ``dv_k = x^T @ dz``, ``du_k = dy^T @ (x @ v_k)``
+    with ``_k`` the first kr columns."""
+    v_k, u_k = v[:, :kr], u[:, :kr]
+    dx = dv = du = None
+    if needs[0] or needs[1]:
+        dz = dy @ u_k
+    if needs[0]:
+        dx = dz @ v_k.T
+    if needs[1]:
+        dv = torch.zeros_like(v)
+        dv[:, :kr] = x.T @ dz
+    if needs[2]:
+        du = torch.zeros_like(u)
+        du[:, :kr] = dy.T @ (x @ v_k)
+    return dx, dv, du
+
+
+class _LowRank(torch.autograd.Function):
+    """Masked low-rank linear on 2-d ``x``: the forward is ``lowrank_2d``,
+    the backward ``lowrank_grads``."""
 
     @staticmethod
     def forward(ctx, x, v, u, rank):
         ctx.save_for_backward(x, v, u)
         ctx.kr = _lr.kept_rank(v.shape[1], rank)
-        if x.is_cuda:
-            TA.count_kernel("lowrank_matmul", ref.lowrank_matmul_ref, x, v,
-                            u, rank)
-            return _lr.lowrank_matmul(x.contiguous(), v.contiguous(),
-                                      u.contiguous(), rank)
-        with TA.plain_kernel("lowrank_matmul"):
-            return ref.lowrank_matmul_ref(x, v, u, rank)
+        return lowrank_2d(x, v, u, rank)
 
     @staticmethod
     def backward(ctx, dy):
         x, v, u = ctx.saved_tensors
-        kr = ctx.kr
-        v_k, u_k = v[:, :kr], u[:, :kr]
-        dx = dv = du = None
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            dz = dy @ u_k
-        if ctx.needs_input_grad[0]:
-            dx = dz @ v_k.T
-        if ctx.needs_input_grad[1]:
-            dv = torch.zeros_like(v)
-            dv[:, :kr] = x.T @ dz
-        if ctx.needs_input_grad[2]:
-            du = torch.zeros_like(u)
-            du[:, :kr] = dy.T @ (x @ v_k)
-        return dx, dv, du, None
+        return (*lowrank_grads(x, v, u, ctx.kr, dy,
+                               ctx.needs_input_grad[:3]), None)
 
 
 def lowrank_forward(x: torch.Tensor, v: torch.Tensor, u: torch.Tensor,

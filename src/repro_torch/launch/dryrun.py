@@ -7,17 +7,25 @@ analyses; here the process is rank 0 of a fake world of 256 or 512 ranks
 (``distributed.init_world("fake", ...)``), whose collectives move
 nothing, and ``launch/trace_analysis.py`` counts the step as it runs.
 
-A cell's step is the port's program on this rank, which differs from the
-reference's partitioned program: the batch rows over the data axes (where
-they divide; a batch of one is held whole), the expert leaves cut over
-'model' wherever the step reaches ``moe_apply_ep`` (train and prefill;
-a decode step with a cache runs ``moe_apply`` over whole experts), and
-every other leaf whole on each rank. Parameters are bfloat16
-(``specs.COMPUTE_DTYPE``), the AdamW moments float32. The train step is
-``specs.make_train_step``'s (``specs.step`` under ``remat_blocks()``;
-in ``flexrank_kd`` with the frozen dense teacher), the prefill and decode
-steps ``specs.make_prefill_step`` / ``make_decode_step`` under the mesh.
-A record keeps the reference's keys, with the trace's figures where XLA's
+A cell's step is the port's program on this rank: the reference's
+partitioned program (``fsdp=False``) as far as the port runs it. The
+batch rows go over the data axes (where they divide; a batch of one is
+held whole), and over 'model' each leaf of the parameters, the AdamW
+moments and the flexrank_kd teacher is cut as ``param_shardings`` places
+it (``sharding.rank_dims``): experts (``moe_apply_ep``), heads, kv-heads,
+MLP columns, vocabulary and factor rank (``models/tp.py``); the decode
+cache holds this rank's k/v heads where they divide the axis. What the
+rank still holds whole is listed in the record under ``whole``: the
+leaves ``sharding.deferred`` names (MLA's attention, the recurrent
+blocks, the GAR form, the experts at decode, which run ``moe_apply``
+over whole experts) and the cache entries whose placement the rank does
+not execute (a sequence on 'model' or 'data', the recurrent and latent
+states). Parameters are bfloat16 (``specs.COMPUTE_DTYPE``), the AdamW
+moments float32. The train step is ``specs.make_train_step``'s
+(``specs.step`` under ``remat_blocks()``; in ``flexrank_kd`` with the
+frozen dense teacher), the prefill and decode steps
+``specs.make_prefill_step`` / ``make_decode_step`` under the mesh. A
+record keeps the reference's keys, with the trace's figures where XLA's
 stood, and adds ``placed``: the bytes a device holds under the
 reference's placements (``param_shardings(fsdp=)``, ``input_shardings``,
 ``cache_shardings``), beside what the port executes. ``fsdp=True``
@@ -52,7 +60,7 @@ from repro_torch import threefry
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, shapes_for
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import flexrank as FR
-from repro_torch.distributed.sharding import is_placement
+from repro_torch.distributed.sharding import dim_leaves, is_placement
 from repro_torch.launch import costmodel
 from repro_torch.launch import specs as SP
 from repro_torch.launch import trace_analysis as TA
@@ -68,7 +76,9 @@ DEVICE_BYTES = 80e9       # the card's memory
 ROOFLINE = {"device": "NVIDIA H100 80GB HBM3, 700.00 W (datasheet peaks)",
             "peak_flops": PEAK_FLOPS, "hbm_bw": HBM_BW, "link_bw": LINK_BW,
             "device_bytes": DEVICE_BYTES}
-EXECUTES = "batch over data axes, experts over 'model', the rest whole"
+EXECUTES = ("batch over data axes; experts, heads, kv-heads, MLP, vocab "
+            "and rank over 'model' as placed, but the leaves and cache "
+            "entries listed under whole")
 OUT_DIR = os.path.join("results", "dryrun_torch")
 
 
@@ -165,10 +175,6 @@ def param_mode(mode: str) -> str:
     return "dense" if mode in ("dense", "serve") else mode
 
 
-def _cut(tree, dims, mesh):
-    return tree if dims is None else D.shard_tree(tree, dims, mesh)
-
-
 def _make(specs, dtype, device, gen):
     """The tree of ``specs`` on ``device``: floating leaves in ``dtype``,
     integer ones (GAR's inverse permutations) int64, as the port deploys
@@ -199,37 +205,42 @@ def _inputs(cfg: ModelConfig, shape: ShapeConfig, device, gen, dtype):
     return out
 
 
+def _dims(cfg, mesh, specs, decode: bool):
+    return D.rank_dims(cfg, mesh, cm.axes_tree(specs), specs, decode=decode)
+
+
 def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, mode: str, *,
                device="meta", dtype=SP.COMPUTE_DTYPE, seed: int = 0):
     """The cell's step on this rank (module note) and its arguments:
     ``(step, args, facts)``, facts the local batch and, in the flexrank
     modes, the budget row the step draws. On ``meta`` (the dry run) the
     tensors are shapes; on another device (``dtype`` float32 on the
-    card, where the kernels take it) they are drawn from ``seed``."""
+    card, where the kernels take it) they are drawn from ``seed``, every
+    rank the same whole tree before it keeps its part."""
     meta = torch.device(device).type == "meta"
     gen = None if meta else torch.Generator().manual_seed(seed)
     pspecs, paxes = SP.model_param_specs(cfg, mode=param_mode(mode))
     loc = local_shape(mesh, shape)
     batch = _inputs(cfg, loc, device, gen, dtype)
-    cut = shape.kind != "decode"   # the steps that reach moe_apply_ep
-    dims = D.expert_dims(mesh, paxes, pspecs) if cut else None
-    params = _cut(_make(pspecs, dtype, device, gen), dims, mesh)
+    dims = _dims(cfg, mesh, pspecs, shape.kind == "decode")
+    params = D.shard_tree(_make(pspecs, dtype, device, gen), dims, mesh)
     facts: Dict = {"local_batch": loc.global_batch}
     if shape.kind == "train":
         params = cm.tree_map(lambda t: t.requires_grad_(True), params)
         o = SP.optimizer_specs(pspecs)
         opt = adamw.AdamWState(
-            step=0, mu=_cut(_make(o.mu, torch.float32, device, gen), dims,
-                            mesh),
-            nu=_cut(_make(o.nu, torch.float32, device, gen), dims, mesh))
+            step=0, mu=D.shard_tree(_make(o.mu, torch.float32, device, gen),
+                                    dims, mesh),
+            nu=D.shard_tree(_make(o.nu, torch.float32, device, gen), dims,
+                            mesh))
         tmode = mode if mode in ("flexrank", "flexrank_kd") else "dense"
         step = SP.make_train_step(cfg, adamw.AdamWConfig(), mode=tmode)
         rng = threefry.prng_key(seed)
         args = [params, opt, batch, rng]
         if mode == "flexrank_kd":
-            tspecs, taxes = SP.model_param_specs(cfg, mode="dense")
-            args.append(_cut(_make(tspecs, dtype, device, gen),
-                             D.expert_dims(mesh, taxes, tspecs), mesh))
+            tspecs, _ = SP.model_param_specs(cfg, mode="dense")
+            args.append(D.shard_tree(_make(tspecs, dtype, device, gen),
+                                     _dims(cfg, mesh, tspecs, False), mesh))
         if tmode != "dense":
             facts["budget_k"] = FR.budget_draw(
                 rng, len(cfg.flexrank.budgets[:7]))
@@ -238,9 +249,45 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, mode: str, *,
         args = [params, batch]
     else:
         step = SP.make_decode_step(cfg)
-        args = [params, SP.cache_specs(cfg, loc, dtype=dtype, device=device),
+        args = [params, SP.cache_specs(cfg, loc, dtype=dtype, device=device,
+                                       model_ranks=mesh.size("model")),
                 batch]
     return step, args, facts
+
+
+def whole_on_rank(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                  mode: str) -> Dict:
+    """What this rank holds whole though the reference's placements cut
+    it over 'model' (module note): ``leaves`` maps a parameter path to
+    the reason (``sharding.deferred``), ``cache`` a decode cache entry's
+    path to its placement."""
+    pspecs, paxes = SP.model_param_specs(cfg, mode=param_mode(mode))
+    decode = shape.kind == "decode"
+    full = D.model_dims(mesh, paxes, pspecs)
+    paths = [p for p, _ in cm.tree_items(pspecs, is_leaf=cm.is_spec)]
+    leaves = {}
+    for path, d in zip(paths, dim_leaves(full)):
+        why = d is not None and D.deferred(cfg, path, decode=decode)
+        if why:
+            leaves[path] = why
+    out: Dict = {"leaves": leaves}
+    if decode:
+        n = mesh.size("model")
+        held = dict(cm.tree_items(SP.cache_specs(
+            cfg, local_shape(mesh, shape), model_ranks=n)))
+        whole = SP.cache_specs(cfg, shape)
+        pls = dict(cm.tree_items(SP.cache_shardings(mesh, cfg, shape, whole),
+                                 is_leaf=is_placement))
+        cache = {}
+        for path, t in cm.tree_items(whole):
+            if not isinstance(t, torch.Tensor):
+                continue
+            want = SP.shard_shape(mesh, pls[path], t.shape)
+            if tuple(held[path].shape) != want:
+                cache[path] = [None if e is None else list(e)
+                               for e in pls[path]]
+        out["cache"] = cache
+    return out
 
 
 def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, mode: str, *,
@@ -300,6 +347,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, mode: str,
                                                fsdp=fsdp)
         rec["placed"]["note"] = ("the reference's placements; fsdp changes "
                                  "these only, the port does not act on it")
+        rec["whole"] = whole_on_rank(cfg, shape, mesh, mode)
         rec.update(facts)
         rec["lower_s"] = round(facts["build_s"], 1)
         rec["compile_s"] = None            # nothing is compiled

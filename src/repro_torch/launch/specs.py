@@ -11,9 +11,17 @@ of the port.
 
 Placements are the port's (``distributed.sharding``): tuples of mesh
 axes a dimension, built with the reference's rules. They state the
-layout of the reference's XLA program; the port's ranks execute the
-batch rows over the data axes and the experts over 'model', and hold the
-rest whole (``distributed/sharding.py``).
+layout of the reference's XLA program, and the port's ranks execute it
+(``fsdp=False``): the batch rows over the data axes, and over 'model'
+each leaf's experts, heads, kv-heads, MLP columns, vocabulary or rank
+(``sharding.rank_dims``, run by ``models/tp.py`` and
+``models/moe.py:moe_apply_ep``), with the decode cache's k/v heads
+where they divide the axis. Held whole on every 'model' rank: the
+leaves ``sharding.deferred`` names (MLA's attention, the recurrent
+blocks, the GAR form, the experts at decode), a decode cache whose
+kv-heads do not divide the axis (the reference puts its sequence there)
+or whose batch of one puts its sequence on 'data', and ``fsdp=True``'s
+data-axis cut.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from repro_torch.core import flexrank as FR
 from repro_torch.core.profiles import uniform_table
 from repro_torch.distributed import collectives as C
 from repro_torch.models import common as cm
+from repro_torch.models import tp
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw, muon
 
@@ -175,15 +184,18 @@ def optimizer_specs(param_specs: PyTree) -> adamw.AdamWState:
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
-                dtype=COMPUTE_DTYPE, device="meta") -> Dict:
+                dtype=COMPUTE_DTYPE, device="meta",
+                model_ranks: int = 1) -> Dict:
     """The decode state of ``shape`` (batch ``global_batch``, ``seq_len``
     positions), on ``meta`` by default: shapes and dtypes only.
     Cross-attention K/V buffers are included for vlm/audio (precomputed
-    once a request)."""
+    once a request). ``model_ranks``: a 'model' axis of that many ranks,
+    each holding its part of the k/v heads where they divide it
+    (``init_decode_state``)."""
     ckv = frontend_len(cfg) if cfg.family in ("vlm", "audio") else 0
     return tfm.init_decode_state(cfg, shape.global_batch, shape.seq_len,
                                  dtype=dtype, device=device,
-                                 cross_kv_len=ckv)
+                                 cross_kv_len=ckv, model_ranks=model_ranks)
 
 
 # key -> {dimension from the right: mesh axis}, and "seq": the sequence
@@ -308,11 +320,13 @@ OptConfig = Union[adamw.AdamWConfig, muon.MuonConfig]
 
 
 def apply_updates(params, grads, opt_state, opt_cfg: OptConfig, *,
-                  grad_norm=None):
-    """The optimizer step of ``opt_cfg``'s kind, in place."""
+                  grad_norm=None, split=None):
+    """The optimizer step of ``opt_cfg``'s kind, in place. ``split``:
+    (dims, mesh) of leaves cut over 'model', for Muon's whole-matrix
+    orthogonalization."""
     if isinstance(opt_cfg, muon.MuonConfig):
         return muon.apply_updates(params, grads, opt_state, opt_cfg,
-                                  grad_norm=grad_norm)
+                                  grad_norm=grad_norm, split=split)
     return adamw.apply_updates(params, grads, opt_state, opt_cfg,
                                grad_norm=grad_norm)
 
@@ -344,8 +358,9 @@ def step(params, opt_state, forward: Callable[[], Tuple[torch.Tensor, Dict]],
                 torch.cuda.synchronize(loss.device)
             sync = time.perf_counter() - t0
         norm = D.split_global_norm(grads, shard_dims, mesh)
-    params, opt_state, om = apply_updates(params, grads, opt_state, opt_cfg,
-                                          grad_norm=norm)
+    params, opt_state, om = apply_updates(
+        params, grads, opt_state, opt_cfg, grad_norm=norm,
+        split=None if shard_dims is None else (shard_dims, mesh))
     clear_grads(params)
     return params, opt_state, loss, {**metrics, **om, "sync": sync}
 
@@ -357,7 +372,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
     place (``optim/adamw.py``), metrics ``loss`` (a detached device
     scalar, this rank's loss plus the MoE aux), ``grad_norm`` and ``lr``.
     It runs ``step`` under the current mesh, whose 'model' ranks hold
-    their part of the expert leaves.
+    their part of each leaf (``sharding.rank_dims``).
 
     mode 'dense': the dense forward, cross-entropy plus aux.
     mode 'flexrank': factorized params under the ranks of budget row
@@ -396,17 +411,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
                                           frontend=frontend)
             loss = distill.consolidation_loss(
                 logits, t_logits, labels, kd_weight=cfg.flexrank.kd_weight,
-                temperature=cfg.flexrank.kd_temperature)
+                temperature=cfg.flexrank.kd_temperature,
+                vocab=cfg.vocab_size)
         else:
-            loss = distill.cross_entropy(logits, labels)
+            loss = distill.cross_entropy(logits, labels,
+                                         vocab=cfg.vocab_size)
         return loss + aux
 
     def train_step(params, opt_state: adamw.AdamWState, batch,
                    rng: threefry.Key, teacher_params: Optional[Dict] = None):
         mesh = D.get_current_mesh()
-        # the split of the whole leaves: a rank's part (E / n experts)
-        # need not divide 'model' again
-        dims = None if mesh is None else D.expert_dims(mesh, axes, spec)
+        # the split of the whole leaves: a rank's part need not divide
+        # 'model' again
+        dims = None if mesh is None else D.rank_dims(cfg, mesh, axes, spec)
         params, opt_state, loss, m = step(
             params, opt_state,
             lambda: (loss_fn(params, batch, rng, teacher_params), {}),
@@ -420,22 +437,24 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, batch) -> next-token logits (B, V)``."""
+    """``prefill_step(params, batch) -> next-token logits (B, V)``, whole
+    over the vocabulary (gathered where a 'model' rank holds its
+    columns)."""
     def prefill_step(params, batch):
         with torch.no_grad():
             logits, _ = tfm.forward(params, cfg, batch["tokens"],
                                     frontend=batch.get("frontend"))
-        return logits[:, -1]
+            return tp.whole_vocab(logits[:, -1], cfg.vocab_size)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig):
     """``decode_step(params, state, batch) -> (logits (B, V), state)``,
-    the state updated in place."""
+    the state updated in place, the logits whole over the vocabulary."""
     def decode_step(params, state, batch):
         with torch.no_grad():
             logits, state = tfm.decode_step(params, cfg, state,
                                             batch["tokens"],
                                             kv_source=batch.get("frontend"))
-        return logits[:, 0], state
+            return tp.whole_vocab(logits[:, 0], cfg.vocab_size), state
     return decode_step

@@ -29,15 +29,21 @@ Across ranks (``torchrun --nproc-per-node N -m repro_torch.launch.train
 ``torch.distributed`` (NCCL where every rank has a card of its own, by the
 cards' UUIDs, else gloo; the ``[mesh]`` line names it) and builds the
 reference's elastic mesh over the world: the data axis takes what the
-ranks leave after ``M``. Each data rank trains on its rows of the global batch; each 'model' rank holds ``E / M``
-of every MoE layer's experts and routes its chunk of the sequence
-(``models/moe.py:moe_apply_ep``). Every rank runs the build stages
+ranks leave after ``M``. Each data rank trains on its rows of the global
+batch; each 'model' rank holds every leaf as the reference's
+``param_shardings`` places it (``distributed.sharding.rank_dims``): its
+``E / M`` of every MoE layer's experts, routing its chunk of the
+sequence (``models/moe.py:moe_apply_ep``), and its heads, kv-heads, MLP
+columns and vocabulary rows, run tensor-parallel (``models/tp.py``); the
+leaves ``sharding.deferred`` names stay whole. The flexrank_kd teacher is
+cut by its own spec's dims. Every rank runs the build stages
 (calibration, DataSVD, DP) the same way on the whole model, outside the
 mesh, then keeps its part. After the backward, every gradient is averaged
-over the data axes (an expert leaf's within its 'model' column), and the
-clipping norm counts each expert once. Rank 0 logs and writes the
-checkpoints, in the one-device format with the experts gathered first,
-so a checkpoint restores at any world size; the preemption flag is agreed
+over the data axes (a cut leaf's within its 'model' column), the
+clipping norm counts each cut leaf once, and Muon orthogonalizes a cut
+matrix whole. Rank 0 logs and writes the checkpoints, in the one-device
+format with every cut leaf gathered first, so a checkpoint restores at
+any world size; the preemption flag is agreed
 by every rank at each step boundary. Without ``torch.distributed``,
 ``--mesh-shape`` builds the mesh over the one device the run uses: ``4,1``
 shrinks to 1 x 1; a model dimension above 1 fails its assertion.
@@ -151,8 +157,8 @@ class TrainRun:
     preempted: bool = False
 
     def full_state(self):
-        """(params, opt_state) whole: the experts gathered over 'model'
-        (a collective: every rank calls it)."""
+        """(params, opt_state) whole: every cut leaf gathered over
+        'model' (a collective: every rank calls it)."""
         return _whole((self.params, self.opt_state), self.shard_dims,
                       self.mesh)
 
@@ -184,7 +190,8 @@ def cross_entropy_loss(cfg) -> Callable:
     metrics)``."""
     def loss_fn(params, batch, rng):
         logits, aux = tfm.forward(params, cfg, batch["tokens"][:, :-1])
-        loss = distill.cross_entropy(logits, batch["tokens"][:, 1:]) + aux
+        loss = distill.cross_entropy(logits, batch["tokens"][:, 1:],
+                                     vocab=cfg.vocab_size) + aux
         return loss, {"loss": loss.detach(), "budget_k": None}
     return loss_fn
 
@@ -246,7 +253,7 @@ def run(cfg, dense_params, source, *, steps: int, lr: float = 1e-3,
     training and eval forward. Over ranks (a mesh with groups; every rank
     calls ``run`` with the same arguments and its own device's dense
     params) each data rank takes its rows of every batch, each 'model'
-    rank its ``E / M`` experts (``TrainRun.shard_dims``), and gradients,
+    rank its part of every leaf (``TrainRun.shard_dims``), and gradients,
     losses and eval losses are averaged over the data axes (module note).
 
     With ``ckpt_dir``: resume from its latest committed step, save
@@ -276,7 +283,7 @@ def run(cfg, dense_params, source, *, steps: int, lr: float = 1e-3,
     else:
         fact = dense_params
         spec = tfm.model_spec(cfg)
-    dims = D.expert_dims(mesh, cm.axes_tree(spec), fact)
+    dims = D.rank_dims(cfg, mesh, cm.axes_tree(spec), fact)
     params = cm.tree_map(
         lambda t: t.detach().clone().requires_grad_(True), fact)
     del fact
@@ -306,8 +313,8 @@ def run(cfg, dense_params, source, *, steps: int, lr: float = 1e-3,
     remat = False
     if mode == "flexrank_kd":
         # the teacher is the dense model: its own leaves, its own dims
-        teacher_dims = D.expert_dims(
-            mesh, cm.axes_tree(tfm.model_spec(cfg)), dense_params)
+        teacher_dims = D.rank_dims(
+            cfg, mesh, cm.axes_tree(tfm.model_spec(cfg)), dense_params)
         loss_fn = FR.make_consolidation_loss(
             cfg, infos, table_rows, _part(dense_params, teacher_dims, mesh))
     elif optimizer == "muon":

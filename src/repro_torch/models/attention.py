@@ -5,7 +5,18 @@ train/prefill forward and the contiguous decode over a (B, T) K/V cache
 cached K/V, spec/apply pairs driven by ``transformer``.
 
 Each projection names its activation tap ("q", "k", "v", "o", "gate",
-"up", "down") for the calibration pass."""
+"up", "down") for the calibration pass.
+
+Under a mesh whose 'model' axis cuts the projections (``models/tp.py``)
+``project_qkv`` (which every attention path runs) and ``attn_apply`` run
+this rank's heads and ``ffn_apply`` its MLP columns:
+q, k, v and gate/up are column-parallel, o and down row-parallel. Where
+the rank's q columns are whole heads (the head count divides the axis)
+it attends over them alone, with the k/v heads they read: its own where
+the kv-head count divides too, else picked out of every k/v head. Where
+a split falls inside a head the product's output is gathered to every
+head first. A decode cache holds the k/v heads that its shape says:
+this rank's ``Hkv / n`` (``init_kv_cache(model_ranks=)``) or all."""
 from __future__ import annotations
 
 import math
@@ -14,8 +25,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
+from repro_torch.models import tp
 from repro_torch.models.common import ParamSpec, linear
 
 Q_CHUNK = 1024  # query chunk for exact chunked attention
@@ -86,29 +99,55 @@ def chunked_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.stack(outs, dim=1).reshape(b, s, hq, dh)
 
 
-def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
-    b, s, _ = x.shape
-    return x.reshape(b, s, n, -1)
+def _qkv_whole(cfg: ModelConfig, d_in: int, heads: int):
+    """A q/k/v projection's whole (d_in, d_out)."""
+    return (d_in, heads * cfg.resolved_head_dim)
 
 
 def project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-                ranks: Dict, positions: torch.Tensor,
-                rope: bool = True
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                ranks: Dict, positions: torch.Tensor, rope: bool = True,
+                kv_source: Optional[torch.Tensor] = None,
+                static_kv=None):
     """q/k/v projection + head norms + RoPE, in the reference's order:
-    q -> q_norm, then k and v, then k_norm, then RoPE."""
-    q = _split_heads(linear(p["q"], x, rank=ranks.get("q"), tap="q"),
-                     cfg.num_heads)
-    q = cm.rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
-    k = _split_heads(linear(p["k"], x, rank=ranks.get("k"), tap="k"),
-                     cfg.num_kv_heads)
-    v = _split_heads(linear(p["v"], x, rank=ranks.get("v"), tap="v"),
-                     cfg.num_kv_heads)
-    k = cm.rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+    q -> q_norm, then k and v, then k_norm, then RoPE. k/v come from
+    ``x``, from ``kv_source`` (cross-attention), or are ``static_kv``
+    taken as they are (then no k_norm).
+
+    Under a 'model' axis that cuts the projections (module note) q, k and
+    v hold this rank's heads, or every head where the split falls inside
+    one. Returns (q, k, v, q0, k0): q0 and k0 the first q and k/v head
+    held (0 without a 'model' axis)."""
+    b, s, d = x.shape
+    hd = cfg.resolved_head_dim
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    wq = _qkv_whole(cfg, d, nh)
+    self_kv = kv_source is None and static_kv is None
+    xq, entered = tp.enter(x, [(p["q"], wq)] + (
+        [(p["k"], _qkv_whole(cfg, d, nkv)), (p["v"], _qkv_whole(cfg, d, nkv))]
+        if self_kv else []))
+    q, q0 = tp.heads(linear(p["q"], xq, rank=ranks.get("q"), tap="q",
+                            whole=wq, entered=entered), nh, hd)
+    group = tp.axis()[0]
+    q = cm.rms_norm(q, _norm_scale(p["q_norm"], q, nh, group),
+                    eps=cfg.norm_eps)
+    if static_kv is not None:
+        k, v = static_kv
+        k0 = first_head(k, nkv)
+    else:
+        src = xq if kv_source is None else kv_source
+        wkv = _qkv_whole(cfg, src.shape[-1], nkv)
+        if kv_source is not None:
+            src, entered = tp.enter(src, [(p["k"], wkv), (p["v"], wkv)])
+        k, k0 = tp.heads(linear(p["k"], src, rank=ranks.get("k"), tap="k",
+                                whole=wkv, entered=entered), nkv, hd)
+        v, _ = tp.heads(linear(p["v"], src, rank=ranks.get("v"), tap="v",
+                               whole=wkv, entered=entered), nkv, hd)
+        k = cm.rms_norm(k, _norm_scale(p["k_norm"], k, nkv, group),
+                        eps=cfg.norm_eps)
     if rope:
         q = cm.rope(q, positions, base=cfg.rope_base)
         k = cm.rope(k, positions, base=cfg.rope_base)
-    return q, k, v
+    return q, k, v, q0, k0
 
 
 def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -135,33 +174,24 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     made them); no RoPE. Against ``kv_source`` the keys sit at positions
     ``0 .. T - 1``. Against ``static_kv`` the reference takes the key
     positions from the queries, so its mask broadcasts only when S is 1 or
-    T; any other S raises ``ValueError`` here, as the reference does."""
+    T; any other S raises ``ValueError`` here, as the reference does.
+
+    Under a 'model' axis that cuts the projections each rank attends over
+    its heads (module note); ``y`` is whole."""
     r = ranks or {}
-    b, s = x.shape[:2]
-    if kv_source is None and static_kv is None:
-        q, k, v = project_qkv(p, x, cfg, ranks=r, positions=positions,
-                              rope=use_rope)
-    else:
-        q = _split_heads(linear(p["q"], x, rank=r.get("q"), tap="q"),
-                         cfg.num_heads)
-        q = cm.rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
-        if static_kv is not None:
-            k, v = static_kv
-            if kv_source is None and s not in (1, k.shape[1]):
-                raise ValueError(
-                    f"cached cross K/V of {k.shape[1]} keys takes one query "
-                    f"token a call (or {k.shape[1]}), not {s}: the "
-                    "reference's key positions come from the queries there, "
-                    "and its mask does not broadcast")
-        else:
-            k = _split_heads(linear(p["k"], kv_source, rank=r.get("k"),
-                                    tap="k"), cfg.num_kv_heads)
-            v = _split_heads(linear(p["v"], kv_source, rank=r.get("v"),
-                                    tap="v"), cfg.num_kv_heads)
-            k = cm.rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
-        if use_rope and kv_source is None:
-            q = cm.rope(q, positions, base=cfg.rope_base)
-            k = cm.rope(k, positions, base=cfg.rope_base)
+    b, s, d = x.shape
+    hd = cfg.resolved_head_dim
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    if static_kv is not None and kv_source is None \
+            and s not in (1, static_kv[0].shape[1]):
+        t = static_kv[0].shape[1]
+        raise ValueError(
+            f"cached cross K/V of {t} keys takes one query token a call "
+            f"(or {t}), not {s}: the reference's key positions come from "
+            "the queries there, and its mask does not broadcast")
+    q, k, v, q0, k0 = project_qkv(p, x, cfg, ranks=r, positions=positions,
+                                  rope=use_rope and kv_source is None,
+                                  kv_source=kv_source, static_kv=static_kv)
     new_cache = None
     if cache is not None:
         idx = cache["idx"]
@@ -170,43 +200,75 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         if idx + s > t:
             raise ValueError(f"decode cache of {t} positions cannot take "
                              f"{s} more at {idx}")
+        k, k0 = tp.own_heads(k, nkv, k0, ck.shape[2])
+        v, _ = tp.own_heads(v, nkv, k0, ck.shape[2])
         ck[:, idx:idx + s] = k.to(ck.dtype)
         cv[:, idx:idx + s] = v.to(cv.dtype)
         new_cache = {"k": ck, "v": cv, "idx": idx + s}
         k_positions = torch.arange(t, device=x.device)
         # the reference's einsum promotes a low-precision cache to the
         # queries' type; torch's needs the cast
-        out = chunked_attend(q, ck.to(q.dtype), cv, q_positions=positions,
-                             k_positions=k_positions, window=window,
-                             softcap=cfg.attn_logit_softcap, causal=causal)
+        k, v = ck.to(q.dtype), cv
+    elif kv_source is not None:
+        k_positions = torch.arange(kv_source.shape[1], device=x.device)
+    elif static_kv is not None:
+        # the reference takes the queries' positions here (S is 1 or T,
+        # checked above); with the cross block's non-causal global window
+        # either masks nothing, and so do T zeros
+        k_positions = torch.zeros(k.shape[1], dtype=positions.dtype,
+                                  device=x.device)
     else:
-        if kv_source is not None:
-            k_positions = torch.arange(kv_source.shape[1], device=x.device)
-        elif static_kv is not None:
-            # the reference takes the queries' positions here (S is 1 or
-            # T, checked above); with the cross block's non-causal global
-            # window either masks nothing, and so do T zeros
-            k_positions = torch.zeros(k.shape[1], dtype=positions.dtype,
-                                      device=x.device)
-        else:
-            k_positions = positions
-        out = chunked_attend(q, k.to(q.dtype), v, q_positions=positions,
-                             k_positions=k_positions, window=window,
-                             softcap=cfg.attn_logit_softcap,
-                             causal=causal and kv_source is None)
-    out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
-    return linear(p["o"], out, rank=r.get("o"), tap="o"), new_cache
+        k_positions = positions
+    if k.shape[2] < nkv and q.shape[2] == nh:
+        # this rank's k/v heads: the queries are cut to the heads that
+        # read them
+        q, q0 = tp.own_heads(q, nh, q0, q.shape[2] * k.shape[2] // nkv)
+    if q.shape[2] < nh and k.shape[2] == nkv:
+        # whole k/v read by this rank's queries only: their gradient here
+        # is this rank's part of it, summed over the ranks
+        group = tp.axis()[0]
+        k, v = C.reduce_grad(k, group), C.reduce_grad(v, group)
+    k, v = tp.kv_for(q.shape[2], q0, k, v, k0, nh // nkv)
+    out = chunked_attend(q, k.to(q.dtype), v, q_positions=positions,
+                         k_positions=k_positions, window=window,
+                         softcap=cfg.attn_logit_softcap,
+                         causal=causal and kv_source is None)
+    out = out.reshape(b, s, q.shape[2] * hd)
+    return linear(p["o"], out, rank=r.get("o"), tap="o",
+                  whole=(nh * hd, d)), new_cache
+
+
+def _norm_scale(scale: torch.Tensor, heads: torch.Tensor, count: int,
+                group) -> torch.Tensor:
+    """A head norm's (replicated) scale, its gradient summed over the
+    'model' ranks where each normalizes its part of the ``count`` heads."""
+    return C.reduce_grad(scale, group) if heads.shape[2] < count else scale
+
+
+def first_head(t: torch.Tensor, count: int) -> int:
+    """The first k/v head of a cached (B, T, h, D): this rank's where it
+    holds ``count / n`` of them, else 0."""
+    return 0 if t.shape[2] == count else tp.axis()[2] * t.shape[2]
+
+
+def cache_heads(cfg: ModelConfig, model_ranks: int = 1) -> int:
+    """The k/v heads a rank's cache holds: ``Hkv / n`` where the 'model'
+    axis of ``n`` ranks divides them (the reference's cache placement),
+    else all of them."""
+    kv = cfg.num_kv_heads
+    return kv // model_ranks if kv % model_ranks == 0 else kv
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                   dtype=torch.bfloat16, num_instances: int = 1,
-                  device=None) -> Dict:
+                  device=None, model_ranks: int = 1) -> Dict:
     """Zero K/V caches of ``num_instances`` stacked attention blocks:
-    {'k', 'v': (L, B, max_len, Hkv, D), 'idx': 0}. ``idx``, the next row to
+    {'k', 'v': (L, B, max_len, Hkv, D), 'idx': 0}, Hkv a rank's
+    ``cache_heads`` over ``model_ranks``. ``idx``, the next row to
     write, is a host int shared by the L blocks (the reference keeps an
     int32 array of L equal values): the drain loop knows it, so reading it
     never waits for the card."""
-    shape = (num_instances, batch, max_len, cfg.num_kv_heads,
+    shape = (num_instances, batch, max_len, cache_heads(cfg, model_ranks),
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -231,7 +293,8 @@ def paged_attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     bsz = x.shape[0]
     bs = k_pool.shape[1]
 
-    q, k, v = project_qkv(p, x, cfg, ranks=r, positions=positions[:, None])
+    q, k, v, _, _ = project_qkv(p, x, cfg, ranks=r,
+                                positions=positions[:, None])
 
     blk = block_tables[torch.arange(bsz, device=x.device),
                        positions // bs].long()
@@ -271,7 +334,8 @@ def paged_prefill_attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     t = x.shape[1]
     bs = k_pool.shape[1]
 
-    q, k, v = project_qkv(p, x, cfg, ranks=r, positions=positions[None, :])
+    q, k, v, _, _ = project_qkv(p, x, cfg, ranks=r,
+                                positions=positions[None, :])
 
     blk = block_tables[slot_ids, positions // bs].long()
     off = positions % bs
@@ -286,13 +350,20 @@ def paged_prefill_attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     return y, k_pool, v_pool
 
 
-def ffn_apply(p: Dict, x: torch.Tensor, *,
+def ffn_apply(p: Dict, x: torch.Tensor, *, d_ff: int,
               ranks: Optional[Dict] = None) -> torch.Tensor:
+    """The gated MLP of hidden width ``d_ff``. The leaves may be a 'model'
+    rank's columns of gate/up and rows of down (``models/tp.py``); the
+    output is whole."""
     r = ranks or {}
-    gate = linear(p["gate"], x, rank=r.get("gate"), tap="gate")
-    up = linear(p["up"], x, rank=r.get("up"), tap="up")
+    d = x.shape[-1]
+    x, entered = tp.enter(x, [(p["gate"], (d, d_ff)), (p["up"], (d, d_ff))])
+    gate = linear(p["gate"], x, rank=r.get("gate"), tap="gate",
+                  whole=(d, d_ff), entered=entered)
+    up = linear(p["up"], x, rank=r.get("up"), tap="up", whole=(d, d_ff),
+                entered=entered)
     return linear(p["down"], cm.swiglu(gate, up), rank=r.get("down"),
-                  tap="down")
+                  tap="down", whole=(d_ff, d))
 
 
 def compute_cross_kv(p: Dict, cfg: ModelConfig, kv_source: torch.Tensor, *,
@@ -300,10 +371,16 @@ def compute_cross_kv(p: Dict, cfg: ModelConfig, kv_source: torch.Tensor, *,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention (k, v), each (B, T, Hkv, D), from the projected
     source (B, T, d), once per request (the reference's "decode fast
-    path"): the k/v projections (no tap) and ``k_norm`` on k."""
+    path"): the k/v projections (no tap) and ``k_norm`` on k. Under a
+    'model' axis that cuts them, this rank's heads where its columns are
+    whole heads (``tp.heads``), else every head."""
     r = ranks or {}
-    k = _split_heads(linear(p["k"], kv_source, rank=r.get("k")),
-                     cfg.num_kv_heads)
-    v = _split_heads(linear(p["v"], kv_source, rank=r.get("v")),
-                     cfg.num_kv_heads)
-    return cm.rms_norm(k, p["k_norm"], eps=cfg.norm_eps), v
+    nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    wkv = _qkv_whole(cfg, kv_source.shape[-1], nkv)
+    src, entered = tp.enter(kv_source, [(p["k"], wkv), (p["v"], wkv)])
+    k, _ = tp.heads(linear(p["k"], src, rank=r.get("k"), whole=wkv,
+                           entered=entered), nkv, hd)
+    v, _ = tp.heads(linear(p["v"], src, rank=r.get("v"), whole=wkv,
+                           entered=entered), nkv, hd)
+    return cm.rms_norm(k, _norm_scale(p["k_norm"], k, nkv, tp.axis()[0]),
+                       eps=cfg.norm_eps), v

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import tp
 
 PyTree = Any
 
@@ -264,7 +265,9 @@ def record_tap(name: Optional[str], x: torch.Tensor) -> None:
 
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor, *,
            rank: Optional[int] = None,
-           tap: Optional[str] = None) -> torch.Tensor:
+           tap: Optional[str] = None,
+           whole: Optional[Tuple[int, ...]] = None,
+           entered: bool = False) -> torch.Tensor:
     """y = x @ W with W dense, factorized (optionally rank-masked), or GAR.
 
     dense:      p = {'w': (d_in, d_out)}
@@ -274,8 +277,21 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor, *,
                  'perm_inv': (d_out,) int64}; the deploy path
 
     ``tap`` names the input's moment while a tap store is active.
+
+    ``whole``: the product's whole (d_in, d_out) (and whole rank, where
+    both factors may be cut by it), given where the leaf may be a 'model'
+    rank's part of it: under a mesh with a 'model' axis the product then
+    runs as ``models/tp.py`` lays it out, and the result may be this
+    rank's output columns; ``entered``: ``x`` went through ``tp.enter``.
     """
     record_tap(tap, x)
+    if whole is not None:
+        return tp.linear(p, x, whole, rank, _linear, entered)
+    return _linear(p, x, rank)
+
+
+def _linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
+            rank: Optional[int]) -> torch.Tensor:
     if "w" in p:
         return x @ p["w"].to(x.dtype)
     if "u_hat" in p:

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models import tp
 from repro_torch.models.attention import NEG_INF, Q_CHUNK
 from repro_torch.models.common import ParamSpec, linear
 
@@ -88,6 +89,7 @@ def mla_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     written); returns (y, {'c_kv', 'k_rope', 'idx': idx + S}). Without a
     cache returns (y, None). A low-precision cache is cast to the
     queries' type where it meets them, as ``jnp.einsum`` promotes."""
+    tp.require_whole(p, lambda: mla_spec(cfg), "mla")
     a = cfg.mla
     r = ranks or {}
     b, s, _ = x.shape

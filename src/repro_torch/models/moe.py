@@ -9,6 +9,9 @@ expert's capacity are dropped. Capacity is a host int from the shape,
 device op on device indices (comparisons, ``cumsum``, ``gather``,
 ``index_put_``): nothing is read back to the host.
 
+The shared experts are cut over 'model' as a dense FFN is
+(``models/tp.py``); the router is held whole.
+
 Expert weights carry a leading ``experts`` axis; FlexRank factorizes each
 expert's (d_in, d_out) pair along it, so a factorized or GAR leaf holds
 one factor pair per expert. The expert products are batched ``einsum``s,
@@ -33,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.meshctx import data_axes, get_current_mesh
+from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamSpec, linear
 
@@ -90,6 +94,17 @@ def expert_linear(p: Dict, x: torch.Tensor, *, rank: Optional[int] = None,
     return torch.einsum("becr,efr->becf", z, p["u"].to(x.dtype))
 
 
+def _shared(p: Dict, x: torch.Tensor, cfg: ModelConfig, r: Dict
+            ) -> torch.Tensor:
+    """The shared experts: one gated MLP of ``num_shared`` experts' width,
+    cut over 'model' as the dense FFN is (``models/tp.py``)."""
+    m = cfg.moe
+    with cm.tap_scope("shared"):
+        return attn.ffn_apply(
+            p, x, d_ff=m.num_shared * (m.d_ff_shared or m.d_ff_expert),
+            ranks=r.get("shared"))
+
+
 def capacity(cfg: ModelConfig, s: int) -> int:
     """Slots per expert of one batch row of ``s`` tokens."""
     m = cfg.moe
@@ -136,6 +151,11 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
     dev = x.device
+    held = cm.tree_leaves(p["experts"])[0].shape[0]
+    if held != e:
+        raise ValueError(f"moe_apply runs every expert and holds {held} of "
+                         f"{e}: a 'model' rank's part of the experts runs "
+                         "through moe_apply_ep")
 
     gate_logits = linear(p["router"], x.float())                # (B, S, E)
     probs = torch.softmax(gate_logits, dim=-1)
@@ -175,14 +195,7 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     out = gathered.reshape(b, s, k, d).sum(dim=2).to(x.dtype)
 
     if m.num_shared:
-        sh = cm.swiglu(
-            linear(p["shared"]["gate"], x, rank=cm.rget(r, "shared", "gate"),
-                   tap="shared/gate"),
-            linear(p["shared"]["up"], x, rank=cm.rget(r, "shared", "up"),
-                   tap="shared/up"))
-        out = out + linear(p["shared"]["down"], sh,
-                           rank=cm.rget(r, "shared", "down"),
-                           tap="shared/down")
+        out = out + _shared(p["shared"], x, cfg, r)
 
     # load-balance aux (Switch-style): E * sum_e f_e * p_e
     me = probs.mean(dim=(0, 1))                                 # (E,)
@@ -286,6 +299,10 @@ def moe_apply_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     if s % n_model:
         raise ValueError(f"sequence {s} does not split over {n_model} "
                          "'model' ranks")
+    held = cm.tree_leaves(p["experts"])[0].shape[0]
+    if held * n_model != m.num_experts:
+        raise ValueError(f"moe_apply_ep runs this rank's {m.num_experts} / "
+                         f"{n_model} experts, not {held}")
     r = ranks or {}
     x_col = C.scatter(x, 1, group)                    # (B, S / n, D)
     bl, sl, _ = x_col.shape
@@ -296,12 +313,5 @@ def moe_apply_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         cfg, group)
     out = C.gather(out.reshape(bl, sl, d), 1, group)
     if m.num_shared:
-        sh = cm.swiglu(
-            linear(p["shared"]["gate"], x, rank=cm.rget(r, "shared", "gate"),
-                   tap="shared/gate"),
-            linear(p["shared"]["up"], x, rank=cm.rget(r, "shared", "up"),
-                   tap="shared/up"))
-        out = out + linear(p["shared"]["down"], sh,
-                           rank=cm.rget(r, "shared", "down"),
-                           tap="shared/down")
+        out = out + _shared(p["shared"], x, cfg, r)
     return out, aux

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
+from repro_torch.models import tp as tensor_parallel
 from repro_torch.models.common import ParamSpec, linear
 
 _TARGETS = ("w", "k", "v", "r", "g")
@@ -160,6 +161,7 @@ def rwkv_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     (prefill and decode) the shifts and the recurrence continue from the
     carried state through ``wkv_chunked``, as the reference does; returns
     (out, {'shift_t', 'shift_c', 'wkv'}) with new tensors."""
+    tensor_parallel.require_whole(p, lambda: rwkv_spec(cfg), "rwkv")
     rw = cfg.rwkv
     r_ = ranks or {}
     d = cfg.d_model

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
+from repro_torch.models import tp
 from repro_torch.models.common import ParamSpec, linear
 
 
@@ -140,6 +141,7 @@ def mamba_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     the scan runs ``ssd_chunked`` as one chunk of all S steps from the
     carried SSD state, as the reference does; returns (out, {'conv',
     'ssd'}) with new tensors."""
+    tp.require_whole(p, lambda: mamba_spec(cfg), "mamba")
     s, d_inner, n_heads = _dims(cfg)
     r = ranks or {}
     bsz, seqlen, _ = x.shape

@@ -56,6 +56,7 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import tp
 from repro_torch.models.common import ParamSpec
 
 GLOBAL_WINDOW = 1 << 30
@@ -182,17 +183,31 @@ def window_schedule(cfg: ModelConfig, count: int,
 
 def embed_tokens(params: Dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens]
+    """The tokens' embedding rows (vocabulary-parallel where the table is
+    a 'model' rank's rows: ``tp.embed``)."""
+    return tp.embed(params["embed"], tokens, cfg.vocab_size)
 
 
 def lm_logits(params: Dict, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    """Final norm + tied LM head (a plain large product, as in the
-    reference, which leaves it to XLA)."""
+    """Final norm + LM head, tied or not (a plain large product, as in the
+    reference, which leaves it to XLA). Where the head is a 'model' rank's
+    part the logits are this rank's vocabulary columns."""
     x = cm.rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return cm.linear(params["lm_head"], x)
+        return tp.tied_logits(x, params["embed"], cfg.vocab_size)
+    return cm.linear(params["lm_head"], x,
+                     whole=(cfg.d_model, cfg.vocab_size))
+
+
+def frontend_proj(params: Dict, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """``frontend_proj`` of the modality's frames (B, T, frontend_dim);
+    factorized, both of its factors may be a 'model' rank's columns."""
+    r = min(cfg.frontend_dim, cfg.d_model, cfg.flexrank.max_rank
+            or cfg.d_model)
+    return cm.linear(params["frontend_proj"], x,
+                     whole=(cfg.frontend_dim, cfg.d_model, r))
 
 
 def paged_compatible(cfg: ModelConfig) -> bool:
@@ -244,7 +259,8 @@ def _apply_attn_block(p, x, cfg, *, positions, window, ranks, cache=None,
                               ranks=rget_tree(ranks, "mlp"))
         else:
             y, aux = attn.ffn_apply(p["mlp"], h,
-                                    ranks=rget_tree(ranks, "mlp")), 0.0
+                                    ranks=rget_tree(ranks, "mlp"),
+                                    d_ff=cfg.d_ff), 0.0
     return x + y, new_cache, aux
 
 
@@ -264,7 +280,8 @@ def _apply_cross_block(p, x, cfg, *, kv_source, ranks, static_kv=None):
     x = x + torch.tanh(p["gate"].to(x.dtype)) * y
     h = cm.rms_norm(x, p["ln_mlp"], eps=cfg.norm_eps)
     with cm.tap_scope("cross"), cm.tap_scope("mlp"):
-        return x + attn.ffn_apply(p["mlp"], h, ranks=rget_tree(ranks, "mlp"))
+        return x + attn.ffn_apply(p["mlp"], h, ranks=rget_tree(ranks, "mlp"),
+                                  d_ff=cfg.d_ff)
 
 
 _CROSS_KEYS = ("cross_k", "cross_v")
@@ -370,7 +387,8 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
                     h = cm.rms_norm(x, p_l["ln_mlp"], eps=cfg.norm_eps)
                     with cm.tap_scope("mlp"):
                         return x + attn.ffn_apply(
-                            p_l["mlp"], h, ranks=rget_tree(ranks, "mlp"))
+                            p_l["mlp"], h, ranks=rget_tree(ranks, "mlp"),
+                            d_ff=cfg.d_ff)
             x = _body(layer, x)
         return x, cache, 0.0
     if seg.kind == "vision_unit":
@@ -461,8 +479,10 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
                         cache=acache)
                 x = x + y
                 h = cm.rms_norm(x, p_u["ln_mlp"], eps=cfg.norm_eps)
+                tp.require_whole(p_u["mlp"], lambda: attn.ffn_spec(cfg),
+                                 "zamba mlp")
                 with cm.tap_scope("mlp"):
-                    return x + attn.ffn_apply(p_u["mlp"], h,
+                    return x + attn.ffn_apply(p_u["mlp"], h, d_ff=cfg.d_ff,
                                               ranks=rget_tree(ranks, "mlp"))
         x = _body(unit, x)
     if cache is None:
@@ -482,7 +502,7 @@ def run_encoder(params: Dict, cfg: ModelConfig, enc_input: torch.Tensor,
     be a multiple of it (``attention.Q_CHUNK``)."""
     x = enc_input
     if cfg.frontend_dim and x.shape[-1] == cfg.frontend_dim:
-        x = cm.linear(params["frontend_proj"], x)
+        x = frontend_proj(params, x, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     for i, seg in enumerate(cfg.segments):
         if seg.kind != "encoder":
@@ -513,7 +533,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     if cfg.family == "audio" and frontend is not None:
         kv_source = run_encoder(params, cfg, frontend, ranks)
     elif cfg.family == "vlm" and frontend is not None:
-        kv_source = cm.linear(params["frontend_proj"], frontend)
+        kv_source = frontend_proj(params, frontend, cfg)
     offset = 0
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(cfg.segments):
@@ -535,7 +555,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       dtype=torch.bfloat16, device=None,
-                      cross_kv_len: int = 0) -> Dict:
+                      cross_kv_len: int = 0, model_ranks: int = 1) -> Dict:
     """Zero decode state matching the segment structure:
 
       {'pos': 0, 'segments': [per segment: attention {'k', 'v': (L, B,
@@ -553,6 +573,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     decoder and vision_unit segment, for ``attach_cross_kv`` to fill once
     a request.
 
+    ``model_ranks``: the size of a 'model' axis whose ranks each hold
+    their ``Hkv / n`` k/v heads of every self- and cross-attention cache
+    where it divides them (``attention.cache_heads``, the reference's
+    cache placement); MLA's latent cache and the recurrent states are
+    held whole.
+
     The recurrent states are float32 (the reference's default). ``pos`` and
     ``idx`` are host ints, where the reference keeps int32 arrays: the
     drain loop knows them, so slicing the cache by them never waits for
@@ -564,11 +590,13 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
     def kv(count):
         return attn.init_kv_cache(cfg, batch, max_len, dtype=dtype,
-                                  num_instances=count, device=device)
+                                  num_instances=count, device=device,
+                                  model_ranks=model_ranks)
 
     def with_cross(c, count):
         if cross_kv_len:
-            shape = (count, batch, cross_kv_len, cfg.num_kv_heads, hd)
+            shape = (count, batch, cross_kv_len,
+                     attn.cache_heads(cfg, model_ranks), hd)
             for k in _CROSS_KEYS:
                 c[k] = torch.zeros(shape, dtype=dtype, device=device)
         return c
@@ -616,16 +644,20 @@ def attach_cross_kv(params: Dict, cfg: ModelConfig, state: Dict,
     """Fill the state's cross-attention K/V buffers once a request, IN
     PLACE: each cross block's ``compute_cross_kv`` over ``kv_source``,
     the projected source (vlm: ``frontend_proj`` of the patches; audio:
-    the encoder's output), (B, cross_kv_len, d). Returns the state."""
+    the encoder's output), (B, cross_kv_len, d), in the buffers' head
+    layout (this rank's heads or all). Returns the state."""
+    nkv = cfg.num_kv_heads
     for i, seg in enumerate(cfg.segments):
         c = state["segments"][i]
         if not isinstance(c, dict) or "cross_k" not in c:
             continue
         cross_p = params["segments"][i]["cross"]["attn"]
+        want = c["cross_k"].shape[-2]
         for l in range(c["cross_k"].shape[0]):
             k, v = attn.compute_cross_kv(_layer(cross_p, l), cfg, kv_source)
-            c["cross_k"][l].copy_(k)
-            c["cross_v"][l].copy_(v)
+            k0 = attn.first_head(k, nkv)
+            c["cross_k"][l].copy_(tp.own_heads(k, nkv, k0, want)[0])
+            c["cross_v"][l].copy_(tp.own_heads(v, nkv, k0, want)[0])
     return state
 
 
@@ -658,7 +690,7 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
     if (cfg.family == "vlm" and kv_source is not None
             and not has_cross_kv(state)
             and kv_source.shape[-1] == cfg.frontend_dim):
-        kv_source = cm.linear(params["frontend_proj"], kv_source)
+        kv_source = frontend_proj(params, kv_source, cfg)
     segments = []
     offset = 0
     for i, seg in enumerate(cfg.segments):
@@ -724,7 +756,7 @@ def _run_paged_segments(params, cfg, x, caches, ranks, attn_fn):
                 y, _ = moe_mod.moe_apply(p_l["mlp"], h, cfg,
                                          ranks=(ranks_l or {}).get("mlp"))
             else:
-                y = attn.ffn_apply(p_l["mlp"], h,
+                y = attn.ffn_apply(p_l["mlp"], h, d_ff=cfg.d_ff,
                                    ranks=(ranks_l or {}).get("mlp"))
             x = x + y
         offset += seg.count

@@ -17,6 +17,12 @@ runs. Everything happens in place under ``torch.no_grad()``, on float32
 parameters (the port trains in float32); ``step`` is a Python int. The
 momentum of a non-matrix leaf is a ``zeros((0,))`` placeholder, as in
 the reference, so that checkpoints interchange.
+
+A matrix leaf cut over 'model' along one of its last two dimensions (the
+tensor-parallel split) is orthogonalized whole: its update is gathered
+over the axis, goes through Newton-Schulz as one rank's would, and each
+rank keeps its part; its momentum stays cut. A leaf cut along a leading
+dimension (the experts) is orthogonalized slice by slice as it is.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import dim_leaves
 from repro_torch.models import common as cm
 from repro_torch.optim import adamw
 
@@ -82,12 +90,13 @@ def init(params: PyTree, cfg: MuonConfig) -> MuonState:
 
 @torch.no_grad()
 def apply_updates(params: PyTree, grads: PyTree, state: MuonState,
-                  cfg: MuonConfig, *, grad_norm=None
+                  cfg: MuonConfig, *, grad_norm=None, split=None
                   ) -> Tuple[PyTree, MuonState, dict]:
     """One step, in place (see the module note): Muon for the matrix
     leaves (each slice of a stacked one on its own), AdamW for the rest.
     Returns (params, state, AdamW's metrics). ``grad_norm`` goes to
-    AdamW's clipping (``adamw.apply_updates``).
+    AdamW's clipping (``adamw.apply_updates``). ``split``: (dims, mesh),
+    each leaf's dimension cut over the mesh's 'model' axis (None whole).
 
     The slices of every matrix leaf of one (m, n) shape go through
     ``newton_schulz`` as one batch: a slice's result is its own either
@@ -105,8 +114,21 @@ def apply_updates(params: PyTree, grads: PyTree, state: MuonState,
     m = [moms[i] for i in idx]
     torch._foreach_mul_(m, cfg.momentum)
     torch._foreach_add_(m, g32)
-    upd = (torch._foreach_add(g32, torch._foreach_mul(m, cfg.momentum))
-           if cfg.nesterov else m)
+    upd = list(torch._foreach_add(g32, torch._foreach_mul(m, cfg.momentum))
+               if cfg.nesterov else m)
+    # a matrix cut over 'model' along its rows or columns: whole for
+    # Newton-Schulz, this rank's part kept after it
+    cut: Dict[int, int] = {}
+    dims, mesh = split if split is not None else (None, None)
+    group = (mesh.group("model") if mesh is not None
+             and "model" in mesh.axis_names else None)
+    if group is not None:
+        ds = dim_leaves(dims)
+        for j, i in enumerate(idx):
+            d = ds[i]
+            if d is not None and d >= leaves[i].dim() - 2:
+                cut[j] = d
+                upd[j] = C.all_gather_along(upd[j], d, group)
     groups: Dict[Tuple[int, int], list] = {}
     for j, u in enumerate(upd):
         groups.setdefault(tuple(u.shape[-2:]), []).append(j)
@@ -115,6 +137,8 @@ def apply_updates(params: PyTree, grads: PyTree, state: MuonState,
                                      for j in js]), cfg.ns_steps)
         views = [v.reshape(upd[j].shape) for j, v in zip(js, torch.split(
             o, [upd[j].numel() // (rows * cols) for j in js]))]
+        views = [C.own_chunk(v, cut[j], group) if j in cut else v
+                 for j, v in zip(js, views)]
         # Jordan et al.'s sqrt(max(1, m/n)) keeps the update's RMS about
         # constant; its product with lr in float32, as the reference's
         torch._foreach_mul_(views, (np.float32(cfg.lr) * np.sqrt(np.maximum(

@@ -1,11 +1,10 @@
 """The port's mesh path across ranks against the JAX package's on forced
 host devices, on the CPU: ``moe_apply_ep`` at meshes (1, 2), (2, 1),
-(2, 2) and (1, 4), PowerSGD over 2 and 4 data ranks, two steps of the
-training launcher at (2, 1) and (2, 2) (and, in its flexrank modes and
-with Muon, at (1, 2) and (2, 2)), checkpoints across world sizes,
-an agreed preemption, the placement functions and the cost model's mesh
-divisors, on deepseek-moe-16b's smoke config (top-2 of 8) and
-llama4-scout-17b-a16e's (top-1 of 4).
+(2, 2) and (1, 4), PowerSGD over 2 and 4 data ranks, the placement
+functions and the cost model's mesh divisors, on deepseek-moe-16b's smoke
+config (top-2 of 8) and llama4-scout-17b-a16e's (top-1 of 4); the
+training launcher across ranks is ``tests/test_torch_dist_launcher.py``'s,
+on this file's harness (``build_world``, ``run_pool``).
 
 Ranks are CPU processes over gloo (``tests/torch_dist_ranks.py``): one
 pool per mesh shape runs that shape's jobs, every process group with a
@@ -51,11 +50,9 @@ from repro.models import common as jcm
 from repro.models import transformer as jtfm
 from repro_torch import bridge
 from repro_torch import distributed as tdist
-from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config as tget
 from repro_torch.configs.base import ShapeConfig as TShape
 from repro_torch.core import flexrank as TFR
-from repro_torch.data import make_source
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.costmodel import memory_traffic as ttraffic
 from repro_torch.models import common as tcm
@@ -73,7 +70,6 @@ DEADLINE = 300                 # seconds for every process of the file
 
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
-import dist_check  # noqa: E402
 import torch_dist_ranks as ranks  # noqa: E402
 
 # the launcher's other modes and Muon across ranks, at no drop and no aux.
@@ -379,14 +375,6 @@ def run_pool(tmp: Path, shape, jobs, deadline: float) -> list:
     return [dict(np.load(d / f"rank{r}.npz")) for r in range(world)]
 
 
-def _one_rank_ckpt(d: Path, arch: str) -> None:
-    """Two steps of the launcher on one rank, checkpointed into ``d``."""
-    cfg = tget(arch, smoke=True)
-    ttrain.run(cfg, _dense(arch), make_source(cfg.vocab_size, S, B, seed=0),
-               steps=2, mode="dense", eval_before=False, ckpt_dir=str(d),
-               log=lambda m: None)
-
-
 def _dense(arch):
     inputs = np.load(_STATE["tmp"] / "inputs.npz")
     return ranks.tree_from(inputs, f"dense/{arch}",
@@ -395,94 +383,72 @@ def _dense(arch):
 
 _STATE: dict = {}
 
-# the reference's work in parallel processes: the MoE layer, the launcher
-# (one arch each), PowerSGD and the placements
-REF_PARTS = ["moe"] + [f"main:{a}" for a in ARCHS] + ["rest"]
+# the reference's work in parallel processes: the MoE layer, PowerSGD and
+# the placements (the launcher's is ``tests/test_torch_dist_launcher.py``'s)
+REF_PARTS = ["moe", "rest"]
 
 POOLS = {
-    (1, 2): [{"kind": "moe", "archs": ARCHS},
-             {"kind": "train", "runs": MODE_RUNS}],
-    (2, 1): [{"kind": "main", "arch": "deepseek-moe-16b"},
-             {"kind": "moe", "archs": ARCHS},
-             {"kind": "powersgd"},
-             {"kind": "train", "runs": [["llama4-scout-17b-a16e", "default"],
-                                        ["deepseek-moe-16b", "nodrop_aux0"],
-                                        ["llama4-scout-17b-a16e",
-                                         "nodrop_aux0"]]}],
-    (2, 2): [{"kind": "moe", "archs": ARCHS},
-             {"kind": "train", "runs": [[a, v] for a in ARCHS
-                                        for v in ("default", "nodrop_aux0")]
-              + MODE_RUNS},
-             {"kind": "ckpt", "arch": "deepseek-moe-16b"},
-             {"kind": "sigterm", "arch": "deepseek-moe-16b"}],
+    (1, 2): [{"kind": "moe", "archs": ARCHS}],
+    (2, 1): [{"kind": "moe", "archs": ARCHS}, {"kind": "powersgd"}],
+    (2, 2): [{"kind": "moe", "archs": ARCHS}],
     (1, 4): [{"kind": "moe", "archs": ARCHS}],
     (4, 1): [{"kind": "powersgd"}],
 }
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    """Every pool's results and the reference's, computed once."""
-    tmp = tmp_path_factory.mktemp("dist")
+def build_world(tmp: Path, pools: dict, ref_parts: list, before=None,
+                beside=None) -> dict:
+    """Every pool's results and the reference's parts: the inputs drawn
+    into ``tmp``, the reference's subprocesses started, ``beside(tmp)``
+    (if given) run in a thread while ``before(tmp)`` (if given) and then
+    the pools run, every process within ``DEADLINE``. Returns the pools',
+    the reference's, the placements' and ``beside``'s results."""
     _STATE["tmp"] = tmp
     _write_inputs(tmp)
     refs = [subprocess.Popen(
         [sys.executable, "-c", REF_SCRIPT, str(tmp), str(HERE),
          ",".join(ARCHS), json.dumps(MOE_MESHES), part], env=_env(),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for part in REF_PARTS]
-    rehearsal: dict = {}
-    thread = threading.Thread(target=_rehearse, args=(tmp, rehearsal),
-                              daemon=True)
-    thread.start()
+        for part in ref_parts]
+    side: dict = {}
+    thread = None
+    if beside is not None:
+        thread = threading.Thread(target=beside, args=(tmp, side),
+                                  daemon=True)
+        thread.start()
     end = time.monotonic() + DEADLINE
 
     def left():
         return max(end - time.monotonic(), 1.0)
     try:
-        _one_rank_ckpt(tmp / "one_rank", "deepseek-moe-16b")
-        pools = {}
-        for shape, jobs in POOLS.items():
-            for job in jobs:
-                if job["kind"] == "ckpt":
-                    job.update(write=str(tmp / "written"),
-                               read=str(tmp / "read"))
-                    shutil.copytree(tmp / "one_rank", tmp / "read")
-                elif job["kind"] == "sigterm":
-                    job.update(dir=str(tmp / "sigterm"))
-            pools[shape] = run_pool(tmp, shape, jobs, left())
+        if before is not None:
+            before(tmp)
+        results = {}
+        for shape, jobs in pools.items():
+            results[shape] = run_pool(tmp, shape, jobs, left())
         done = [ref.communicate(timeout=left()) for ref in refs]
-        thread.join(timeout=left())
-        assert not thread.is_alive(), "the phase 21 rehearsal hangs"
+        if thread is not None:
+            thread.join(timeout=left())
+            assert not thread.is_alive(), "the thread beside the pools hangs"
     finally:
         for ref in refs:
             if ref.poll() is None:
                 ref.kill()
                 ref.wait(timeout=30)
     ref, specs = {}, {}
-    for part, proc, (out, err) in zip(REF_PARTS, refs, done):
+    for part, proc, (out, err) in zip(ref_parts, refs, done):
         assert proc.returncode == 0 and "REFOK" in out, err[-3000:]
         tag = part.replace(":", "_").replace(",", "_")
         ref.update(np.load(tmp / f"ref_{tag}.npz"))
         specs.update(json.loads((tmp / f"ref_specs_{tag}.json").read_text()))
-    return {"pools": pools, "ref": ref, "specs": specs, "tmp": tmp,
-            "rehearsal": rehearsal}
+    return {"pools": results, "ref": ref, "specs": specs, "tmp": tmp,
+            "side": side}
 
 
-def _rehearse(tmp: Path, into: dict) -> None:
-    """``chip_smoke.py``'s phase 21 at the smoke size on the CPU, gloo for
-    its world of one: ``into["result"]``, or ``into["error"]``."""
-    d = tmp / "phase21"
-    d.mkdir()
-    spec = dict(arch="deepseek-moe-16b", smoke=True, cut=False,
-                device="cpu", backend_a="gloo", batch=2, seq=16, steps=2,
-                port_a=_free_port(), port_b=_free_port(), dir=str(d),
-                tol_loss=1e-4, tol_param=2e-3, leaf_share=1e-6,
-                tol_logits=2e-4)
-    try:
-        into["result"] = dist_check.run_pair(spec, DEADLINE)
-    except RuntimeError as e:
-        into["error"] = str(e)
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Every pool's results and the reference's, computed once."""
+    return build_world(tmp_path_factory.mktemp("dist"), POOLS, REF_PARTS)
 
 
 def _rel(a, b) -> float:
@@ -625,89 +591,6 @@ def test_powersgd_over_the_data_axis_matches_reference(world, nd):
 
 # ------------------------------------------------------------ launcher
 
-@pytest.mark.parametrize("shape", [(2, 1), (2, 2)],
-                         ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("arch", ARCHS)
-def test_two_launcher_steps_match_reference(world, arch, shape):
-    """Two steps of the launcher across ranks (its command line, with the
-    world started from the environment, for deepseek at (2, 1)) against
-    the reference's ``main(["--mesh-shape", ...])`` on forced devices; and
-    every rank holds the same losses and replicated leaves."""
-    pool = world["pools"][shape]
-    if arch == "deepseek-moe-16b" and shape == (2, 1):
-        losses = [r[f"main/{arch}/losses"] for r in pool]
-    else:
-        losses = [r[f"train/{arch}/default/losses"] for r in pool]
-        _same_replicated(pool, f"train/{arch}/default", shape)
-    for got in losses[1:]:
-        np.testing.assert_array_equal(got, losses[0])
-    want = world["ref"][f"main/{arch}/{shape[0]}x{shape[1]}"]
-    assert len(losses[0]) == 2
-    np.testing.assert_allclose(losses[0], want, rtol=1e-3)
-
-
-def _same_replicated(pool, key, shape):
-    """After the steps every rank of the mesh holds the same leaves, an
-    expert leaf's slice the same within its 'model' column."""
-    res = _by(pool, shape)
-    for k, v in res[(0, 0)].items():
-        if k.startswith(f"{key}/local/"):
-            for (d, m), other in res.items():
-                if "/experts/" not in k or m == 0:
-                    np.testing.assert_array_equal(other[k], v, k)
-
-
-@pytest.mark.parametrize("shape", [(2, 1), (2, 2)],
-                         ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("arch", ARCHS)
-def test_two_launcher_steps_match_one_rank(world, arch, shape):
-    """At no drop and no aux loss (the function every mesh computes the
-    same), two steps across ranks against ``run`` on one rank over the
-    whole batch: losses and the whole parameters after step 2."""
-    cfg = ranks.variant(arch, "nodrop_aux0")
-    one = ttrain.run(cfg, _dense(arch),
-                     make_source(cfg.vocab_size, S, B, seed=0), steps=2,
-                     mode="dense", eval_before=False, log=lambda m: None)
-    pool = world["pools"][shape]
-    key = f"train/{arch}/nodrop_aux0"
-    _same_replicated(pool, key, shape)
-    np.testing.assert_allclose(pool[0][f"{key}/losses"], one.losses,
-                               rtol=1e-4)
-    for path, leaf in tcm.tree_items(one.params):
-        for res in pool:
-            assert _rel(res[f"{key}/params/{path}"],
-                        leaf.detach().numpy()) < 2e-3, path
-
-
-@pytest.mark.parametrize("shape", [(1, 2), (2, 2)],
-                         ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("arch,mode,optimizer", MODES)
-def test_launcher_modes_match_one_rank(world, arch, mode, optimizer, shape):
-    """``--mode flexrank`` and ``flexrank_kd`` (whose dense teacher keeps
-    its own experts' part) with AdamW or Muon, and ``dense`` with Muon,
-    two steps across ranks at no drop and no aux loss against ``run`` on
-    one rank over the whole batch: losses, the elastic eval's rows, the
-    whole parameters after step 2, and the replicated leaves alike on
-    every rank."""
-    cfg = ranks.variant(arch, "nodrop_aux0")
-    one = ttrain.run(cfg, _dense(arch),
-                     make_source(cfg.vocab_size, S, B, seed=0), steps=2,
-                     mode=mode, optimizer=optimizer, eval_before=False,
-                     log=lambda m: None)
-    pool = world["pools"][shape]
-    key = f"train/{arch}/nodrop_aux0/{mode}/{optimizer}"
-    _same_replicated(pool, key, shape)
-    assert len(pool[0][f"{key}/eval"]) == len(one.eval_after)
-    for res in pool:
-        np.testing.assert_allclose(res[f"{key}/losses"], one.losses,
-                                   rtol=1e-4)
-        np.testing.assert_allclose(res[f"{key}/eval"], one.eval_after,
-                                   rtol=1e-4)
-        for path, leaf in tcm.tree_items(one.params):
-            assert _rel(res[f"{key}/params/{path}"],
-                        leaf.detach().numpy()) < 2e-3, path
-
-
 def test_dims_of_another_tree_raise():
     """A tree cut with dims worked out from another tree's spec (the
     factorized spec's for the dense teacher) raises instead of pairing
@@ -715,12 +598,12 @@ def test_dims_of_another_tree_raise():
     cfg = tget("deepseek-moe-16b", smoke=True)
     mesh = _mesh((1, 1), ("data", "model"))
     fspec = TFR.factorized_spec(cfg)
-    dims = tdist.expert_dims(mesh, tcm.axes_tree(fspec), fspec)
+    dims = tdist.model_dims(mesh, tcm.axes_tree(fspec), fspec)
     dense = ttrain.dense_init(cfg, 0, "cpu")
     with pytest.raises(ValueError, match="another tree"):
         tdist.shard_tree(dense, dims, mesh)
-    own = tdist.expert_dims(mesh, tcm.axes_tree(ttfm.model_spec(cfg)),
-                            dense)
+    own = tdist.model_dims(mesh, tcm.axes_tree(ttfm.model_spec(cfg)),
+                           dense)
     assert tdist.shard_tree(dense, own, mesh) is not None
 
 
@@ -753,47 +636,6 @@ def test_launcher_names_its_backend(monkeypatch, capsys):
     assert len(losses) == 1 and not tdist.in_world()
     out = capsys.readouterr().out
     assert "[mesh] 1,1 -> {'data': 1, 'model': 1} on cpu, gloo" in out, out
-
-
-def test_checkpoints_cross_world_sizes(world):
-    """A checkpoint written at (2, 2) holds the whole model and restores on
-    one rank; one written on one rank restores at (2, 2) (each rank its
-    part) and training goes on from it."""
-    tmp, pool = world["tmp"], world["pools"][(2, 2)]
-    arch = "deepseek-moe-16b"
-    cfg = tget(arch, smoke=True)
-    mgr = CheckpointManager(str(tmp / "written"))
-    assert mgr.all_steps() == [2]
-    template = ttrain.run(cfg, _dense(arch), make_source(
-        cfg.vocab_size, S, B, seed=0), steps=0, mode="dense",
-        eval_before=False, log=lambda m: None)
-    (params, state), step = mgr.restore((template.params,
-                                         template.opt_state))
-    assert step == 2 and state.step == 2
-    for path, leaf in tcm.tree_items(params):
-        for res in pool:
-            np.testing.assert_array_equal(
-                res[f"ckpt/written/params/{path}"], leaf.numpy(), path)
-    (one, _), _ = CheckpointManager(str(tmp / "one_rank")).restore(
-        (template.params, template.opt_state))
-    for res in pool:
-        assert int(res["ckpt/restored/start"]) == 2
-        assert len(res["ckpt/restored/losses"]) == 0
-        for path, leaf in tcm.tree_items(one):
-            np.testing.assert_array_equal(
-                res[f"ckpt/restored/params/{path}"], leaf.numpy(), path)
-        resumed = res["ckpt/resumed/losses"]
-        assert len(resumed) == 1 and np.isfinite(resumed).all()
-
-
-def test_sigterm_to_one_rank_checkpoints_all_at_one_step(world):
-    """A SIGTERM to the last rank after step 1 of 4: every rank stops
-    after step 2, and the one checkpoint is step 2's."""
-    for res in world["pools"][(2, 2)]:
-        assert bool(res["sigterm/preempted"])
-        assert int(res["sigterm/steps"]) == 2
-    assert CheckpointManager(str(world["tmp"] / "sigterm")).all_steps() \
-        == [2]
 
 
 # ---------------------------------------------------------- placements
@@ -863,22 +705,6 @@ def test_memory_traffic_matches_reference_on_meshes(arch, mesh_shape):
         t = ttraffic(tget(arch), TShape("x", seq, batch, kind),
                      mesh_shape=mesh_shape)
         assert t == j and list(t) == list(j), kind
-
-
-# ------------------------------------------------ the chip phase, rehearsed
-
-def test_chip_phase_21_rehearses_on_the_cpu(world):
-    """``dist_check.py`` (``chip_smoke.py``'s phase 21) at
-    the smoke size: (a) bit for bit, (b) at (2, 1) and (1, 2) within its
-    bounds, every collective timed."""
-    assert "error" not in world["rehearsal"], world["rehearsal"]["error"]
-    r = world["rehearsal"]["result"]
-    assert len(r["a_losses"]) == 2
-    for key in ("2x1", "1x2"):
-        assert r[key]["loss_err"] < 1e-4 and r[key]["past"] == {}
-        assert len(r[key]["allreduce_ms"]) == 2
-    assert r["logits_err"] < 2e-4
-    assert len(r["a2a_ms"]["dispatch"]) == len(r["a2a_ms"]["return"]) == 3
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])

@@ -376,7 +376,9 @@ def test_run_cell_end_to_end(smoke_cells, tmp_path, arch, shape):
 
 def test_decode_holds_experts_whole(smoke_cells):
     """A decode step with a cache runs ``moe_apply``: every rank holds all
-    experts; train and prefill reach ``moe_apply_ep``: E / n_model."""
+    experts, and its step exchanges no tokens (no all-to-all; its
+    all-reduces are the tensor-parallel heads' and vocabulary's); train
+    and prefill reach ``moe_apply_ep``: E / n_model."""
     cfg = get_config("deepseek-moe-16b", smoke=True)
     e = cfg.moe.num_experts
     DR.fake_world(4)
@@ -388,7 +390,9 @@ def test_decode_holds_experts_whole(smoke_cells):
                    if "/experts/" in p]
         assert experts and all(t.shape[1] == want for t in experts), name
     fig, _, _ = DR.trace_cell(cfg, SMALL["decode_32k"], mesh, "dense")
-    assert fig["collective_bytes_total"] == 0
+    assert fig["collective_bytes"]["all-to-all"] == 0
+    assert fig["collective_bytes_total"] == fig["collective_bytes"][
+        "all-reduce"] + fig["collective_bytes"]["all-gather"] > 0
 
 
 def test_fsdp_moves_placed_only(smoke_cells):

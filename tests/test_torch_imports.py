@@ -45,6 +45,7 @@ def test_scan_covers_the_package():
                  "src/repro_torch/serving/session.py",
                  "src/repro_torch/models/attention.py",
                  "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/models/tp.py",
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/launch/costmodel.py",
                  "src/repro_torch/launch/specs.py",

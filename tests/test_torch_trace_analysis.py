@@ -32,8 +32,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import dryrun as DR
+from repro_torch.launch import specs as SP
 from repro_torch.launch import trace_analysis as TA
 from repro_torch.models import common as cm
+from repro_torch.models import transformer as tfm
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
@@ -248,22 +250,34 @@ def _grad_numel(args) -> int:
 @pytest.mark.parametrize("shape", [(2, 2, 2), (16, 16)],
                          ids=["2x2x2", "16x16"])
 def test_dense_step_all_reduce_is_the_gradients(shape):
-    """A dense train step: one all-reduce of the rank's gradients as one
-    float32 buffer over the data axes, one float32 scalar (the clipping
-    norm's split part) over 'model'; no other collective."""
+    """A dense train step: beside the forward and backward's own
+    tensor-parallel collectives over 'model' (their loss and gradient
+    traced alone), one all-reduce of the rank's gradients as one float32
+    buffer over the data axes and one float32 scalar (the clipping norm's
+    split part) over 'model'; no other collective."""
     cfg = get_config("deepseek-7b", smoke=True)
     with fake(math.prod(shape)):
         mesh = DR.make_mesh(shape, ("pod", "data", "model")[-len(shape):])
         n_data = mesh.size(D.data_axes(mesh))
         step, args, _ = DR.build_step(
             cfg, ShapeConfig("t", 32, 2 * n_data, "train"), mesh, "dense")
+        params, _, batch, rng = args
+
+        def backward():
+            with tfm.remat_blocks():
+                step.loss_fn(params, batch, rng).backward()
         with D.mesh_context(mesh):
+            _, tp = TA.trace(backward)
+            SP.clear_grads(params)
             _, fig = TA.trace(step, *args)
+    assert tp["collective_bytes"]["all-reduce"] > 0
     assert fig["collective_bytes"]["all-reduce"] == \
-        4 * _grad_numel(args) + 4
-    assert fig["collective_counts_dynamic"]["all-reduce"] == 2
-    assert fig["collective_bytes_total"] == \
-        fig["collective_bytes"]["all-reduce"]
+        tp["collective_bytes"]["all-reduce"] + 4 * _grad_numel(args) + 4
+    assert fig["collective_counts_dynamic"]["all-reduce"] == \
+        tp["collective_counts_dynamic"]["all-reduce"] + 2
+    for kind in ("all-gather", "all-to-all", "reduce-scatter"):
+        assert fig["collective_bytes"][kind] == tp["collective_bytes"][kind]
+    assert fig["collective_bytes"]["all-to-all"] == 0
 
 
 def test_moe_prefill_all_to_all_is_the_dispatch_buffers():

@@ -1,5 +1,6 @@
-"""The rank side of ``tests/test_torch_dist.py``: one process of a world
-of CPU ranks over gloo. It imports torch and the port only, so that a
+"""The rank side of ``tests/test_torch_dist.py`` and
+``tests/test_torch_tp.py``: one process of a world of CPU ranks over
+gloo. It imports torch and the port only, so that a
 rank starts fast and needs no JAX.
 
     python tests/torch_dist_ranks.py SPEC.json RANK
@@ -24,15 +25,24 @@ import numpy as np
 import torch
 
 from repro_torch import distributed as D
+from repro_torch import threefry
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.configs import get_config
 from repro_torch.data import make_source
 from repro_torch.launch import train as ttrain
+from repro_torch.core import distill
+from repro_torch.launch import specs as SP
+from repro_torch.models import attention as tattn
 from repro_torch.models import common as cm
 from repro_torch.models import moe as tmoe
+from repro_torch.models import tp
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import adamw as tadamw
 from repro_torch.optim import compression as TC
 
 TIMEOUT = datetime.timedelta(seconds=30)
+_SHAPE = ShapeConfig("tp", 16, 4, "decode")
 
 
 def variant(arch: str, name: str):
@@ -69,6 +79,7 @@ class Rank:
         self.inputs = np.load(os.path.join(spec["dir"], "inputs.npz"))
         self.out: dict = {}
         self._mesh = None
+        self._meshes = None
 
     def mesh(self):
         if not D.in_world():
@@ -78,7 +89,240 @@ class Rank:
             self._mesh = D.elastic_remesh(self.shape, ("data", "model"))
         return self._mesh
 
+    def tp_meshes(self) -> dict:
+        """A world of four: its (2, 2) and (1, 4) meshes, and the (1, 2)
+        mesh of this rank's pair (ranks 0-1 and 2-3, two replicas of one
+        (1, 2) program), keyed "2x2", "1x4", "1x2"."""
+        if self._mesh is None:
+            self.mesh()
+            full = self._mesh
+            pair = D.Mesh(D.device_array(["cpu"] * 2, (1, 2)),
+                          ("data", "model"),
+                          {("model",): full.group("model")},
+                          (0, full.index("model")))
+            self._meshes = {"2x2": full, "1x2": pair,
+                            "1x4": D.mesh_over_world((1, 4),
+                                                     ("data", "model"))}
+        return self._meshes
+
+    def _tp_mesh(self, job):
+        """The job's mesh: the world's own where it is of that shape, else
+        one of ``tp_meshes``'."""
+        if job["mesh"] == "x".join(map(str, self.shape)):
+            return self.mesh()
+        return self.tp_meshes()[job["mesh"]]
+
     # ----------------------------------------------------------- jobs
+
+    def tp_linear(self, job):
+        """``common.linear`` on this rank's part of each leaf of
+        ``tp/linear/<case>``: forward at each nested rank, the whole
+        output (gathered where it is this rank's columns) and the input's
+        and every leaf's gradient of ``sum(y * ct)``."""
+        mesh = self._tp_mesh(job)
+        group = mesh.group("model")
+        for case in job["cases"]:
+            pre = f"tp/linear/{case['name']}"
+            whole = tuple(case["whole"])
+            leaf = {k: torch.as_tensor(self.inputs[f"{pre}/p/{k}"])
+                    for k in case["keys"]}
+            part = {k: D.shard_tree(t, case["dims"][k], mesh)
+                    for k, t in leaf.items()}
+            for rank in case["ranks"]:
+                p = {k: t.clone().requires_grad_(True)
+                     for k, t in part.items()}
+                x = torch.as_tensor(self.inputs[f"{pre}/x"]).clone()
+                if case["x_cut"]:
+                    x = C.scatter(x, -1, group).detach()
+                x.requires_grad_(True)
+                with D.mesh_context(mesh):
+                    y = cm.linear(p, x, rank=rank, whole=whole)
+                    if y.shape[-1] != whole[1]:
+                        y = C.gather(y, -1, group)
+                ct = torch.as_tensor(self.inputs[f"{pre}/ct"])
+                torch.sum(y * ct).backward()
+                key = f"{pre}/{rank}"
+                self.out[f"{key}/y"] = y.detach().numpy()
+                self.out[f"{key}/gx"] = x.grad.numpy()
+                for k, t in p.items():
+                    self.out[f"{key}/g/{k}"] = t.grad.numpy()
+
+    def tp_vocab(self, job):
+        """The losses on this rank's vocabulary columns of
+        ``tp/vocab/<V>/s`` (and the teacher's ``t``): cross-entropy and the
+        consolidation loss at kd weights 1 and 0.5, and each one's
+        gradient of the student's whole logits."""
+        mesh = self._tp_mesh(job)
+        group = mesh.group("model")
+        for v in job["vocabs"]:
+            pre = f"tp/vocab/{v}"
+            labels = torch.as_tensor(self.inputs[f"{pre}/labels"])
+            t = torch.as_tensor(self.inputs[f"{pre}/t"])
+            for name in ("ce", "kd1", "kd05"):
+                s = torch.as_tensor(self.inputs[f"{pre}/s"]).clone()
+                cut = s.shape[-1] % mesh.size("model") == 0
+                if cut:
+                    s = C.scatter(s, -1, group).detach()
+                s.requires_grad_(True)
+                tt = C.scatter(t, -1, group) if cut else t
+                with D.mesh_context(mesh):
+                    if name == "ce":
+                        loss = distill.cross_entropy(s, labels, vocab=v)
+                    else:
+                        loss = distill.consolidation_loss(
+                            s, tt, labels, vocab=v, temperature=2.0,
+                            kd_weight=1.0 if name == "kd1" else 0.5)
+                loss.backward()
+                g = s.grad
+                if cut:
+                    g = C.all_gather_along(g, -1, group)
+                self.out[f"{pre}/{name}/loss"] = loss.detach().numpy()
+                self.out[f"{pre}/{name}/g"] = g.numpy()
+
+    def tp_attn(self, job):
+        """``attn_apply`` of ``tp/attn`` on this rank's part of its
+        leaves: the output and every whole gradient of ``sum(y * ct)``,
+        then a prefill and one decode step over a cache of the rank's
+        heads (``init_kv_cache(model_ranks=)``): their outputs."""
+        mesh = self._tp_mesh(job)
+        cfg = get_config(job["arch"], smoke=True)
+        spec = tattn.attn_spec(cfg)
+        whole = tree_from(self.inputs, "tp/attn/p", spec)
+        dims = D.rank_dims(cfg, mesh, cm.axes_tree(spec), spec)
+        p = cm.tree_map(lambda t: t.requires_grad_(True),
+                        D.shard_tree(whole, dims, mesh))
+        x = torch.as_tensor(self.inputs["tp/attn/x"]).clone()
+        x.requires_grad_(True)
+        s = x.shape[1]
+        with D.mesh_context(mesh):
+            y, _ = tattn.attn_apply(p, x, cfg, positions=torch.arange(s),
+                                    window=job["window"])
+        torch.sum(y * torch.as_tensor(self.inputs["tp/attn/ct"])).backward()
+        self.out["tp/attn/y"] = y.detach().numpy()
+        self.out["tp/attn/gx"] = x.grad.numpy()
+        grads = D.unshard_tree(cm.tree_map(lambda t: t.grad, p), dims, mesh)
+        put_tree(self.out, "tp/attn/g", grads)
+        cache = tattn.init_kv_cache(cfg, x.shape[0], s + 1,
+                                    dtype=torch.float32,
+                                    model_ranks=mesh.size("model"))
+        cache = {k: (v[0] if k != "idx" else v) for k, v in cache.items()}
+        self.out["tp/attn/cache_heads"] = np.int64(cache["k"].shape[2])
+        with torch.no_grad(), D.mesh_context(mesh):
+            y1, cache = tattn.attn_apply(p, x[:, :s - 1], cfg,
+                                         positions=torch.arange(s - 1),
+                                         window=job["window"], cache=cache)
+            y2, _ = tattn.attn_apply(p, x[:, s - 1:], cfg,
+                                     positions=torch.arange(s - 1, s),
+                                     window=job["window"], cache=cache)
+        self.out["tp/attn/cached"] = torch.cat([y1, y2], 1).numpy()
+
+    def tp_step(self, job):
+        """``specs.make_train_step``'s step on this rank's part of every
+        leaf (``rank_dims``) and its data rows, each case ``[arch,
+        variant, mode]``: before it, the loss's gradient of every leaf
+        this rank holds whole; after it, the loss (averaged over the data
+        ranks), the parameters and AdamW's first moment gathered whole,
+        and this rank's bytes of parameters and moments. Then the prefill
+        and decode steps' logits on the updated parts."""
+        mesh = self._tp_mesh(job)
+        nd, di = mesh.size("data"), mesh.index("data")
+        key0 = f"tp/step/{job['mesh']}"
+        for arch, name, mode in job["cases"]:
+            cfg = variant(arch, name)
+            pre = f"tp/step/{arch}/{mode}"
+            pspecs, paxes = SP.model_param_specs(cfg, mode=mode)
+            dims = D.rank_dims(cfg, mesh, paxes, pspecs)
+            params = cm.tree_map(
+                lambda t: t.requires_grad_(True),
+                D.shard_tree(tree_from(self.inputs, f"{pre}/p", pspecs),
+                             dims, mesh))
+            teacher = None
+            if mode == "flexrank_kd":
+                tspecs, taxes = SP.model_param_specs(cfg, mode="dense")
+                teacher = D.shard_tree(
+                    tree_from(self.inputs, f"{pre}/t", tspecs),
+                    D.rank_dims(cfg, mesh, taxes, tspecs), mesh)
+            batch = {}
+            for k in ("tokens", "frontend"):
+                if f"{pre}/{k}" in self.inputs:
+                    a = torch.as_tensor(self.inputs[f"{pre}/{k}"])
+                    rows = a.shape[0] // nd
+                    batch[k] = a[di * rows:(di + 1) * rows]
+            step = SP.make_train_step(cfg, tadamw.AdamWConfig(), mode=mode)
+            rng = threefry.prng_key(3)
+            out = f"{key0}/{arch}/{mode}"
+            with D.mesh_context(mesh), tfm.remat_blocks():
+                step.loss_fn(params, batch, rng, teacher).backward()
+            for (path, t), d in zip(cm.tree_items(params),
+                                    D.sharding.dim_leaves(dims)):
+                if d is None or mesh.size("model") == 1:
+                    self.out[f"{out}/g_whole/{path}"] = t.grad.numpy()
+            SP.clear_grads(params)
+            opt = tadamw.init(params)
+            with D.mesh_context(mesh):
+                params, opt, m = step(params, opt, batch, rng, teacher)
+            self.out[f"{out}/loss"] = np.float64(C.reduce_host(
+                float(m["loss"]), mesh.group(("data",))))
+            put_tree(self.out, f"{out}/params",
+                     D.unshard_tree(params, dims, mesh))
+            put_tree(self.out, f"{out}/mu", D.unshard_tree(opt.mu, dims,
+                                                          mesh))
+            nbytes = [sum(t.numel() * t.element_size()
+                          for t in cm.tree_leaves(tree))
+                      for tree in (params, opt.mu, opt.nu)]
+            self.out[f"{out}/bytes"] = np.asarray(nbytes, np.int64)
+            if mode != "dense":
+                continue
+            with D.mesh_context(mesh):
+                fl = SP.make_prefill_step(cfg)(params, {
+                    k: v[:, :-1] if k == "tokens" else v
+                    for k, v in batch.items()})
+            # the cached step holds the experts whole
+            params = D.shard_tree(D.unshard_tree(params, dims, mesh),
+                                  D.rank_dims(cfg, mesh, paxes, pspecs,
+                                              decode=True), mesh)
+            with D.mesh_context(mesh):
+                state = SP.cache_specs(cfg, dataclasses.replace(
+                    _SHAPE, global_batch=batch["tokens"].shape[0],
+                    seq_len=batch["tokens"].shape[1]), dtype=torch.float32,
+                    device="cpu", model_ranks=mesh.size("model"))
+                if "frontend" in batch:
+                    tfm.attach_cross_kv(params, cfg, state, tfm.frontend_proj(
+                        params, batch["frontend"], cfg))
+                dec = SP.make_decode_step(cfg)
+                logits = []
+                for i in range(3):
+                    lg, state = dec(params, state, {
+                        "tokens": batch["tokens"][:, i:i + 1]})
+                    logits.append(lg)
+            self.out[f"{out}/prefill"] = fl.numpy()
+            self.out[f"{out}/decode"] = torch.stack(logits, 1).numpy()
+
+    def tp_run(self, job):
+        """Two steps of ``launch/train.py:run`` on the mesh (each run
+        ``[arch, mode, optimizer]``; the dense AdamW one checkpointed into
+        ``write``), then a restore of the one-rank checkpoint in ``read``
+        and one more step."""
+        mesh = self._tp_mesh(job)
+        for arch, mode, optimizer in job["runs"]:
+            cfg = get_config(arch, smoke=True)
+            source = make_source(cfg.vocab_size, 16, 4, seed=0)
+            ck = job.get("ckpt") if (mode, optimizer) == ("dense",
+                                                          "adamw") else None
+            res = ttrain.run(cfg, self._dense(arch), source, steps=2,
+                             mode=mode, optimizer=optimizer,
+                             eval_before=False, mesh=mesh,
+                             ckpt_dir=None if ck is None else ck["write"],
+                             log=lambda m: None)
+            self._keep(f"tp/run/{arch}/{mode}/{optimizer}", res)
+            if ck is None:
+                continue
+            res = ttrain.run(cfg, self._dense(arch), source, steps=3,
+                             ckpt_dir=ck["read"], mode="dense",
+                             eval_before=False,
+                             mesh=mesh, log=lambda m: None)
+            self.out["tp/ckpt/restored/start"] = np.int64(res.start_step)
+            self._keep("tp/ckpt/restored", res)
 
     def count(self, job):
         """The dry run's step of a smoke cell (``dryrun.build_step``) on
