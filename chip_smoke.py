@@ -262,7 +262,23 @@ Phases, each fatal on failure:
                under (1, 2) against the forward without a mesh within
                TOL_GAR; each step's ms, its gradient all-reduce's, the two
                all-to-alls of the MoE call and each rank's peak memory
-               printed.
+               printed; (c) gpt2-small's flexrank run at (1, 2); (d) a
+               60-token prompt into a float32 decode cache of 128
+               positions and 8 greedy steps, each rank with its part of
+               the cache (``specs.cache_specs(mesh=)``) and of every leaf
+               (the experts E / 2 at decode): at (1, 2), batch 2, and at
+               (2, 1), batch 1, the cache's sequence over 'data' (the
+               prompt and steps 1-4 on rank 0, steps 5-8 on rank 1),
+               against one rank (logits within TOL_GAR, greedy tokens
+               equal), each rank's parameter and cache bytes equal to the
+               decode cell's ``placed``; then in this process
+               llama4-scout-17b-a16e's decode_32k attention layer (B 8, Hq
+               40, Hkv 8, D 128, T 32768, a bfloat16 cache) cut into 16
+               shards, the rank's merge with its all-reduces replaced by
+               maxima and sums in rank order, against whole
+               ``chunked_attend`` (TOL_MERGE in float32, one bfloat16 ulp
+               of the output's max in the cache's type), global and at a
+               window of 8192.
   22. dryrun - run last (``launch/dryrun.py``): (a) two production cells
                on the host as rank 0 of a fake world, deepseek-moe-16b
                ``train_4k`` on (16, 16) (its all-to-alls from
@@ -403,6 +419,18 @@ TOL_DIST_PARAM = 2e-3
 TOL_DIST_LEAF_SHARE = 1e-6
 DIST_DEADLINE = 300            # seconds for phase 21's two rank processes
 DIST_LOWRANK_LAYERS = 2        # phase 21 (c): gpt2-small's depth, of 12
+# phase 21 (d): the prefill into the rank's part of the decode cache and
+# the greedy steps after it
+DIST_DECODE = {"prompt": 60, "cache": 128, "steps": 8}
+# phase 21 (d): the 16-shard merge of llama4's decode_32k attention
+# against whole chunked_attend, relative to the output's max, with the
+# cache's values in float32 on both sides (the shards' sums reorder
+# float32 additions only); in the cache's bfloat16 the two round their
+# outputs apart by at most one ulp, 2^-7 of the output's max
+TOL_MERGE = 1e-3
+TOL_MERGE_BF16 = 2.0 ** -7
+MERGE_CELL = dict(batch=8, heads=40, kv_heads=8, head_dim=128,
+                  length=32768, shards=16)
 # phase 19 (g): the nestedness trainer's prefix products U Pi_[r] V^T card
 # vs CPU after 1000 Adam steps, relative to max |M*| (a 1-ulp change of the
 # initial draws moves them by at most 6.4e-7 on the CPU, at 500 steps)
@@ -4046,7 +4074,8 @@ def dist_phase(smi: str) -> None:
                 port_a=port(), port_b=port(), dir=d,
                 tol_loss=TOL_TRAIN_LOSS, tol_param=TOL_DIST_PARAM,
                 leaf_share=TOL_DIST_LEAF_SHARE, tol_logits=TOL_GAR,
-                lowrank={"arch": "gpt2-small", "layers": DIST_LOWRANK_LAYERS})
+                lowrank={"arch": "gpt2-small", "layers": DIST_LOWRANK_LAYERS},
+                decode=DIST_DECODE)
     try:
         try:
             r = dist_check.run_pair(spec, DIST_DEADLINE)
@@ -4097,6 +4126,35 @@ def dist_phase(smi: str) -> None:
         f"{r['a2a_bytes'] / 1e6:.1f} MB ms: dispatch "
         f"{[round(x, 2) for x in r['a2a_ms']['dispatch']]}, return "
         f"{[round(x, 2) for x in r['a2a_ms']['return']]}")
+    dc = DIST_DECODE
+    log(f"# dist (d) in {r['d_s']:.1f} s on rank 0 (both meshes, and one "
+        f"rank's runs); {smi}")
+    for key, d in r["d"].items():
+        for rank, x in enumerate(d["ranks"]):
+            log(f"# dist (d) {key} rank {rank}: {dc['prompt']}-token prompt "
+                f"into {dc['cache']} positions, {dc['steps']} greedy steps: "
+                f"parameters {x['bytes']['params']} B, cache "
+                f"{x['bytes']['cache']} B (the decode cell's placed, float32)"
+                f", {x['rows']} rows written; step ms "
+                f"{[round(t, 2) for t in x['step_ms']]}; {smi}")
+        log(f"# dist (d) {key}: logits against one rank without a group "
+            f"{d['logits_err']:.2e} of their max (TOL_GAR), greedy tokens "
+            f"equal; one rank's cache {d['one_cache']} B, step ms "
+            f"{[round(t, 2) for t in d['one_step_ms']]}; {smi}")
+    pos = MERGE_CELL["length"] * 3 // 4 + 5
+    for window in (MERGE_CELL["length"], 8192):
+        t0 = time.perf_counter()
+        m = dist_check.merge_check("cuda", pos=pos, window=window,
+                                   **MERGE_CELL)
+        torch.cuda.synchronize()
+        if m["err"] > TOL_MERGE or m["bf16_err"] > TOL_MERGE_BF16:
+            fail(f"phase 21 (d) merge at window {window}: {m}")
+        log(f"# dist (d) merge: llama4-scout-17b-a16e decode_32k layer (B 8, "
+            f"Hq 40, Hkv 8, D 128, T 32768, bfloat16 cache) in 16 shards of "
+            f"2048 rows, query at {pos}, window {window}: {m['err']:.2e} of "
+            f"the output's max in float32 (TOL_MERGE), {m['bf16_err']:.2e} "
+            f"in bfloat16 (TOL_MERGE_BF16); "
+            f"{(time.perf_counter() - t0):.2f} s; {smi}")
 
 
 def dryrun_phase(dev, smi: str) -> None:

@@ -39,6 +39,27 @@ the model's logits under (1, 2), every leaf split, gathered over the
 vocabulary, against the forward without a mesh, within ``tol_logits`` of
 their max, and the two all-to-alls of that MoE call timed at its shapes.
 
+With ``decode`` in the spec, (d), after (b) in the world of two: the
+model's prefill and greedy decode over this rank's part of the decode
+cache (``launch/specs.py:cache_specs(mesh=)``, float32) at (1, 2), each
+rank with half of every cut leaf (the experts among them: the cached
+step's ``moe_apply`` runs its E / 2) and the cache's heads, and at (2, 1)
+at a batch of one, the cache's sequence cut over 'data': a prompt of
+``decode["prompt"]`` tokens into ``decode["cache"]`` positions, then
+``decode["steps"]`` steps, each the argmax of the last logits. Held
+against the same on rank 0 without a mesh: logits within
+``tol_logits`` of their max, greedy tokens equal; each rank's bytes of
+parameters and cache equal to the dry run's ``placed`` for the decode
+cell; at (2, 1) each rank holding half the cache, the rows written
+where they fall (the prompt and the first steps on rank 0, the rest on
+rank 1).
+
+``merge_check`` holds the merge of a decode attention over the rows of a
+cache cut into shards (``models/attention.py``: the row maxima, the
+sums of exponentials, the float32 products) against whole
+``chunked_attend``, with the collectives replaced by the maxima and sums
+of the shards' parts in rank order, in one process.
+
 With ``lowrank`` in the spec, (c): ``lowrank["arch"]`` at
 ``lowrank["layers"]`` layers, ``--mode flexrank`` (calibration, DataSVD
 and DP on each rank, then two steps of the uniform table's rows), run
@@ -75,6 +96,7 @@ from repro_torch.kernels import lowrank_matmul, ops
 from repro_torch.launch import dryrun
 from repro_torch.launch import specs as SP
 from repro_torch.launch import train
+from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import tp
 from repro_torch.models import moe
@@ -339,6 +361,8 @@ def run_b(spec, cfg, dense, dev, rank, ref, out, ref_c=None) -> None:
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         logits_check(spec, cfg, dense, dev, rank, out)
+        if "decode" in spec:
+            decode_check(spec, cfg, dense, dev, rank, out)
         if "lowrank" in spec:
             lowrank_check(spec, dev, rank, ref_c, out)
     finally:
@@ -421,6 +445,152 @@ def logits_check(spec, cfg, dense, dev, rank, out) -> None:
             times[name].append((time.perf_counter() - t0) * 1e3)
     out["a2a_ms"] = {k: v[1:] for k, v in times.items()}
     out["a2a_bytes"] = x.numel() * x.element_size()
+
+
+def _greedy(cfg, params, cell, prompt, steps, mesh):
+    """A prompt through ``prefill`` into a float32 decode cache of
+    ``cell`` (this rank's part of it under ``mesh``), then ``steps``
+    greedy decode steps. Returns (logits (B, steps + 1, V) whole over the
+    vocabulary, the tokens chosen, the state, each step's ms)."""
+    dev = prompt.device
+    step = SP.make_decode_step(cfg)
+    times = []
+    with torch.no_grad(), D.mesh_context(mesh):
+        state = SP.cache_specs(cfg, cell, dtype=torch.float32, device=dev,
+                               mesh=mesh)
+        lg, state = tfm.prefill(params, cfg, state, prompt)
+        logits = [tp.whole_vocab(lg[:, -1], cfg.vocab_size)]
+        tokens = []
+        for _ in range(steps):
+            tokens.append(logits[-1].argmax(-1, keepdim=True))
+            _sync(dev)
+            t0 = time.perf_counter()
+            lg, state = step(params, state, {"tokens": tokens[-1]})
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg)
+    return torch.stack(logits, 1), torch.cat(tokens, 1), state, times
+
+
+def _written_rows(state) -> int:
+    """The rows of the first attention layer's K that hold a write."""
+    k = state["segments"][0]["k"][0]
+    return int((k.abs().sum(dim=(0, 2, 3)) != 0).sum())
+
+
+def decode_check(spec, cfg, dense, dev, rank, out) -> None:
+    """(d) (module note)."""
+    dc = spec["decode"]
+    t0 = time.perf_counter()
+    pspecs, paxes = SP.model_param_specs(cfg, mode="dense")
+    tokens = torch.as_tensor(make_source(
+        cfg.vocab_size, dc["prompt"], spec["batch"], seed=1).batch_at(0)[
+            "tokens"][:, :dc["prompt"]], device=dev)
+    res = {}
+    for shape, b in (((1, 2), spec["batch"]), ((2, 1), 1)):
+        key = f"{shape[0]}x{shape[1]}"
+        mesh = D.elastic_remesh(shape, NAMES)
+        part = D.shard_tree(dense, D.rank_dims(cfg, mesh, paxes, pspecs),
+                            mesh)
+        cell = ShapeConfig("decode", dc["cache"], b, "decode")
+        logits, chosen, state, ms = _greedy(cfg, part, cell, tokens[:b],
+                                            dc["steps"], mesh)
+        want = dryrun.placed(cfg, cell, mesh, pspecs, paxes, "dense",
+                             fsdp=False)["bytes_per_device"]
+        have = {"params": _nbytes(part), "cache": _nbytes(
+            [t for t in cm.tree_leaves(state) if isinstance(t, torch.Tensor)])}
+        # float32 where placed counts the reference's bfloat16
+        want = {k: want[k] * 2 for k in have}
+        if have != want:
+            raise AssertionError(f"(d) {key}: rank {rank} holds {have}, "
+                                 f"placed {want}")
+        mine = {"bytes": have, "rows": _written_rows(state),
+                "tokens": chosen.tolist(), "step_ms": ms}
+        ranks = [None, None]
+        dist.all_gather_object(ranks, mine)
+        if rank == 0:
+            one_logits, one_tokens, one_state, one_ms = _greedy(
+                cfg, dense, cell, tokens[:b], dc["steps"], None)
+            err = float((logits - one_logits).abs().max()
+                        / one_logits.abs().max())
+            if err > spec["tol_logits"]:
+                raise AssertionError(f"(d) {key}: logits {err:.3e} of "
+                                     "their max from one rank's")
+            if any(r["tokens"] != one_tokens.tolist() for r in ranks):
+                raise AssertionError(f"(d) {key}: greedy tokens "
+                                     f"{[r['tokens'] for r in ranks]}, one "
+                                     f"rank's {one_tokens.tolist()}")
+            whole = _nbytes([t for t in cm.tree_leaves(one_state)
+                             if isinstance(t, torch.Tensor)])
+            res[key] = {"logits_err": err, "ranks": ranks,
+                        "one_step_ms": one_ms, "one_cache": whole,
+                        "one_rows": _written_rows(one_state)}
+        del part, state
+    if rank == 0:
+        half = dc["cache"] // 2
+        wrote = [r["rows"] for r in res["2x1"]["ranks"]]
+        end = dc["prompt"] + dc["steps"]
+        if wrote != [min(end, half), max(end - half, 0)] or any(
+                2 * r["bytes"]["cache"] != res["2x1"]["one_cache"]
+                for r in res["2x1"]["ranks"]):
+            raise AssertionError(f"(d) 2x1: rows written {wrote}, cache "
+                                 f"bytes {[r['bytes'] for r in res['2x1']['ranks']]}"
+                                 f" of {res['2x1']['one_cache']} whole")
+        out["d"] = res
+        out["d_s"] = time.perf_counter() - t0
+
+
+def merge_check(dev, *, batch: int, heads: int, kv_heads: int,
+                head_dim: int, length: int, shards: int, pos: int,
+                window: int, seed: int = 0) -> dict:
+    """The decode attention of one query a row at position ``pos`` over a
+    bfloat16 cache of ``length`` rows (zero past ``pos``, as unwritten
+    rows are) cut into ``shards``: the rank's steps
+    (``attention.masked_logits``, ``rows_max``, ``rows_sum``,
+    ``rows_out``) on each shard, their all-reduces replaced by the maxima
+    and sums of the shards' parts in rank order, against whole
+    ``chunked_attend``. Returns the error relative to the output's max
+    with the cache's values in float32 on both sides (``err``), and with
+    the cache's bfloat16 as the rank and the whole function round their
+    probabilities and output to it (``bf16_err``: two roundings of one
+    value part by at most an ulp, 2^-7 of the output's max)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(batch, 1, heads, head_dim, generator=gen, device=dev)
+    kv = [torch.randn(batch, length, kv_heads, head_dim, generator=gen,
+                      device=dev).to(torch.bfloat16) for _ in range(2)]
+    for t in kv:
+        t[:, pos + 1:] = 0
+    k, v = kv
+    q_pos = torch.tensor([pos], device=dev)
+    rows = length // shards
+    qs = attn._query_chunks(q, kv_heads)[:, 0]
+
+    def merged(v_all):
+        lg = [attn.masked_logits(
+            qs, k[:, i * rows:(i + 1) * rows].float(), q_positions=q_pos,
+            k_positions=i * rows + torch.arange(rows, device=dev),
+            window=window) for i in range(shards)]
+        m = attn.rows_max(lg[0])
+        for x in lg[1:]:
+            m = torch.maximum(m, attn.rows_max(x))
+        l = attn.rows_sum(lg[0], m)
+        for x in lg[1:]:
+            l = l + attn.rows_sum(x, m)
+        o = attn.rows_out(lg[0], m, l, v_all[:, :rows])
+        for i in range(1, shards):
+            o = o + attn.rows_out(lg[i], m, l,
+                                  v_all[:, i * rows:(i + 1) * rows])
+        return o.to(v_all.dtype).reshape(batch, 1, heads, head_dim)
+
+    def whole(v_all):
+        return attn.chunked_attend(
+            q, k.float(), v_all, q_positions=q_pos,
+            k_positions=torch.arange(length, device=dev), window=window)
+    want = whole(v.float())
+    err = float((merged(v.float()) - want).abs().max() / want.abs().max())
+    a, b = merged(v).float(), whole(v).float()
+    return {"err": err,
+            "bf16_err": float((a - b).abs().max() / b.abs().max())}
 
 
 def run_pair(spec: dict, deadline: float) -> dict:

@@ -147,6 +147,8 @@ def decode_state_to_numpy(state) -> dict:
         if isinstance(node, dict):
             out = {}
             for k, v in node.items():
+                if k == "rows":
+                    continue    # a rank's host value: no reference leaf
                 if k == "pos":
                     out[k] = np.asarray(v, np.int32)
                 elif k == "idx":

@@ -19,6 +19,7 @@ from repro_torch.distributed.meshctx import (Placement, data_axes,
                                              logical_to_spec, mesh_context,
                                              set_current_mesh)
 from repro_torch.distributed.sharding import (batch_spec, deferred,
+                                              deferred_block,
                                               elastic_remesh, model_dims,
                                               param_shardings, rank_dims,
                                               replicated, seq_sharded_cache,

@@ -13,7 +13,9 @@ each rank's part only (the router's weight): identity forward, gradient
 summed over the axis. ``mean`` is the reference's ``pmean`` of a value
 that each rank then uses alike: its gradient is 1/n on each rank.
 ``all_reduce_mean_`` averages tensors in place outside autograd (the
-gradients), ``reduce_host`` a number of the host (a loss, a flag).
+gradients), ``all_reduce`` sums or takes the maximum of a tensor outside
+autograd (the merge of attention over a cache whose rows are cut),
+``reduce_host`` a number of the host (a loss, a flag).
 
 The tensor-parallel products (``models/tp.py``) use Megatron's pair:
 ``reduce_grad`` (its f: identity forward, the gradient summed over the
@@ -183,6 +185,18 @@ def all_reduce_mean_(tensors: Any, group) -> None:
     flat /= n
     for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(part.view_as(t))
+
+
+@torch.no_grad()
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The sum (``op`` 'sum') or the elementwise maximum ('max') of every
+    rank's ``x`` over the group, a new tensor, outside autograd."""
+    if group is None:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    return out
 
 
 def reduce_host(value: float, group, op: str = "mean") -> float:

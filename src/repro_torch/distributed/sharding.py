@@ -8,7 +8,7 @@ statement of where each dimension lives, and the launcher acts on the
 part it runs: the batch rows over the data axes, and over 'model' the
 dimension ``model_dims`` gives each leaf (experts, heads, kv-heads, MLP,
 vocabulary or rank, as ``param_shardings`` places them). The rank
-program (``models/tp.py``, ``models/moe.py:moe_apply_ep``) carries out
+program (``models/tp.py``, ``models/moe.py``) carries out
 the reference's Megatron-style split that XLA's partitioner derives.
 ``rank_dims`` is ``model_dims`` less the leaves that the rank program
 does not run split yet (``deferred``): those are held whole on every
@@ -171,34 +171,44 @@ def model_dims(mesh: Mesh, axes: PyTree, shapes: PyTree) -> PyTree:
 _GAR_LEAVES = ("u_hat", "v_tilde", "perm_inv")
 
 
-def deferred(cfg, path: str, *, decode: bool = False) -> Optional[str]:
+_RECURRENT = ("rwkv", "mamba", "zamba_unit")
+
+
+def deferred_block(cfg, seg) -> Optional[str]:
+    """Why the rank program runs segment ``seg``'s token mixing whole
+    (its attention or recurrence, and the decode cache or state that
+    carries it), or None where it runs it split: the recurrent blocks
+    (rwkv, mamba, a zamba unit), whose head layout runs through a
+    carried state, and MLA's attention, through a latent cache.
+    ``deferred`` and ``launch/specs.py:cache_specs`` read it."""
+    if seg.kind in _RECURRENT:
+        return f"{seg.kind} block"
+    if cfg.mla is not None and seg.kind in ("attn", "attn_dense"):
+        return "MLA attention"
+    return None
+
+
+def deferred(cfg, path: str) -> Optional[str]:
     """Why the rank program holds the leaf at ``path`` (a ``tree_items``
     path of the model's spec) whole though ``model_dims`` splits it, or
-    None where it runs it split: the recurrent blocks (rwkv, mamba, a
-    zamba unit and its shared attention) and MLA's attention, whose
-    head layout runs through a carried state or a latent cache; the GAR
-    form, whose output permutation does not follow the head split; and
-    at decode the experts (the cached step runs ``moe_apply`` over whole
-    experts)."""
+    None where it runs it split: a block's token mixing that
+    ``deferred_block`` names (every leaf of a recurrent block, MLA's
+    ``attn``), a zamba unit's shared attention, and the GAR form, whose
+    output permutation does not follow the head split."""
     toks = path.split("/")
     if toks[-1] in _GAR_LEAVES:
         return "GAR form"
     if toks[0] == "shared_attn":
         return "zamba shared attention"
     if toks[0] == "segments":
-        kind = cfg.segments[int(toks[1])].kind
-        if kind in ("rwkv", "mamba", "zamba_unit"):
-            return f"{kind} block"
-        if cfg.mla is not None and kind in ("attn", "attn_dense") \
-                and toks[2] == "attn":
-            return "MLA attention"
-        if decode and "experts" in toks:
-            return "experts at decode"
+        seg = cfg.segments[int(toks[1])]
+        why = deferred_block(cfg, seg)
+        if why and (seg.kind in _RECURRENT or toks[2] == "attn"):
+            return why
     return None
 
 
-def rank_dims(cfg, mesh: Mesh, axes: PyTree, shapes: PyTree, *,
-              decode: bool = False) -> PyTree:
+def rank_dims(cfg, mesh: Mesh, axes: PyTree, shapes: PyTree) -> PyTree:
     """``model_dims`` with None where the rank program holds the leaf
     whole (``deferred``): the split this rank's step executes."""
     dims = model_dims(mesh, axes, shapes)
@@ -207,8 +217,7 @@ def rank_dims(cfg, mesh: Mesh, axes: PyTree, shapes: PyTree, *,
 
     def keep(_):
         path, d = next(it)
-        return None if d is None or deferred(cfg, path, decode=decode) \
-            else d
+        return None if d is None or deferred(cfg, path) else d
     return cm.tree_map(keep, axes, is_leaf=_is_axes_leaf)
 
 

@@ -12,15 +12,16 @@ partitioned program (``fsdp=False``) as far as the port runs it. The
 batch rows go over the data axes (where they divide; a batch of one is
 held whole), and over 'model' each leaf of the parameters, the AdamW
 moments and the flexrank_kd teacher is cut as ``param_shardings`` places
-it (``sharding.rank_dims``): experts (``moe_apply_ep``), heads, kv-heads,
-MLP columns, vocabulary and factor rank (``models/tp.py``); the decode
-cache holds this rank's k/v heads where they divide the axis. What the
-rank still holds whole is listed in the record under ``whole``: the
-leaves ``sharding.deferred`` names (MLA's attention, the recurrent
-blocks, the GAR form, the experts at decode, which run ``moe_apply``
-over whole experts) and the cache entries whose placement the rank does
-not execute (a sequence on 'model' or 'data', the recurrent and latent
-states). Parameters are bfloat16 (``specs.COMPUTE_DTYPE``), the AdamW
+it (``sharding.rank_dims``): experts (``moe_apply_ep``, and at decode
+``moe_apply`` over the rank's experts), heads, kv-heads, MLP columns,
+vocabulary and factor rank (``models/tp.py``); the attention stacks'
+decode caches hold this rank's k/v heads, or its rows of a sequence cut
+over 'model' or 'data' (``specs.cache_specs(mesh=)``). What the rank
+still holds whole is listed in the record under ``whole``: the leaves
+``sharding.deferred`` names (MLA's attention, the recurrent blocks, the
+GAR form) and the cache entries whose placement the rank does not
+execute (the recurrent and latent states, the sequence of zamba's shared
+attention). Parameters are bfloat16 (``specs.COMPUTE_DTYPE``), the AdamW
 moments float32. The train step is ``specs.make_train_step``'s
 (``specs.step`` under ``remat_blocks()``; in ``flexrank_kd`` with the
 frozen dense teacher), the prefill and decode steps
@@ -77,8 +78,9 @@ ROOFLINE = {"device": "NVIDIA H100 80GB HBM3, 700.00 W (datasheet peaks)",
             "peak_flops": PEAK_FLOPS, "hbm_bw": HBM_BW, "link_bw": LINK_BW,
             "device_bytes": DEVICE_BYTES}
 EXECUTES = ("batch over data axes; experts, heads, kv-heads, MLP, vocab "
-            "and rank over 'model' as placed, but the leaves and cache "
-            "entries listed under whole")
+            "and rank over 'model' as placed; the attention stacks' decode "
+            "caches as placed (heads, or the sequence over 'model' or "
+            "'data'); but the leaves and cache entries listed under whole")
 OUT_DIR = os.path.join("results", "dryrun_torch")
 
 
@@ -205,8 +207,8 @@ def _inputs(cfg: ModelConfig, shape: ShapeConfig, device, gen, dtype):
     return out
 
 
-def _dims(cfg, mesh, specs, decode: bool):
-    return D.rank_dims(cfg, mesh, cm.axes_tree(specs), specs, decode=decode)
+def _dims(cfg, mesh, specs):
+    return D.rank_dims(cfg, mesh, cm.axes_tree(specs), specs)
 
 
 def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, mode: str, *,
@@ -222,7 +224,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, mode: str, *,
     pspecs, paxes = SP.model_param_specs(cfg, mode=param_mode(mode))
     loc = local_shape(mesh, shape)
     batch = _inputs(cfg, loc, device, gen, dtype)
-    dims = _dims(cfg, mesh, pspecs, shape.kind == "decode")
+    dims = _dims(cfg, mesh, pspecs)
     params = D.shard_tree(_make(pspecs, dtype, device, gen), dims, mesh)
     facts: Dict = {"local_batch": loc.global_batch}
     if shape.kind == "train":
@@ -240,7 +242,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, mode: str, *,
         if mode == "flexrank_kd":
             tspecs, _ = SP.model_param_specs(cfg, mode="dense")
             args.append(D.shard_tree(_make(tspecs, dtype, device, gen),
-                                     _dims(cfg, mesh, tspecs, False), mesh))
+                                     _dims(cfg, mesh, tspecs), mesh))
         if tmode != "dense":
             facts["budget_k"] = FR.budget_draw(
                 rng, len(cfg.flexrank.budgets[:7]))
@@ -249,9 +251,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, mode: str, *,
         args = [params, batch]
     else:
         step = SP.make_decode_step(cfg)
-        args = [params, SP.cache_specs(cfg, loc, dtype=dtype, device=device,
-                                       model_ranks=mesh.size("model")),
-                batch]
+        args = [params, SP.cache_specs(cfg, shape, dtype=dtype,
+                                       device=device, mesh=mesh), batch]
     return step, args, facts
 
 
@@ -262,19 +263,16 @@ def whole_on_rank(cfg: ModelConfig, shape: ShapeConfig, mesh,
     the reason (``sharding.deferred``), ``cache`` a decode cache entry's
     path to its placement."""
     pspecs, paxes = SP.model_param_specs(cfg, mode=param_mode(mode))
-    decode = shape.kind == "decode"
     full = D.model_dims(mesh, paxes, pspecs)
     paths = [p for p, _ in cm.tree_items(pspecs, is_leaf=cm.is_spec)]
     leaves = {}
     for path, d in zip(paths, dim_leaves(full)):
-        why = d is not None and D.deferred(cfg, path, decode=decode)
+        why = d is not None and D.deferred(cfg, path)
         if why:
             leaves[path] = why
     out: Dict = {"leaves": leaves}
-    if decode:
-        n = mesh.size("model")
-        held = dict(cm.tree_items(SP.cache_specs(
-            cfg, local_shape(mesh, shape), model_ranks=n)))
+    if shape.kind == "decode":
+        held = dict(cm.tree_items(SP.cache_specs(cfg, shape, mesh=mesh)))
         whole = SP.cache_specs(cfg, shape)
         pls = dict(cm.tree_items(SP.cache_shardings(mesh, cfg, shape, whole),
                                  is_leaf=is_placement))

@@ -15,13 +15,14 @@ layout of the reference's XLA program, and the port's ranks execute it
 (``fsdp=False``): the batch rows over the data axes, and over 'model'
 each leaf's experts, heads, kv-heads, MLP columns, vocabulary or rank
 (``sharding.rank_dims``, run by ``models/tp.py`` and
-``models/moe.py:moe_apply_ep``), with the decode cache's k/v heads
-where they divide the axis. Held whole on every 'model' rank: the
-leaves ``sharding.deferred`` names (MLA's attention, the recurrent
-blocks, the GAR form, the experts at decode), a decode cache whose
-kv-heads do not divide the axis (the reference puts its sequence there)
-or whose batch of one puts its sequence on 'data', and ``fsdp=True``'s
-data-axis cut.
+``models/moe.py``), and the attention stacks' decode caches as
+``cache_shardings`` places them (``cache_specs(mesh=)``): their k/v
+heads over 'model', or their sequence over 'model' (kv-heads that do
+not divide the axis) or over 'data' (a batch of one). Held whole on
+every 'model' rank: the leaves ``sharding.deferred`` names (MLA's
+attention, the recurrent blocks, the GAR form), their caches but for
+the batch rows (MLA's latent cache, the recurrent states, zamba's shared
+attention), and ``fsdp=True``'s data-axis cut.
 """
 from __future__ import annotations
 
@@ -184,18 +185,66 @@ def optimizer_specs(param_specs: PyTree) -> adamw.AdamWState:
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
-                dtype=COMPUTE_DTYPE, device="meta",
-                model_ranks: int = 1) -> Dict:
+                dtype=COMPUTE_DTYPE, device="meta", mesh=None) -> Dict:
     """The decode state of ``shape`` (batch ``global_batch``, ``seq_len``
     positions), on ``meta`` by default: shapes and dtypes only.
     Cross-attention K/V buffers are included for vlm/audio (precomputed
-    once a request). ``model_ranks``: a 'model' axis of that many ranks,
-    each holding its part of the k/v heads where they divide it
-    (``init_decode_state``)."""
+    once a request).
+
+    With ``mesh``: this rank's part of it. Each self- and cross-attention
+    K/V entry of an attention stack has the shape ``shard_shape`` gives
+    under ``cache_shardings``; where that cuts the sequence, its dict
+    holds ``rows`` = (the axis, the global position of its first row),
+    which ``models/attention.py`` reads. Zamba's shared attention keeps
+    its whole sequence (its heads and batch rows are cut), and the other
+    entries (MLA's latent cache, the recurrent states: blocks the rank
+    runs whole) are cut by their batch rows only."""
     ckv = frontend_len(cfg) if cfg.family in ("vlm", "audio") else 0
-    return tfm.init_decode_state(cfg, shape.global_batch, shape.seq_len,
-                                 dtype=dtype, device=device,
-                                 cross_kv_len=ckv, model_ranks=model_ranks)
+    state = tfm.init_decode_state(
+        cfg, shape.global_batch, shape.seq_len, dtype=dtype,
+        device="meta" if mesh is not None else device, cross_kv_len=ckv)
+    if mesh is None:
+        return state
+    pls = cache_shardings(mesh, cfg, shape, state)
+    segments = []
+    for seg, c, pl in zip(cfg.segments, state["segments"], pls["segments"]):
+        how = ("placed" if D.deferred_block(cfg, seg) is None
+               else "no_seq" if seg.kind == "zamba_unit" else "batch")
+        segments.append(_rank_part(mesh, c, pl, how, device))
+    return {"pos": 0, "segments": segments}
+
+
+_KV_KEYS = ("k", "v", "cross_k", "cross_v")
+
+
+def _rank_part(mesh: D.Mesh, node, pl, how: str, device, key=None):
+    """Zeros of this rank's part of a decode state ``node`` under its
+    placements ``pl``, of which it executes (``how``) every entry of its
+    K/V ('placed'), all but their sequence's ('no_seq'), or only the
+    batch rows' ('batch')."""
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        out = {k: _rank_part(mesh, v, pl[k], how, device, k)
+               for k, v in node.items()}
+        spec = pl.get("k") if how == "placed" else None
+        if spec:
+            seq = spec[len(spec) - 3]
+            if seq is not None and mesh.size(seq) > 1:
+                out["rows"] = (seq[0], mesh.index(seq) * out["k"].shape[-3])
+        return out
+    if not isinstance(node, torch.Tensor):
+        return node
+    nd = node.dim()
+    spec = list(pl) + [None] * (nd - len(pl))
+    if how == "no_seq" and key in ("k", "v"):
+        spec[nd - 3] = None
+    elif how != "placed" or key not in _KV_KEYS:
+        batch = {nd + off for off, ax in _CACHE_RULES.get(key, {}).items()
+                 if ax == "batch"}
+        spec = [e if i in batch else None for i, e in enumerate(spec)]
+    return torch.zeros(shard_shape(mesh, spec, node.shape),
+                       dtype=node.dtype, device=device)
 
 
 # key -> {dimension from the right: mesh axis}, and "seq": the sequence
@@ -288,6 +337,8 @@ def state_nbytes(state) -> int:
         return state.numel() * state.element_size()
     total = 0
     for k, v in state.items():
+        if k == "rows":
+            continue        # a rank's host value, not the reference's
         if k == "pos":
             total += INT32
         elif k == "idx":

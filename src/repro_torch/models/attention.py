@@ -15,8 +15,22 @@ the rank's q columns are whole heads (the head count divides the axis)
 it attends over them alone, with the k/v heads they read: its own where
 the kv-head count divides too, else picked out of every k/v head. Where
 a split falls inside a head the product's output is gathered to every
-head first. A decode cache holds the k/v heads that its shape says:
-this rank's ``Hkv / n`` (``init_kv_cache(model_ranks=)``) or all."""
+head first.
+
+A rank's decode cache holds what the reference's ``cache_shardings``
+places on it (``launch/specs.py:cache_specs``): the k/v heads its shape
+says (this rank's ``Hkv / n`` or all of them) and, where the placement
+cuts the sequence over 'model' (kv-heads that do not divide the axis) or
+'data' (a batch of one), its own rows: then the cache dict carries
+``rows`` = (the axis, the global position of its first row). Such a
+rank writes the step's rows that fall in its range, attends its queries
+over its rows at their global key positions, and the ranks of the axis
+merge their parts (``attend``): the maximum of the row logits, the sum
+of their exponentials, and the sum of the float32 products of the
+normalized probabilities (rounded to the cache's type, as the one-rank
+softmax's are) with the rows' values. A rank whose rows the causal mask
+hides wholly adds zeros. Where 'model' cuts the rows every rank attends
+every query head."""
 from __future__ import annotations
 
 import math
@@ -26,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as C
+from repro_torch.distributed.meshctx import get_current_mesh
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models import tp
@@ -65,37 +80,87 @@ def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     return logits
 
 
-def chunked_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   q_positions: torch.Tensor, k_positions: torch.Tensor,
-                   window: int, softcap: float = 0.0,
-                   causal: bool = True) -> torch.Tensor:
-    """Exact attention, one query chunk of at most ``Q_CHUNK`` at a time:
-    q pre-scaled by ``1/sqrt(D)``, float32 logits, a ``-1e30`` mask, softmax
-    in float32. q: (B, S, Hq, D); k/v: (B, T, Hkv, D); positions: (S,) /
-    (T,). ``window``: lookback horizon (T or more for global)."""
+def _query_chunks(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    """q (B, S, Hq, D) pre-scaled by ``1/sqrt(D)`` as (B, n, qc, Hkv, G,
+    D): ``n`` query chunks of ``qc`` (at most ``Q_CHUNK``, or the whole
+    S where it does not split)."""
     b, s, hq, dh = q.shape
-    hkv = k.shape[2]
-    g = hq // hkv
     qc = min(Q_CHUNK, s)
     n_chunks = max(s // qc, 1)
     if not (s % qc == 0 or n_chunks == 1):
         raise ValueError(f"sequence {s} is not a multiple of the query "
                          f"chunk {qc}")
     qc = s // n_chunks
-    q = (q * (1.0 / math.sqrt(dh))).reshape(b, n_chunks, qc, hkv, g, dh)
-    q_pos = q_positions.reshape(n_chunks, qc)
+    return (q * (1.0 / math.sqrt(dh))).reshape(b, n_chunks, qc, hkv,
+                                               hq // hkv, dh)
+
+
+def masked_logits(qc: torch.Tensor, k: torch.Tensor, *,
+                  q_positions: torch.Tensor, k_positions: torch.Tensor,
+                  window: int, softcap: float = 0.0,
+                  causal: bool = True) -> torch.Tensor:
+    """One query chunk's float32 logits (B, Hkv, G, qc, T) against keys
+    (B, T, Hkv, D): softcapped, ``-1e30`` where the key lies outside the
+    window or (``causal``) after the query."""
+    logits = _softcap(torch.einsum("bqhgd,bthd->bhgqt", qc, k).float(),
+                      softcap)
+    delta = q_positions[:, None] - k_positions[None, :]
+    valid = delta < window
+    if causal:
+        valid &= delta >= 0
+    return torch.where(valid[None, None, None], logits,
+                       torch.full_like(logits, NEG_INF))
+
+
+def rows_max(logits: torch.Tensor) -> torch.Tensor:
+    """Step 1 of the merge over rows: each query's largest logit here."""
+    return logits.amax(-1, keepdim=True)
+
+
+def rows_sum(logits: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Step 2: the sum of ``exp(logit - m)`` here, ``m`` the maximum over
+    every rank's rows."""
+    return torch.exp(logits - m).sum(-1, keepdim=True)
+
+
+def rows_out(logits: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """Step 3: this rank's part of the output (B, qc, Hkv, G, D), float32:
+    the probabilities normalized by ``l``, the sum over every rank's rows,
+    rounded to ``v``'s type (the one-rank softmax's rounding point), times
+    the values here."""
+    probs = (torch.exp(logits - m) / l).to(v.dtype)
+    return torch.einsum("bhgqt,bthd->bqhgd", probs.float(), v.float())
+
+
+def chunked_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   q_positions: torch.Tensor, k_positions: torch.Tensor,
+                   window: int, softcap: float = 0.0,
+                   causal: bool = True, group=None) -> torch.Tensor:
+    """Exact attention, one query chunk of at most ``Q_CHUNK`` at a time:
+    q pre-scaled by ``1/sqrt(D)``, float32 logits, a ``-1e30`` mask, softmax
+    in float32. q: (B, S, Hq, D); k/v: (B, T, Hkv, D); positions: (S,) /
+    (T,). ``window``: lookback horizon (T or more for global).
+
+    ``group``: the ranks whose k/v hold the other rows of the sequence
+    (``k_positions`` global): the softmax is merged over them in three
+    all-reduces (module note)."""
+    b, s, hq, dh = q.shape
+    qs = _query_chunks(q, k.shape[2])
+    q_pos = q_positions.reshape(qs.shape[1], qs.shape[2])
     outs = []
-    for c in range(n_chunks):
-        logits = torch.einsum("bqhgd,bthd->bhgqt", q[:, c], k).float()
-        logits = _softcap(logits, softcap)
-        delta = q_pos[c][:, None] - k_positions[None, :]
-        valid = delta < window
-        if causal:
-            valid &= delta >= 0
-        logits = torch.where(valid[None, None, None], logits,
-                             torch.full_like(logits, NEG_INF))
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        outs.append(torch.einsum("bhgqt,bthd->bqhgd", probs, v))
+    for c in range(qs.shape[1]):
+        logits = masked_logits(qs[:, c], k, q_positions=q_pos[c],
+                               k_positions=k_positions, window=window,
+                               softcap=softcap, causal=causal)
+        if group is None:
+            probs = torch.softmax(logits, dim=-1).to(v.dtype)
+            outs.append(torch.einsum("bhgqt,bthd->bqhgd", probs, v))
+            continue
+        m = C.all_reduce(rows_max(logits), group, "max")
+        l = C.all_reduce(rows_sum(logits, m), group)
+        outs.append(C.all_reduce(rows_out(logits, m, l, v), group)
+                    .to(v.dtype))
     return torch.stack(outs, dim=1).reshape(b, s, hq, dh)
 
 
@@ -166,7 +231,9 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     K/V are written IN PLACE at rows ``idx .. idx + S - 1`` and the
     queries attend over all T rows with key positions ``0 .. T - 1``: the
     causal mask hides the rows not yet written, as in the reference.
-    Returns (y, {'k', 'v', 'idx': idx + S}).
+    Returns (y, the cache with 'idx': idx + S). A cache with ``rows`` =
+    (axis, first) holds rows ``first ..`` of a sequence cut over the
+    mesh's ``axis`` (module note); ``idx`` stays global.
 
     Cross-attention: q from ``x`` (then ``q_norm``), k/v from
     ``kv_source`` (B, T, d) (then ``k_norm`` on k), or ``static_kv``
@@ -192,23 +259,39 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v, q0, k0 = project_qkv(p, x, cfg, ranks=r, positions=positions,
                                   rope=use_rope and kv_source is None,
                                   kv_source=kv_source, static_kv=static_kv)
-    new_cache = None
+    new_cache, rows_group = None, None
     if cache is not None:
         idx = cache["idx"]
         ck, cv = cache["k"], cache["v"]
         t = ck.shape[1]
-        if idx + s > t:
-            raise ValueError(f"decode cache of {t} positions cannot take "
-                             f"{s} more at {idx}")
+        axis, first = cache.get("rows", (None, 0))
+        if axis is not None:
+            mesh = get_current_mesh()
+            if mesh is None or axis not in mesh.axis_names:
+                raise ValueError(f"a cache whose rows are cut over "
+                                 f"'{axis}' runs under a mesh with that axis")
+            rows_group = mesh.group(axis)
+        total = t if axis is None else t * mesh.size(axis)
+        if idx + s > total:
+            raise ValueError(f"decode cache of {total} positions cannot "
+                             f"take {s} more at {idx}")
         k, k0 = tp.own_heads(k, nkv, k0, ck.shape[2])
         v, _ = tp.own_heads(v, nkv, k0, ck.shape[2])
-        ck[:, idx:idx + s] = k.to(ck.dtype)
-        cv[:, idx:idx + s] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv, "idx": idx + s}
-        k_positions = torch.arange(t, device=x.device)
+        # the step's rows that fall in this rank's range
+        lo, hi = max(idx, first), min(idx + s, first + t)
+        if lo < hi:
+            ck[:, lo - first:hi - first] = k[:, lo - idx:hi - idx].to(
+                ck.dtype)
+            cv[:, lo - first:hi - first] = v[:, lo - idx:hi - idx].to(
+                cv.dtype)
+        new_cache = dict(cache, idx=idx + s)
+        k_positions = first + torch.arange(t, device=x.device)
         # the reference's einsum promotes a low-precision cache to the
         # queries' type; torch's needs the cast
         k, v = ck.to(q.dtype), cv
+        if axis == "model" and q.shape[2] < nh:
+            # every 'model' rank attends every query head over its rows
+            q, q0 = C.gather(q, 2, tp.axis()[0]), 0
     elif kv_source is not None:
         k_positions = torch.arange(kv_source.shape[1], device=x.device)
     elif static_kv is not None:
@@ -232,7 +315,8 @@ def attn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     out = chunked_attend(q, k.to(q.dtype), v, q_positions=positions,
                          k_positions=k_positions, window=window,
                          softcap=cfg.attn_logit_softcap,
-                         causal=causal and kv_source is None)
+                         causal=causal and kv_source is None,
+                         group=rows_group)
     out = out.reshape(b, s, q.shape[2] * hd)
     return linear(p["o"], out, rank=r.get("o"), tap="o",
                   whole=(nh * hd, d)), new_cache
@@ -251,24 +335,16 @@ def first_head(t: torch.Tensor, count: int) -> int:
     return 0 if t.shape[2] == count else tp.axis()[2] * t.shape[2]
 
 
-def cache_heads(cfg: ModelConfig, model_ranks: int = 1) -> int:
-    """The k/v heads a rank's cache holds: ``Hkv / n`` where the 'model'
-    axis of ``n`` ranks divides them (the reference's cache placement),
-    else all of them."""
-    kv = cfg.num_kv_heads
-    return kv // model_ranks if kv % model_ranks == 0 else kv
-
-
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                   dtype=torch.bfloat16, num_instances: int = 1,
-                  device=None, model_ranks: int = 1) -> Dict:
+                  device=None) -> Dict:
     """Zero K/V caches of ``num_instances`` stacked attention blocks:
-    {'k', 'v': (L, B, max_len, Hkv, D), 'idx': 0}, Hkv a rank's
-    ``cache_heads`` over ``model_ranks``. ``idx``, the next row to
-    write, is a host int shared by the L blocks (the reference keeps an
+    {'k', 'v': (L, B, max_len, Hkv, D), 'idx': 0}. ``idx``, the next row
+    to write, is a host int shared by the L blocks (the reference keeps an
     int32 array of L equal values): the drain loop knows it, so reading it
-    never waits for the card."""
-    shape = (num_instances, batch, max_len, cache_heads(cfg, model_ranks),
+    never waits for the card. A rank's part of it is
+    ``launch/specs.py:cache_specs``'s."""
+    shape = (num_instances, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),

@@ -18,6 +18,11 @@ one factor pair per expert. The expert products are batched ``einsum``s,
 as the reference leaves them to XLA; the shared experts go through
 ``common.linear`` like every other projection.
 
+``moe_apply`` runs a 'model' rank's ``E / n`` experts as XLA partitions
+the reference's global dispatch (the cached steps' path): every rank
+routes all tokens, runs its experts' slots and the routed output is
+summed over the axis.
+
 ``moe_apply_ep`` is the reference's expert-parallel path, which the
 attention block takes for every uncached call of more than one token:
 each rank of the 'model' axis routes its own contiguous chunk of the
@@ -38,6 +43,7 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed.meshctx import data_axes, get_current_mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
+from repro_torch.models import tp
 from repro_torch.models.common import ParamSpec, linear
 
 
@@ -145,17 +151,25 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     slots, so in the paged forward's flat batch (1, T, D) the tokens of
     one iteration (pads last) compete for the same slots. A dropped pair
     is scattered to a sentinel row past the slots and gathered back from
-    slot 0 with a gate of 0."""
+    slot 0 with a gate of 0.
+
+    The expert leaves may hold a 'model' rank's ``E / n`` experts (the
+    reference's placement, which XLA partitions at the dispatch): every
+    rank routes and dispatches over all E alike, runs its experts' slice
+    of the slots, combines the pairs those served (the others at a gate
+    of 0) and sums the routed output over the axis; the gates and the
+    dispatched tokens take their gradient summed over it."""
     m = cfg.moe
     r = ranks or {}
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
     dev = x.device
     held = cm.tree_leaves(p["experts"])[0].shape[0]
-    if held != e:
-        raise ValueError(f"moe_apply runs every expert and holds {held} of "
-                         f"{e}: a 'model' rank's part of the experts runs "
-                         "through moe_apply_ep")
+    group, n, i = tp.axis()
+    if held != e and held * n != e:
+        raise ValueError(f"moe_apply holds {held} of {e} experts on {n} "
+                         "'model' ranks: neither all nor a rank's part")
+    lo = i * held if held != e else 0
 
     gate_logits = linear(p["router"], x.float())                # (B, S, E)
     probs = torch.softmax(gate_logits, dim=-1)
@@ -177,6 +191,14 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     ex_in = torch.zeros((b, sentinel + 1, d), dtype=x.dtype, device=dev)
     ex_in[rows, torch.where(keep, dest, torch.full_like(dest, sentinel))] = src
     ex_in = ex_in[:, :-1].reshape(b, e, cap, d)
+    if held != e:
+        # this rank's experts' slots; the pairs of the others' at a gate
+        # of 0
+        ex_in = C.reduce_grad(ex_in, group)[:, lo:lo + held]
+        mine = (flat_e >= lo) & (flat_e < lo + held)
+        flat_gate = C.reduce_grad(flat_gate, group) * mine.to(
+            flat_gate.dtype)
+        dest = torch.where(mine, dest - lo * cap, torch.zeros_like(dest))
 
     h = cm.swiglu(
         expert_linear(p["experts"]["gate"], ex_in,
@@ -186,13 +208,16 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     ex_out = expert_linear(p["experts"]["down"], h,
                            rank=cm.rget(r, "experts", "down"),
                            tap="experts/down")
-    ex_out = ex_out.reshape(b, sentinel, d)
+    ex_out = ex_out.reshape(b, held * cap, d)
 
     # combine: gather back per (token, choice) pair and sum over choices
     back = torch.where(keep, dest, torch.zeros_like(dest))
     gathered = torch.gather(ex_out, 1, back[..., None].expand(b, s * k, d))
     gathered = gathered * flat_gate[..., None].to(ex_out.dtype)
-    out = gathered.reshape(b, s, k, d).sum(dim=2).to(x.dtype)
+    out = gathered.reshape(b, s, k, d).sum(dim=2)
+    if held != e:
+        out = C.reduce_from(out, group)
+    out = out.to(x.dtype)
 
     if m.num_shared:
         out = out + _shared(p["shared"], x, cfg, r)
@@ -261,15 +286,6 @@ def _moe_inner(x_col: torch.Tensor, router_w: torch.Tensor, experts: Dict,
     return out.to(x_col.dtype), aux
 
 
-def _whole_experts(experts: Dict, cfg: ModelConfig, group) -> Dict:
-    """The expert leaves whole on every rank of ``group``: each rank holds
-    its ``E / n`` (the fallback below runs every expert)."""
-    def whole(t):
-        return t if t.shape[0] == cfg.moe.num_experts else \
-            C.gather(t, 0, group)
-    return cm.tree_map(whole, experts)
-
-
 def moe_apply_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                  ranks: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -278,8 +294,9 @@ def moe_apply_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     this rank's ``E / n_model`` experts. Tokens split over 'model' by
     contiguous sequence chunks, each chunk's (B, S / n_model) tokens one
     slice; the shared experts run on the full ``x``. Returns (output,
-    aux_loss). Falls back to ``moe_apply`` without a mesh or a 'model'
-    axis, or where the sizes do not divide, as the reference does."""
+    aux_loss). Falls back to ``moe_apply`` (over the rank's experts where
+    they are cut) without a mesh or a 'model' axis, or where the sizes do
+    not divide, as the reference does."""
     mesh = get_current_mesh()
     m = cfg.moe
     b, s, d = x.shape
@@ -293,9 +310,7 @@ def moe_apply_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     # s % n_model != 0 fails there as here: the tests hold shapes where
     # both divide
     if m.num_experts % n_model or (b * n_data * s) % (n_data * n_model):
-        return moe_apply(dict(p, experts=_whole_experts(p["experts"], cfg,
-                                                        group)),
-                         x, cfg, ranks=ranks)
+        return moe_apply(p, x, cfg, ranks=ranks)
     if s % n_model:
         raise ValueError(f"sequence {s} does not split over {n_model} "
                          "'model' ranks")

@@ -17,7 +17,16 @@ same on every rank, and so is each one's gradient. A product whose rank
 computes part of its output takes its input through ``reduce_grad``
 (Megatron's f: the input's gradient summed over the ranks); one that
 leaves a partial sum on each rank ends in ``reduce_from`` (g: an
-all-reduce). A factor cut by rank where the other is not is gathered
+all-reduce), in the parameters' type: a bfloat16 model sums in
+bfloat16, as XLA's partitioned program does; a float32 model's
+row-parallel product of a bfloat16 input (the attention's output over a
+bfloat16 cache) sums its parts in float32 and rounds once, as one device
+rounds the whole product once. Summed in bfloat16 there, a float32
+model's decode over a bfloat16 cache on four ranks parts from one rank's
+past the bfloat16 tie bound from the first token on (gemma3-smoke's cell
+of ``tests/test_torch_tp.py``); that cell is the one caller today, since
+the dry run's models are bfloat16 and ``dist_check.py``'s decode cache
+is float32. A factor cut by rank where the other is not is gathered
 for the product (``_Gathered``): autograd saves the shard, the backward
 gathers it again, and its gradient is reduce-scattered (summed where
 each rank computed a part) or cut (where each rank computed the whole).
@@ -45,6 +54,9 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed.meshctx import get_current_mesh
 from repro_torch.kernels import ops
 from repro_torch.kernels.lowrank_matmul import kept_rank
+
+
+LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
 def axis() -> Tuple[object, int, int]:
@@ -116,6 +128,10 @@ class _Gathered(torch.autograd.Function):
         if gather_u and du is not None:
             du = part(du, -1, group)
         return dx, dv, du, None, None, None, None, None
+
+
+def _param_dtype(p: Dict[str, torch.Tensor]) -> torch.dtype:
+    return next(t.dtype for t in p.values() if t.is_floating_point())
 
 
 def _layout(p: Dict[str, torch.Tensor], whole: Sequence[int], n: int):
@@ -193,6 +209,14 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
             y = _Gathered.apply(x2, v, u, rank, gather_v, gather_u,
                                 split_in or split_out, group)
         y = y.reshape(*lead, -1)
+    elif split_in and x.dtype in LOW_PRECISION and _param_dtype(p) \
+            == torch.float32:
+        # a float32 model's product of a bfloat16 input: the ranks' parts
+        # summed in float32 and rounded once, as one device rounds the
+        # whole product once
+        wide = {k: t.to(x.dtype).float() if t.is_floating_point() else t
+                for k, t in p.items()}
+        return C.reduce_from(plain(wide, x.float(), rank), group).to(x.dtype)
     else:
         y = plain(p, x, rank)
     return C.reduce_from(y, group) if split_in or rank_cut else y

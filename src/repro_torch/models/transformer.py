@@ -285,13 +285,16 @@ def _apply_cross_block(p, x, cfg, *, kv_source, ranks, static_kv=None):
 
 
 _CROSS_KEYS = ("cross_k", "cross_v")
+# an attention cache's host values, shared by its stacked blocks: the next
+# row to write and, on a rank whose rows are cut, (axis, first row)
+HOST_KEYS = ("idx", "rows")
 
 
 def _self_cache(cache: Dict, l: int) -> Dict:
     """Layer ``l``'s self-attention cache out of a stacked attention cache
-    (its cross K/V left out), ``idx`` shared."""
-    return dict({k: t[l] for k, t in cache.items()
-                 if k != "idx" and k not in _CROSS_KEYS}, idx=cache["idx"])
+    (its cross K/V left out), the host values shared."""
+    return {k: t if k in HOST_KEYS else t[l] for k, t in cache.items()
+            if k not in _CROSS_KEYS}
 
 
 def _cross_kv(cache: Optional[Dict], l: int):
@@ -401,10 +404,8 @@ def run_segment(seg: Segment, params: Dict, x: torch.Tensor,
                     with cm.tap_scope("selfs"):
                         for l in range(seg.self_per_unit):
                             def self_layer(x, l=l):
-                                cache_l = None if scache is None else {
-                                    "k": scache["k"][u, l],
-                                    "v": scache["v"][u, l],
-                                    "idx": scache["idx"]}
+                                cache_l = None if scache is None else \
+                                    _self_cache(_self_cache(scache, u), l)
                                 with cm.tap_scope(f"@{l}"):
                                     return _apply_attn_block(
                                         _layer(p_u["selfs"], l), x, cfg,
@@ -555,7 +556,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       dtype=torch.bfloat16, device=None,
-                      cross_kv_len: int = 0, model_ranks: int = 1) -> Dict:
+                      cross_kv_len: int = 0) -> Dict:
     """Zero decode state matching the segment structure:
 
       {'pos': 0, 'segments': [per segment: attention {'k', 'v': (L, B,
@@ -573,11 +574,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     decoder and vision_unit segment, for ``attach_cross_kv`` to fill once
     a request.
 
-    ``model_ranks``: the size of a 'model' axis whose ranks each hold
-    their ``Hkv / n`` k/v heads of every self- and cross-attention cache
-    where it divides them (``attention.cache_heads``, the reference's
-    cache placement); MLA's latent cache and the recurrent states are
-    held whole.
+    A rank's part of it under a mesh is ``launch/specs.py:cache_specs``'s.
 
     The recurrent states are float32 (the reference's default). ``pos`` and
     ``idx`` are host ints, where the reference keeps int32 arrays: the
@@ -590,13 +587,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
     def kv(count):
         return attn.init_kv_cache(cfg, batch, max_len, dtype=dtype,
-                                  num_instances=count, device=device,
-                                  model_ranks=model_ranks)
+                                  num_instances=count, device=device)
 
     def with_cross(c, count):
         if cross_kv_len:
-            shape = (count, batch, cross_kv_len,
-                     attn.cache_heads(cfg, model_ranks), hd)
+            shape = (count, batch, cross_kv_len, cfg.num_kv_heads, hd)
             for k in _CROSS_KEYS:
                 c[k] = torch.zeros(shape, dtype=dtype, device=device)
         return c

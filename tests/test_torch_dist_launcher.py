@@ -65,7 +65,8 @@ def _rehearse(tmp: Path, into: dict) -> None:
                 device="cpu", backend_a="gloo", batch=2, seq=16, steps=2,
                 port_a=_free_port(), port_b=_free_port(), dir=str(d),
                 tol_loss=1e-4, tol_param=2e-3, leaf_share=1e-6,
-                tol_logits=2e-4, lowrank={"arch": "gpt2-small", "layers": 2})
+                tol_logits=2e-4, lowrank={"arch": "gpt2-small", "layers": 2},
+                decode={"prompt": 12, "cache": 32, "steps": 8})
     try:
         into["result"] = dist_check.run_pair(spec, DEADLINE)
     except RuntimeError as e:
@@ -230,7 +231,9 @@ def test_chip_phase_21_rehearses_on_the_cpu(world):
     the smoke size: (a) bit for bit, (b) at (2, 1) and (1, 2) within its
     bounds, every collective timed, each (1, 2) rank holding ``placed``'s
     bytes; (c) gpt2-small's flexrank run at (1, 2) within its bounds, as
-    many low-rank products on each rank as on one."""
+    many low-rank products on each rank as on one; (d) the greedy decode
+    over the rank's part of the cache at (1, 2) and (2, 1) against one
+    rank, ``placed``'s bytes, the rows written where they fall."""
     assert "error" not in world["rehearsal"], world["rehearsal"]["error"]
     r = world["rehearsal"]["result"]
     assert len(r["a_losses"]) == 2
@@ -245,5 +248,32 @@ def test_chip_phase_21_rehearses_on_the_cpu(world):
     assert [c["calls"] for c in r["c"]["ranks"]] == [r["c_one"]["calls"]] * 2
     assert r["logits_err"] < 2e-4
     assert len(r["a2a_ms"]["dispatch"]) == len(r["a2a_ms"]["return"]) == 3
+    # (d): the prefill and 8 greedy steps over the rank's part of the cache
+    d = r["d"]
+    for key in ("1x2", "2x1"):
+        assert d[key]["logits_err"] < 2e-4
+        assert all(len(x["step_ms"]) == 8 for x in d[key]["ranks"])
+    # the experts cut at decode: the (1, 2) rank's parameters are half of
+    # every placed leaf, as in training
+    assert [x["bytes"]["params"] for x in d["1x2"]["ranks"]] == [
+        b["placed"]["params"] for b in r["1x2"]["bytes"]]
+    # a batch of one: 16 rows a rank, the prompt's 12 and 4 steps on rank
+    # 0, the last 4 steps on rank 1
+    assert [x["rows"] for x in d["2x1"]["ranks"]] == [16, 4]
+    assert all(2 * x["bytes"]["cache"] == d["2x1"]["one_cache"]
+               for x in d["2x1"]["ranks"])
+
+
+@pytest.mark.parametrize("window", [10 ** 9, 24])
+def test_merge_over_sixteen_shards_matches_whole(window):
+    """``dist_check.merge_check`` (``chip_smoke.py`` runs it at llama4's
+    decode_32k layer): a bfloat16 cache of 128 rows cut into 16 shards, the
+    query at position 89 (shards 12-15 wholly masked, and with a window
+    of 24 shards 0-7 too), within 1e-5 of the output's max in float32 and
+    at most one bfloat16 ulp of it (2^-7) in the cache's type."""
+    got = dist_check.merge_check("cpu", batch=2, heads=8, kv_heads=2,
+                                 head_dim=16, length=128, shards=16, pos=89,
+                                 window=window)
+    assert got["err"] < 1e-5 and got["bf16_err"] <= 2.0 ** -7
 
 

@@ -22,10 +22,15 @@
   back in the reference's terms, at every budget row.
 * ``run_cell`` end to end at smoke widths for an arch of each family
   (dense, MoE, MLA, recurrent, audio, vision) in each shape kind, on a
-  fake (2, 2) mesh; the decode cell's experts whole and the others' cut;
-  ``fsdp`` moves ``placed`` only; a full-size config built on ``meta``
-  without a draw.
+  fake (2, 2) mesh; every cell's experts cut E / n_model, at decode
+  too; ``fsdp`` moves ``placed`` only; a full-size config built on
+  ``meta`` without a draw.
+* The rank's decode cache at full size on ``meta`` for every decode cell
+  of the eight attention stacks on both production meshes, and at a
+  batch of one: ``shard_shape`` of ``cache_shardings``, nothing held
+  whole; the merge's maximum counted as an all-reduce.
 """
+import dataclasses
 import json
 import math
 import os
@@ -374,25 +379,92 @@ def test_run_cell_end_to_end(smoke_cells, tmp_path, arch, shape):
         assert rec["collectives"]["all-reduce"] > 0
 
 
-def test_decode_holds_experts_whole(smoke_cells):
-    """A decode step with a cache runs ``moe_apply``: every rank holds all
-    experts, and its step exchanges no tokens (no all-to-all; its
-    all-reduces are the tensor-parallel heads' and vocabulary's); train
-    and prefill reach ``moe_apply_ep``: E / n_model."""
+def test_decode_cuts_experts(smoke_cells):
+    """A decode step with a cache runs ``moe_apply`` over the rank's
+    experts, E / n_model as the reference places them, as train and
+    prefill (``moe_apply_ep``) do; its step exchanges no tokens (no
+    all-to-all; its all-reduces are the tensor-parallel heads', the
+    vocabulary's and the routed output's)."""
     cfg = get_config("deepseek-moe-16b", smoke=True)
     e = cfg.moe.num_experts
     DR.fake_world(4)
     mesh = DR.make_mesh((2, 2), ("data", "model"))
-    for name, want in (("decode_32k", e), ("prefill_32k", e // 2),
-                       ("train_4k", e // 2)):
+    for name in ("decode_32k", "prefill_32k", "train_4k"):
         _, args, _ = DR.build_step(cfg, SMALL[name], mesh, "dense")
         experts = [t for p, t in cm.tree_items(args[0])
                    if "/experts/" in p]
-        assert experts and all(t.shape[1] == want for t in experts), name
+        assert experts and all(t.shape[1] == e // 2 for t in experts), name
     fig, _, _ = DR.trace_cell(cfg, SMALL["decode_32k"], mesh, "dense")
     assert fig["collective_bytes"]["all-to-all"] == 0
     assert fig["collective_bytes_total"] == fig["collective_bytes"][
         "all-reduce"] + fig["collective_bytes"]["all-gather"] > 0
+
+
+ATTENTION_STACKS = ["deepseek-7b", "deepseek-moe-16b", "gemma3-27b",
+                    "gpt2-small", "llama-3.2-vision-11b",
+                    "llama4-scout-17b-a16e", "seamless-m4t-medium",
+                    "stablelm-1.6b"]
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ATTENTION_STACKS)
+def test_decode_cache_as_placed(arch, multi):
+    """Every decode cell of the attention stacks at full size on
+    ``meta``, and the same at a batch of one: the rank's cache
+    (``cache_specs(mesh=)``) has the shape ``shard_shape`` gives under
+    ``cache_shardings``, a cut sequence carries its axis and first row,
+    and the rank holds no leaf and no cache entry whole."""
+    try:
+        for shape in (s for s in shapes_for(arch) if s.kind == "decode"):
+            for b in (shape.global_batch, 1):
+                cfg, cell, mesh = DR.build_cell(arch, shape.name, multi,
+                                                "dense")
+                cell = dataclasses.replace(cell, global_batch=b)
+                whole = SP.cache_specs(cfg, cell)
+                pls = dict(cm.tree_items(
+                    SP.cache_shardings(mesh, cfg, cell, whole),
+                    is_leaf=D.sharding.is_placement))
+                mine = dict(cm.tree_items(SP.cache_specs(cfg, cell,
+                                                         mesh=mesh)))
+                for path, t in cm.tree_items(whole):
+                    if not isinstance(t, torch.Tensor):
+                        continue
+                    want = SP.shard_shape(mesh, pls[path], t.shape)
+                    assert tuple(mine[path].shape) == want, (path, b)
+                    if not path.endswith(("/k", "/v")):
+                        continue
+                    seq = pls[path][-3]
+                    rows = path.rsplit("/", 1)[0] + "/rows/1"
+                    if seq is not None and mesh.size(seq) > 1:
+                        assert mine[rows] == mesh.index(seq) * want[-3]
+                    else:
+                        assert rows not in mine, (path, b)
+                assert DR.whole_on_rank(cfg, cell, mesh, "dense") == {
+                    "leaves": {}, "cache": {}}, b
+    finally:
+        D.shutdown_world()
+
+
+def test_merge_all_reduces_are_counted():
+    """The merge's maximum over the ranks is an all-reduce in the trace's
+    counts, beside its sums (a llama4 decode cell cuts its sequence over
+    'model')."""
+    cfg = get_config("llama4-scout-17b-a16e", smoke=True)
+    try:
+        DR.fake_world(4)
+        mesh = DR.make_mesh((1, 4), ("data", "model"))
+        x = torch.zeros((2, 3), device="meta")
+        with D.mesh_context(mesh):
+            _, fig = TA.trace(lambda: [
+                D.collectives.all_reduce(x, mesh.group("model"), op)
+                for op in ("max", "sum")])
+        assert fig["collective_bytes"]["all-reduce"] == 2 * 2 * 3 * 4
+        assert fig["collective_counts_dynamic"]["all-reduce"] == 2
+        shape = dataclasses.replace(SMALL["decode_32k"], global_batch=2)
+        state = SP.cache_specs(cfg, shape, mesh=mesh)
+        assert state["segments"][0]["rows"] == ("model", 0)
+    finally:
+        D.shutdown_world()
 
 
 def test_fsdp_moves_placed_only(smoke_cells):

@@ -18,12 +18,19 @@ step on forced host devices.
   (no drop, no aux) and llama-3.2-vision-11b (with its frontend), with
   the prefill and decode steps after the dense ones. The launcher at
   (1, 2) is ``tests/test_torch_tp_launcher.py``'s.
+* In the same pool, the decode cells: a prompt through ``prefill`` into
+  each rank's part of the cache (``specs.cache_specs(mesh=)``) and decode
+  steps after it, the sequence cut over 'model' at (1, 4) (gemma3 with a
+  window of 5, in float32 and bfloat16; llama4, one expert a rank) and
+  over 'data' at (2, 2) for a batch of one (deepseek-moe, 4 experts a
+  rank); and ``moe_apply`` over each rank's experts with its gradients.
 * The reference's step jitted with ``param_shardings`` as its
   ``in_shardings`` on meshes (1, 2) and (2, 2) of forced host devices, in
-  two subprocesses while the pool runs.
-* Each rank's bytes of parameters and AdamW moments: ``placed(fsdp=
-  False)``'s. A leaf cut over 'model' that the rank program runs whole
-  raises.
+  two subprocesses while the pool runs, and its prefill and
+  ``make_decode_step`` with ``cache_shardings`` too.
+* Each rank's bytes of parameters and AdamW moments, and at decode of
+  parameters and cache: ``placed(fsdp=False)``'s. A leaf cut over
+  'model' that the rank program runs whole raises.
 
 Tolerances, float32 throughout: against the one-rank port (the same
 products, summed in another order across ranks) 1e-5 of each result's
@@ -32,7 +39,9 @@ first moment (the clipped gradient); against the reference's partitioned
 step 1e-4 relative on the loss and 2e-3 of each leaf's largest entry on
 the first moment (two libraries' float32 products and reductions, as
 ``tests/test_torch_train_modes.py`` holds the one-device steps), and
-the updated parameters within 2e-3 of each leaf's largest entry.
+the updated parameters within 2e-3 of each leaf's largest entry. The
+decode logits: 1e-5 of their max against one rank, 1e-4 against the
+reference (a bfloat16 cache: ``check_bf16_parity`` at those tolerances).
 """
 import json
 import subprocess
@@ -56,6 +65,7 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch import specs as SP
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as cm
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw as tadamw
 
@@ -64,6 +74,7 @@ torch.set_num_threads(1)
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 import torch_dist_ranks as ranks  # noqa: E402
+from test_torch_bf16_ties import check_bf16_parity  # noqa: E402
 from test_torch_dist import _env, run_pool  # noqa: E402
 
 DEADLINE = 240
@@ -90,6 +101,26 @@ LINEAR = [  # name, whole (d_in, d_out[, rank]), leaf shapes, dims, x cut
 ]
 VOCABS = [12, 11]               # over 2 ranks: cut, and held whole
 ATTN_ARCH, ATTN_WINDOW = "gemma3-27b", 5
+# the decode cells: name, arch, variant, mesh, batch, cache dtype, prompt,
+# decode steps, cache length
+DECODE_CASES = [
+    # 2 kv heads on 4 ranks: the sequence over 'model', 8 rows a rank; the
+    # prompt straddles the edges at 8 and 16, a window of 5 crosses them
+    ("gemma3_w5", "gemma3-27b", "w5", "1x4", 2, "float32", 20, 4, 32),
+    ("gemma3_w5_bf16", "gemma3-27b", "w5", "1x4", 2, "bfloat16", 20, 4,
+     32),
+    # the same cut, and one of 4 experts a rank
+    ("llama4", "llama4-scout-17b-a16e", "default", "1x4", 2, "float32", 20,
+     4, 32),
+    # a batch of one: the sequence over 'data' (the prompt on data rank 0
+    # and 1, the steps on 1), heads and 4 of 8 experts a rank over 'model'
+    ("deepseek_b1", "deepseek-moe-16b", "nodrop_aux0", "2x2", 1, "float32",
+     20, 4, 32),
+]
+DECODE_IDS = [c[0] for c in DECODE_CASES]
+# moe_apply_ep's fallback over a rank's experts: 3 tokens do not divide 2
+MOE_PART = [("deepseek-moe-16b", "nodrop"), ("llama4-scout-17b-a16e",
+                                             "default")]
 
 
 # ------------------------------------------------------------ placements
@@ -182,6 +213,21 @@ def _write_inputs(path: Path) -> dict:
         if cfg.family == "vlm":
             a[f"{pre}/frontend"] = rng.standard_normal(
                 (B, TF, cfg.frontend_dim)).astype(np.float32)
+    for arch, var in MOE_PART:
+        cfg = ranks.variant(arch, var)
+        pre = f"tp/moe/{arch}/{var}"
+        for p, t in _tree(rng, tmoe.moe_spec(cfg)).items():
+            a[f"{pre}/p/{p}"] = t
+        for k in ("x", "ct"):
+            a[f"{pre}/{k}"] = rng.standard_normal((1, 3, cfg.d_model)
+                                                  ).astype(np.float32)
+    for name, arch, var, _, b, _, prompt, steps, _ in DECODE_CASES:
+        cfg = ranks.variant(arch, var)
+        pre = f"tp/decode/{name}"
+        for p, t in _tree(rng, tfm.model_spec(cfg)).items():
+            a[f"{pre}/p/{p}"] = t
+        a[f"{pre}/tokens"] = rng.integers(
+            0, cfg.vocab_size, (b, prompt + steps)).astype(np.int32)
     np.savez(path / "inputs.npz", **a)
     return a
 
@@ -208,6 +254,7 @@ REF_SCRIPT = textwrap.dedent('''
 
     d, mesh_key = sys.argv[1], sys.argv[2]
     cases = json.loads(sys.argv[3])
+    decode_cases = json.loads(sys.argv[4])
     inp = np.load(os.path.join(d, "inputs.npz"))
     out = {}
 
@@ -215,6 +262,8 @@ REF_SCRIPT = textwrap.dedent('''
         cfg = get_config(arch, smoke=True)
         if name == "default":
             return cfg
+        if name == "w5":
+            return dataclasses.replace(cfg, local_window=5)
         m = dataclasses.replace(cfg.moe, capacity_factor=float(
             cfg.moe.num_experts), router_aux_weight=0.0)
         return dataclasses.replace(cfg, moe=m)
@@ -264,6 +313,50 @@ REF_SCRIPT = textwrap.dedent('''
         out[key + "/loss"] = np.asarray(m["loss"])
         put(key + "/params", p2)
         put(key + "/mu", o2.mu)
+
+    # the decode cells: prefill into the cache and the decode step, jitted
+    # with the placements of the reference's decode cell; a bfloat16 cache
+    # without them (there the partitioned program departs from the
+    # one-device one: test_decode_over_placed_cache_matches_one_rank_and_
+    # reference)
+    from repro.models import transformer as tfm
+    for name, arch, var, mkey, b, dt, prompt, steps, cache_len in \
+            decode_cases:
+        cfg = variant(arch, var)
+        pre = "tp/decode/" + name
+        mesh = make_mesh(tuple(int(x) for x in mkey.split("x")),
+                         ("data", "model"))
+        pspecs, paxes = SP.model_param_specs(cfg, mode="dense")
+        params = tree(pre + "/p", pspecs)
+        tokens = jnp.asarray(inp[pre + "/tokens"])
+        shp = ShapeConfig("d", cache_len, b, "decode")
+        placed = dt == "float32"
+        with mesh_context(mesh if placed else None):
+            state = tfm.init_decode_state(cfg, b, cache_len,
+                                          dtype=getattr(jnp, dt))
+            pre_fn = jax.jit(lambda p, st, t: tfm.prefill(p, cfg, st, t))
+            dec = jax.jit(SP.make_decode_step(cfg))
+            if placed:
+                shards = (param_shardings(mesh, paxes, pspecs),
+                          SP.cache_shardings(mesh, cfg, shp, state),
+                          SP.input_shardings(mesh, cfg, shp)["tokens"])
+                pre_fn = jax.jit(lambda p, st, t: tfm.prefill(p, cfg, st, t),
+                                 in_shardings=shards)
+                dec = jax.jit(SP.make_decode_step(cfg), in_shardings=(
+                    shards[0], shards[1], {"tokens": shards[2]}))
+            lg, state = pre_fn(params, state, tokens[:, :prompt])
+            logits = [np.asarray(lg, np.float32)]
+            for i in range(steps):
+                lg, state = dec(params, state, {
+                    "tokens": tokens[:, prompt + i:prompt + i + 1]})
+                logits.append(np.asarray(lg, np.float32)[:, None])
+        key = "ref/decode/" + name
+        out[key + "/logits"] = np.concatenate(logits, 1)
+        caches = [c for c in state["segments"] if c is not None]
+        for j, c in enumerate(caches):
+            for k in ("k", "v"):
+                out["%s/cache/%d/%s" % (key, j, k)] = np.asarray(
+                    c[k], np.float32)
     np.savez(os.path.join(d, "ref_%s.npz" % mesh_key), **out)
     print("REFOK")
 ''')
@@ -282,7 +375,18 @@ def _jobs() -> list:
          "window": ATTN_WINDOW},
         *[{"kind": "tp_step", "mesh": m, "cases": STEP_CASES}
           for m in STEP_MESHES],
+        *[{"kind": "tp_decode", "mesh": c[3], "case": list(c)}
+          for c in DECODE_CASES],
+        {"kind": "tp_moe_part", "mesh": "1x2",
+         "cases": [list(c) for c in MOE_PART]},
     ]
+
+
+def _ref_decode_cases(mesh_key) -> list:
+    """The decode cells a reference subprocess runs: the (1, 4) ones in
+    the (1, 2) process, the (2, 2) one in its own."""
+    return [list(c) for c in DECODE_CASES
+            if (c[3] == "2x2") == (mesh_key == "2x2")]
 
 
 _STATE: dict = {}
@@ -296,7 +400,8 @@ def world(tmp_path_factory):
     inputs = _write_inputs(tmp)
     refs = [subprocess.Popen(
         [sys.executable, "-c", REF_SCRIPT, str(tmp), m,
-         json.dumps(STEP_CASES)], env=_env(), stdout=subprocess.PIPE,
+         json.dumps(STEP_CASES), json.dumps(_ref_decode_cases(m))],
+        env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for m in STEP_MESHES]
     end = time.monotonic() + DEADLINE
     try:
@@ -550,6 +655,137 @@ def test_rank_holds_placed_bytes(world, arch, name, mode, mesh_key):
             f"tp/step/{mesh_key}/{arch}/{mode}/bytes"]
         assert params == want["params"] * 4 // 2
         assert mu + nu + 4 == want["optimizer"]
+
+
+# ------------------------------------------------------------ decode
+
+def _one_rank_decode(world, case):
+    """A decode cell's prompt and steps on one rank, whole (no mesh): the
+    logits and each attention cache's k and v."""
+    key = ("decode", case[0])
+    if key in _STATE:
+        return _STATE[key]
+    name, arch, var, _, b, dt, prompt, steps, cache_len = case
+    cfg = ranks.variant(arch, var)
+    pre = f"tp/decode/{name}"
+    params = _case_tree(world["inputs"], f"{pre}/p", tfm.model_spec(cfg))
+    tokens = torch.as_tensor(world["inputs"][f"{pre}/tokens"])
+    state = SP.cache_specs(cfg, ShapeConfig("d", cache_len, b, "decode"),
+                           dtype=getattr(torch, dt), device="cpu")
+    dec = SP.make_decode_step(cfg)
+    with torch.no_grad():
+        lg, state = tfm.prefill(params, cfg, state, tokens[:, :prompt])
+        logits = [lg]
+        for i in range(steps):
+            lg, state = dec(params, state, {
+                "tokens": tokens[:, prompt + i:prompt + i + 1]})
+            logits.append(lg[:, None])
+    caches = [c for c in state["segments"] if c is not None]
+    out = {"logits": torch.cat(logits, 1).float().numpy(),
+           "cache": lambda j, k: caches[j][k].float().numpy(),
+           "segments": len(caches)}
+    _STATE[key] = out
+    return out
+
+
+def _layers(get, segments: int) -> list:
+    """Every attention layer's {'k', 'v'} (B, T, H, D), in the order the
+    model runs them, of stacked caches ``get(segment, key)``."""
+    return [{k: get(j, k)[l] for k in ("k", "v")} for j in range(segments)
+            for l in range(get(j, "k").shape[0])]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=DECODE_IDS)
+def test_decode_over_placed_cache_matches_one_rank_and_reference(world,
+                                                                  case):
+    """A prompt into this rank's part of the cache (``cache_specs(mesh=)``:
+    its heads, or its rows of a sequence cut over 'model' or 'data') and
+    the decode steps after it, each rank with its part of every leaf (the
+    experts E / n_model): the logits and the caches gathered whole against
+    one rank of the port within 1e-5 of their max and against the
+    reference's prefill and ``make_decode_step`` jitted with
+    ``param_shardings`` and ``cache_shardings`` as ``in_shardings``
+    within 1e-4.
+
+    A bfloat16 cache is held by ``check_bf16_parity`` at those
+    tolerances, the rank's float32 values before each cache write's
+    rounding recorded by ``Bf16Writes``: the runs agree up to the first
+    differing cache element, which is a rounding tie of one ulp. Against
+    the reference jitted without the placements: XLA's partitioned
+    program of a float32 model over a bfloat16 cache departs from the
+    reference's own one-device logits from the first token on (past
+    ``TOL_BF16_TIE`` on this cell), and the port's row-parallel partial
+    products of the attention's bfloat16 output summed in bfloat16 depart
+    from that program as far, so the port sums them in float32 and rounds
+    once, as one device does (``models/tp.py``)."""
+    one = _one_rank_decode(world, case)
+    name, dt = case[0], case[5]
+    pre, rkey = f"tp/decode/{name}", f"ref/decode/{name}"
+    ref = world["ref"]
+    n = one["segments"]
+    for r in _pairs(case[3]).values():
+        res = world["pool"][r]
+        got = res[f"{pre}/logits"]
+        mine = _layers(lambda j, k: res[f"{pre}/cache/{j}/{k}"], n)
+        if dt == "float32":
+            assert _rel(got, one["logits"]) < 1e-5, r
+            assert _rel(got, ref[f"{rkey}/logits"]) < 1e-4, r
+            for a, c in zip(mine, _layers(one["cache"], n)):
+                for k in ("k", "v"):
+                    assert _rel(a[k], c[k]) < 1e-5, (r, k)
+            continue
+        shadows = _layers(lambda j, k: res[f"{pre}/shadow/{j}/{k}"], n)
+        check_bf16_parity(got, one["logits"], mine, _layers(one["cache"], n),
+                          shadows, tol=1e-5)
+        check_bf16_parity(
+            got, ref[f"{rkey}/logits"], mine,
+            _layers(lambda j, k: ref[f"{rkey}/cache/{j}/{k}"], n), shadows,
+            tol=1e-4)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=DECODE_IDS)
+def test_decode_rank_holds_placed_bytes(world, case):
+    """Each rank's bytes of parameters and decode cache in a decode cell:
+    the dry run's ``placed(fsdp=False)``, its bfloat16 parameters and
+    cache at 2 bytes an entry against the rank's float32 at 4."""
+    name, arch, var, mkey, b, dt, _, _, cache_len = case
+    cfg = ranks.variant(arch, var)
+    shape = tuple(int(x) for x in mkey.split("x"))
+    mesh = D.Mesh(D.device_array(["cpu"] * int(np.prod(shape)), shape),
+                  ("data", "model"))
+    pspecs, paxes = SP.model_param_specs(cfg, mode="dense")
+    want = DR.placed(cfg, ShapeConfig("d", cache_len, b, "decode"), mesh,
+                     pspecs, paxes, "dense", fsdp=False)["bytes_per_device"]
+    for r in _pairs(mkey).values():
+        params, cache = world["pool"][r][f"tp/decode/{name}/bytes"]
+        assert params == want["params"] * 4 // 2, r
+        assert cache == want["cache"] * (2 if dt == "float32" else 1), r
+
+
+@pytest.mark.parametrize("arch,var", MOE_PART)
+def test_moe_over_a_ranks_experts_matches_whole(world, arch, var):
+    """``moe_apply`` over each rank's E / 2 experts (``moe_apply_ep``'s
+    fallback where 3 tokens do not split over 2 'model' ranks, and the
+    decode step's path): the output and aux within 1e-5 of the whole
+    layer's, the input's and every leaf's gradient (the experts and the
+    shared experts' columns gathered, the router whole on each rank)
+    within 1e-4."""
+    cfg = ranks.variant(arch, var)
+    pre = f"tp/moe/{arch}/{var}"
+    inp = world["inputs"]
+    p = cm.tree_map(lambda t: t.requires_grad_(True),
+                    ranks.tree_from(inp, f"{pre}/p", tmoe.moe_spec(cfg)))
+    x = torch.as_tensor(inp[f"{pre}/x"]).requires_grad_(True)
+    y, aux = tmoe.moe_apply(p, x, cfg)
+    (torch.sum(y * torch.as_tensor(inp[f"{pre}/ct"])) + aux).backward()
+    for res in world["pool"][:2]:
+        assert int(res[f"{pre}/held"]) * 2 == cfg.moe.num_experts
+        assert _rel(res[f"{pre}/y"], y.detach().numpy()) < 1e-5
+        assert _rel(res[f"{pre}/aux"], aux.detach().numpy()) < 1e-5
+        assert _rel(res[f"{pre}/gx"], x.grad.numpy()) < 1e-4
+        for path, leaf in cm.tree_items(p):
+            assert _rel(res[f"{pre}/g/{path}"], leaf.grad.numpy()) < 1e-4, \
+                path
 
 
 # ------------------------------------------------------------ raises

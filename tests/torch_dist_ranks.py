@@ -14,6 +14,7 @@ group's timeout.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -47,12 +48,15 @@ _SHAPE = ShapeConfig("tp", 16, 4, "decode")
 
 def variant(arch: str, name: str):
     """The smoke config of ``arch`` at the test's capacity: ``default``,
-    or ``nodrop`` (every pair kept: capacity factor E), ``nodrop_aux0``
+    ``w5`` (a local window of 5), or ``nodrop`` (every pair kept: capacity
+    factor E), ``nodrop_aux0``
     (and no aux loss: the per-slice aux is the EP path's own function,
     which the global path does not compute)."""
     cfg = get_config(arch, smoke=True)
     if name == "default":
         return cfg
+    if name == "w5":
+        return dataclasses.replace(cfg, local_window=5)
     moe = dataclasses.replace(cfg.moe,
                               capacity_factor=float(cfg.moe.num_experts))
     if name == "nodrop_aux0":
@@ -182,8 +186,9 @@ class Rank:
     def tp_attn(self, job):
         """``attn_apply`` of ``tp/attn`` on this rank's part of its
         leaves: the output and every whole gradient of ``sum(y * ct)``,
-        then a prefill and one decode step over a cache of the rank's
-        heads (``init_kv_cache(model_ranks=)``): their outputs."""
+        then a prefill and one decode step over a cache of every head
+        (its 2 kv heads do not divide 4; 9 rows do not either): their
+        outputs."""
         mesh = self._tp_mesh(job)
         cfg = get_config(job["arch"], smoke=True)
         spec = tattn.attn_spec(cfg)
@@ -202,9 +207,10 @@ class Rank:
         self.out["tp/attn/gx"] = x.grad.numpy()
         grads = D.unshard_tree(cm.tree_map(lambda t: t.grad, p), dims, mesh)
         put_tree(self.out, "tp/attn/g", grads)
-        cache = tattn.init_kv_cache(cfg, x.shape[0], s + 1,
-                                    dtype=torch.float32,
-                                    model_ranks=mesh.size("model"))
+        cache = SP.cache_specs(cfg, ShapeConfig("a", s + 1, x.shape[0],
+                                                "decode"),
+                               dtype=torch.float32, device="cpu",
+                               mesh=mesh)["segments"][0]
         cache = {k: (v[0] if k != "idx" else v) for k, v in cache.items()}
         self.out["tp/attn/cache_heads"] = np.int64(cache["k"].shape[2])
         with torch.no_grad(), D.mesh_context(mesh):
@@ -277,15 +283,11 @@ class Rank:
                 fl = SP.make_prefill_step(cfg)(params, {
                     k: v[:, :-1] if k == "tokens" else v
                     for k, v in batch.items()})
-            # the cached step holds the experts whole
-            params = D.shard_tree(D.unshard_tree(params, dims, mesh),
-                                  D.rank_dims(cfg, mesh, paxes, pspecs,
-                                              decode=True), mesh)
             with D.mesh_context(mesh):
                 state = SP.cache_specs(cfg, dataclasses.replace(
-                    _SHAPE, global_batch=batch["tokens"].shape[0],
+                    _SHAPE, global_batch=batch["tokens"].shape[0] * nd,
                     seq_len=batch["tokens"].shape[1]), dtype=torch.float32,
-                    device="cpu", model_ranks=mesh.size("model"))
+                    device="cpu", mesh=mesh)
                 if "frontend" in batch:
                     tfm.attach_cross_kv(params, cfg, state, tfm.frontend_proj(
                         params, batch["frontend"], cfg))
@@ -297,6 +299,85 @@ class Rank:
                     logits.append(lg)
             self.out[f"{out}/prefill"] = fl.numpy()
             self.out[f"{out}/decode"] = torch.stack(logits, 1).numpy()
+
+    def tp_decode(self, job):
+        """A prompt through ``prefill`` into this rank's part of the decode
+        cache (``specs.cache_specs(mesh=)``) on its part of every leaf,
+        then decode steps teacher-forced from ``tp/decode/<case>/tokens``:
+        the logits (whole over the vocabulary), the caches gathered whole,
+        and this rank's bytes of parameters and cache. A bfloat16 cache
+        also gives the float32 value of each write before its rounding
+        (``test_torch_bf16_ties.Bf16Writes``), gathered whole."""
+        mesh = self._tp_mesh(job)
+        name, arch, var, _, b, dtype, prompt, steps, cache_len = job["case"]
+        cfg = variant(arch, var)
+        pre = f"tp/decode/{name}"
+        pspecs, paxes = SP.model_param_specs(cfg, mode="dense")
+        dims = D.rank_dims(cfg, mesh, paxes, pspecs)
+        params = D.shard_tree(tree_from(self.inputs, f"{pre}/p", pspecs),
+                              dims, mesh)
+        nd, di = mesh.size("data"), mesh.index("data")
+        tokens = torch.as_tensor(self.inputs[f"{pre}/tokens"])
+        if b % nd == 0 and b > 1:
+            tokens = tokens[di * b // nd:(di + 1) * b // nd]
+        shape = ShapeConfig("d", cache_len, b, "decode")
+        dt = getattr(torch, dtype)
+        dec = SP.make_decode_step(cfg)
+        with torch.no_grad(), D.mesh_context(mesh):
+            state = SP.cache_specs(cfg, shape, dtype=dt, device="cpu",
+                                   mesh=mesh)
+            caches = [c for c in state["segments"] if c is not None]
+            writes = contextlib.nullcontext()
+            if dt == torch.bfloat16:
+                from test_torch_bf16_ties import Bf16Writes
+                writes = Bf16Writes(*(c[k] for c in caches for k in "kv"))
+            with writes as rec:
+                lg, state = tfm.prefill(params, cfg, state,
+                                        tokens[:, :prompt])
+                logits = [tp.whole_vocab(lg, cfg.vocab_size)]
+                for i in range(steps):
+                    lg, state = dec(params, state, {
+                        "tokens": tokens[:, prompt + i:prompt + i + 1]})
+                    logits.append(lg[:, None])
+            self.out[f"{pre}/logits"] = torch.cat(logits, 1).float().numpy()
+            for j, c in enumerate(caches):
+                for k in ("k", "v"):
+                    self.out[f"{pre}/cache/{j}/{k}"] = _whole_cache(
+                        mesh, cfg, c, c[k], b).float().numpy()
+                    if rec is not None:
+                        self.out[f"{pre}/shadow/{j}/{k}"] = _whole_cache(
+                            mesh, cfg, c, rec.shadow(c[k]), b).numpy()
+        self.out[f"{pre}/bytes"] = np.asarray([
+            sum(t.numel() * t.element_size() for t in cm.tree_leaves(tree)
+                if isinstance(t, torch.Tensor))
+            for tree in (params, state)], np.int64)
+
+    def tp_moe_part(self, job):
+        """``moe_apply_ep`` where the tokens do not divide the 'model' axis
+        (its fallback: ``moe_apply`` over this rank's experts), each case
+        ``[arch, variant]``: the output, aux, and the whole input's and
+        every leaf's gradient (gathered whole) of ``sum(y * ct) + aux``."""
+        mesh = self._tp_mesh(job)
+        for arch, var in job["cases"]:
+            cfg = variant(arch, var)
+            pre = f"tp/moe/{arch}/{var}"
+            spec = tmoe.moe_spec(cfg)
+            dims = D.rank_dims(cfg, mesh, cm.axes_tree(spec), spec)
+            p = cm.tree_map(lambda t: t.requires_grad_(True), D.shard_tree(
+                tree_from(self.inputs, f"{pre}/p", spec), dims, mesh))
+            x = torch.as_tensor(self.inputs[f"{pre}/x"]).clone()
+            x.requires_grad_(True)
+            with D.mesh_context(mesh):
+                y, aux = tmoe.moe_apply_ep(p, x, cfg)
+            (torch.sum(y * torch.as_tensor(self.inputs[f"{pre}/ct"]))
+             + aux).backward()
+            self.out[f"{pre}/y"] = y.detach().numpy()
+            self.out[f"{pre}/aux"] = aux.detach().numpy()
+            self.out[f"{pre}/gx"] = x.grad.numpy()
+            self.out[f"{pre}/held"] = np.int64(
+                p["experts"]["gate"]["w"].shape[0])
+            put_tree(self.out, f"{pre}/g", D.unshard_tree(
+                cm.tree_map(lambda t: t.grad, p), dims, mesh))
 
     def tp_run(self, job):
         """Two steps of ``launch/train.py:run`` on the mesh (each run
@@ -479,6 +560,20 @@ class Rank:
                          log=lambda m: None)
         self.out["sigterm/preempted"] = np.bool_(res.preempted)
         self.out["sigterm/steps"] = np.int64(len(res.losses))
+
+
+def _whole_cache(mesh, cfg, cache: dict, t: torch.Tensor,
+                 batch: int) -> torch.Tensor:
+    """A rank's (L, B, T, H, D) cache leaf ``t`` of ``cache`` gathered
+    whole: its heads over 'model', its rows over their axis, its batch
+    rows over the data axes."""
+    if t.shape[-2] < cfg.num_kv_heads:
+        t = C.all_gather_along(t, -2, mesh.group("model"))
+    if "rows" in cache:
+        t = C.all_gather_along(t, -3, mesh.group(cache["rows"][0]))
+    if t.shape[-4] < batch:
+        t = C.all_gather_along(t, -4, mesh.group(("data",)))
+    return t
 
 
 def trace_counts(fig: dict) -> dict:
