@@ -13,7 +13,11 @@ Phases, each fatal on failure:
                float32's exponent range), and
                time kernel, plain version and (where one exists) one
                PyTorch library call with CUDA events; log the attention
-               kernels' split scratch at gemma3's T 264;
+               kernels' split scratch at gemma3's T 264; a
+               tensor-parallel rank's GAR products (the fused call's stage
+               1 alone, and the stage-2 entry ``gar_tail`` on a given z)
+               at llama4-scout-17b-a16e's attn/q shard of (1, 2) and at
+               ragged shapes;
   3. serve   - serve gpt2-small at full width (random weights from a seed,
                the serving launcher's calibrated DataSVD state) through
                ``ElasticEngine``: 8 requests at budgets 0.4 and 1.0, half
@@ -278,7 +282,16 @@ Phases, each fatal on failure:
                maxima and sums in rank order, against whole
                ``chunked_attend`` (TOL_MERGE in float32, one bfloat16 ulp
                of the output's max in the cache's type), global and at a
-               window of 8192.
+               window of 8192; (e) back in the world of two, the same
+               model in the GAR form (``--mode gar``'s leaves drawn by
+               ``launch/dryrun.py:_make`` from seed 0 on both ranks) at
+               (1, 2): (d)'s prompt and greedy steps, each rank with its
+               part of ``v_tilde`` and ``u_hat`` (``perm_inv`` whole) and
+               of the cache, against rank 0's one-rank decode (logits
+               within TOL_GAR, greedy tokens equal), each rank's bytes
+               equal to the gar decode cell's ``placed``, every GAR
+               weight operand the rank's part and ``gar_matmul``'s fused
+               and stage-2 entries launched on each rank.
   22. dryrun - run last (``launch/dryrun.py``): (a) two production cells
                on the host as rank 0 of a fake world, deepseek-moe-16b
                ``train_4k`` on (16, 16) (its all-to-alls from
@@ -573,6 +586,38 @@ def check_gar(dev, shapes, rng, report):
         report.append(dict(kernel="gar_matmul", shape=label, ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms,
                            max_abs_err=err, **tf32x3_bounds(work, flops)))
+    return worst
+
+
+def check_gar_tail(dev, cases, rng, report):
+    """cases: (label, t, r, m - r): the stage-2 entry ``gar_tail`` of a
+    tensor-parallel rank (``models/tp.py``) on a given z and random rows of
+    u_hat, held against its plain version and timed against its bound and
+    one ``torch.matmul``. Returns the largest error."""
+    from repro_torch.kernels import gar_matmul as gk
+    from repro_torch.kernels import ref
+    worst = 0.0
+    for label, t, r, w in cases:
+        z = torch.as_tensor(rng.standard_normal((t, r)).astype(np.float32),
+                            device=dev)
+        u = torch.as_tensor(rng.standard_normal((w, r)).astype(np.float32)
+                            / math.sqrt(r), device=dev)
+        sets = [(z, u.clone()) for _ in range(copies_for(nbytes(u)))]
+        y, want = gk.gar_tail(z, u), ref.gar_tail_ref(z, u)
+        torch.cuda.synchronize()
+        err = float((y - want).abs().max())
+        scale = float(want.abs().max()) + 1e-6
+        if not err / scale < TOL_GAR:
+            fail(f"gar_tail {label}: rel err {err / scale:.3e}")
+        worst = max(worst, err)
+        ms = device_ms([lambda s=s: gk.gar_tail(*s) for s in sets])
+        plain_ms = device_ms([lambda s=s: ref.gar_tail_ref(*s) for s in sets])
+        lib_ms = device_ms([lambda s=s: torch.matmul(s[0], s[1].T)
+                            for s in sets])
+        report.append(dict(kernel="gar_tail", shape=label, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           max_abs_err=err, **tf32x3_bounds(
+                               nbytes(z, u) + t * w * 4, 2 * t * r * w)))
     return worst
 
 
@@ -4075,7 +4120,7 @@ def dist_phase(smi: str) -> None:
                 tol_loss=TOL_TRAIN_LOSS, tol_param=TOL_DIST_PARAM,
                 leaf_share=TOL_DIST_LEAF_SHARE, tol_logits=TOL_GAR,
                 lowrank={"arch": "gpt2-small", "layers": DIST_LOWRANK_LAYERS},
-                decode=DIST_DECODE)
+                decode=DIST_DECODE, gar={"seed": 0})
     try:
         try:
             r = dist_check.run_pair(spec, DIST_DEADLINE)
@@ -4141,6 +4186,23 @@ def dist_phase(smi: str) -> None:
             f"{d['logits_err']:.2e} of their max (TOL_GAR), greedy tokens "
             f"equal; one rank's cache {d['one_cache']} B, step ms "
             f"{[round(t, 2) for t in d['one_step_ms']]}; {smi}")
+    e = r["e"]
+    log(f"# dist (e) gar decode 1x2, deepseek-moe-16b 2 of 28 layers in the "
+        f"GAR form ({e['params'] / 1e9:.3f} B parameters, _make from seed "
+        f"0), {dc['prompt']}-token prompt, {dc['steps']} greedy steps: "
+        f"logits against one rank {e['logits_err']:.2e} of their max "
+        f"(TOL_GAR), greedy tokens equal; one rank's parameters "
+        f"{e['one_params']} B, step ms "
+        f"{[round(t, 2) for t in e['one_step_ms']]}; {e['s']:.1f} s on "
+        f"rank 0; {smi}")
+    for rank, x in enumerate(e["ranks"]):
+        log(f"# dist (e) 1x2 rank {rank}: parameters {x['bytes']['params']}"
+            f" B, cache {x['bytes']['cache']} B (the gar decode cell's "
+            f"placed, float32 and int64); {x['products']} GAR products, "
+            f"{x['tails']} of them stage 2 on a given z, every weight "
+            f"operand the rank's part; gar_matmul launches "
+            f"{x['launches']}, gar_tail launches {x['tail_launches']}; "
+            f"step ms {[round(t, 2) for t in x['step_ms']]}; {smi}")
     pos = MERGE_CELL["length"] * 3 // 4 + 5
     for window in (MERGE_CELL["length"], 8192):
         t0 = time.perf_counter()
@@ -4352,7 +4414,28 @@ def main() -> int:
                        (5, 21504, 5376, 5376)):
         gar_shapes.append((f"ragged T={t} n={n} r={r} m={m}", t,
                            *rand_gar(n, m, r)))
-    gar_err = check_gar(dev, gar_shapes, rng, report)
+    # a tensor-parallel rank's GAR products at llama4-scout-17b-a16e's
+    # attn/q shard of (1, 2) (r 3500, m - r 1620: column-parallel, so
+    # v_tilde by rank and u_hat by out; on (16, 16) neither divides and the
+    # leaf stays whole): stage 1 alone (the fused call with an empty u_hat
+    # and the identity permutation) on the rank's 1750 columns, then the
+    # stage-2 entry on the gathered z and the rank's 810 rows of u_hat, at
+    # a decode batch and a prefill chunk; then ragged ones
+    def stage1(n, r):
+        v = torch.as_tensor(rng.standard_normal((n, r)).astype(np.float32)
+                            / math.sqrt(n), device=dev)
+        return v, v.new_empty((0, r)), torch.arange(r, device=dev)
+    tail_cases = []
+    for t in (8, 256):
+        gar_shapes.append((f"llama4 attn/q rank of 1x2 stage 1 T={t} n=5120 "
+                           f"r=1750", t, *stage1(5120, 1750)))
+        tail_cases.append((f"llama4 attn/q rank of 1x2 stage 2 T={t} r=3500 "
+                           f"m-r=810", t, 3500, 810))
+    gar_shapes.append(("ragged stage 1 T=5 n=17 r=3", 5, *stage1(17, 3)))
+    tail_cases += [("ragged T=33 r=7 m-r=29", 33, 7, 29),
+                   ("ragged T=100 r=301 m-r=130", 100, 301, 130)]
+    gar_err = max(check_gar(dev, gar_shapes, rng, report),
+                  check_gar_tail(dev, tail_cases, rng, report))
     attn_err = check_attention(dev, [
         ("T=8 decode Hq=Hkv=12 D=64 BS=16", (8, 12, 12, 64, 16, 8, 16, 8, 0),
          (0.0,), (None,)),

@@ -54,6 +54,20 @@ cell; at (2, 1) each rank holding half the cache, the rows written
 where they fall (the prompt and the first steps on rank 0, the rest on
 rank 1).
 
+With ``gar`` in the spec, (e), after (d) in the world of two: the same
+model in the GAR form (``--mode gar``'s parameters at their default
+budget, drawn by ``launch/dryrun.py:_make`` from ``gar["seed"]`` on every
+rank: valid permutations, no deploy), a prompt of ``decode["prompt"]``
+tokens and ``decode["steps"]`` greedy steps at (1, 2), each rank with
+its part of ``v_tilde`` and ``u_hat`` as placed (``perm_inv`` whole) and
+of the decode cache, held against rank 0's decode without a mesh on the
+whole tree: logits within ``tol_logits`` of their max, greedy tokens
+equal; each rank's bytes of parameters and cache equal to the dry run's
+``placed`` for the gar decode cell; each rank's GAR products
+(``kernels/ops.py``: ``gar_forward``, ``gar_tail``) counted with their
+weight operands' shapes, which must be the rank's parts, and on the card
+``gar_matmul``'s launches of both entries above zero.
+
 ``merge_check`` holds the merge of a decode attention over the rows of a
 cache cut into shards (``models/attention.py``: the row maxima, the
 sums of exponentials, the float32 products) against whole
@@ -148,6 +162,33 @@ def lowrank_calls():
     finally:
         ops.lowrank_2d = real
         box["launches"] = lowrank_matmul.launches - before
+
+
+@contextlib.contextmanager
+def gar_calls():
+    """The weight operands' shapes of every GAR product run (the fused
+    call's ``v_tilde`` and ``u_hat``, the stage-2 entry's ``u_hat``), and
+    the launches of both entries over the block."""
+    from repro_torch.kernels import gar_matmul
+    shapes = []
+    fused, tail = ops.gar_forward, ops.gar_tail
+
+    def counting_fused(x, v_tilde, u_hat, perm_inv):
+        shapes.append(("fused", tuple(v_tilde.shape), tuple(u_hat.shape)))
+        return fused(x, v_tilde, u_hat, perm_inv)
+
+    def counting_tail(z, u_hat):
+        shapes.append(("tail", tuple(u_hat.shape)))
+        return tail(z, u_hat)
+    ops.gar_forward, ops.gar_tail = counting_fused, counting_tail
+    before = (gar_matmul.launches, gar_matmul.tail_launches)
+    box = {"shapes": shapes}
+    try:
+        yield box
+    finally:
+        ops.gar_forward, ops.gar_tail = fused, tail
+        box["launches"] = gar_matmul.launches - before[0]
+        box["tail_launches"] = gar_matmul.tail_launches - before[1]
 
 
 @contextlib.contextmanager
@@ -363,6 +404,8 @@ def run_b(spec, cfg, dense, dev, rank, ref, out, ref_c=None) -> None:
         logits_check(spec, cfg, dense, dev, rank, out)
         if "decode" in spec:
             decode_check(spec, cfg, dense, dev, rank, out)
+        if "gar" in spec:
+            gar_check(spec, cfg, dev, rank, out)
         if "lowrank" in spec:
             lowrank_check(spec, dev, rank, ref_c, out)
     finally:
@@ -538,6 +581,78 @@ def decode_check(spec, cfg, dense, dev, rank, out) -> None:
                                  f" of {res['2x1']['one_cache']} whole")
         out["d"] = res
         out["d_s"] = time.perf_counter() - t0
+
+
+def _leaf_shapes(tree) -> set:
+    """The shapes of one layer's slice of every GAR factor of ``tree``
+    (stacked leaves carry the layers first, experts' the experts too)."""
+    out = set()
+    for path, t in cm.tree_items(tree):
+        if path.endswith(("/v_tilde", "/u_hat")):
+            out.add(tuple(t.shape[-2:]))
+    return out
+
+
+def gar_check(spec, cfg, dev, rank, out) -> None:
+    """(e) (module note)."""
+    dc = spec["decode"]
+    t0 = time.perf_counter()
+    pspecs, paxes = SP.model_param_specs(cfg, mode="gar")
+    whole = dryrun._make(pspecs, torch.float32, dev,
+                         torch.Generator().manual_seed(spec["gar"]["seed"]))
+    mesh = D.elastic_remesh((1, 2), NAMES)
+    part = D.shard_tree(whole, D.rank_dims(cfg, mesh, paxes, pspecs), mesh)
+    if rank != 0:
+        del whole
+    tokens = torch.as_tensor(make_source(
+        cfg.vocab_size, dc["prompt"], spec["batch"], seed=2).batch_at(0)[
+            "tokens"][:, :dc["prompt"]], device=dev)
+    cell = ShapeConfig("decode", dc["cache"], spec["batch"], "decode")
+    with gar_calls() as box:
+        logits, chosen, state, ms = _greedy(cfg, part, cell, tokens,
+                                            dc["steps"], mesh)
+    want = dryrun.placed(cfg, cell, mesh, pspecs, paxes, "gar",
+                         fsdp=False)["bytes_per_device"]
+    have = {"params": _nbytes(part), "cache": _nbytes(
+        [t for t in cm.tree_leaves(state) if isinstance(t, torch.Tensor)])}
+    # float32 and int64 where placed counts bfloat16 and int32
+    if have != {k: want[k] * 2 for k in have}:
+        raise AssertionError(f"(e) 1x2: rank {rank} holds {have}, placed "
+                             f"{ {k: want[k] for k in have} }")
+    weights = {s for c in box["shapes"] for s in c[1:] if s[0] > 0}
+    mine = {"bytes": have, "tokens": chosen.tolist(), "step_ms": ms,
+            "products": len(box["shapes"]),
+            "tails": sum(c[0] == "tail" for c in box["shapes"]),
+            "launches": box["launches"],
+            "tail_launches": box["tail_launches"],
+            "foreign": sorted(str(s) for s in weights - _leaf_shapes(part))}
+    if mine["foreign"] or not mine["tails"] or (dev.type == "cuda" and not (
+            mine["launches"] and mine["tail_launches"])):
+        raise AssertionError(f"(e) 1x2 rank {rank}: GAR weight operands "
+                             f"not among its parts {mine['foreign']}, "
+                             f"{mine['tails']} stage-2 products, launches "
+                             f"{mine['launches']} and "
+                             f"{mine['tail_launches']}")
+    ranks = [None, None]
+    dist.all_gather_object(ranks, mine)
+    del part, state
+    if rank == 0:
+        one_logits, one_tokens, one_state, one_ms = _greedy(
+            cfg, whole, cell, tokens, dc["steps"], None)
+        err = float((logits - one_logits).abs().max()
+                    / one_logits.abs().max())
+        if err > spec["tol_logits"]:
+            raise AssertionError(f"(e) 1x2: logits {err:.3e} of their max "
+                                 "from one rank's")
+        if any(r["tokens"] != one_tokens.tolist() for r in ranks):
+            raise AssertionError(f"(e) 1x2: greedy tokens "
+                                 f"{[r['tokens'] for r in ranks]}, one "
+                                 f"rank's {one_tokens.tolist()}")
+        out["e"] = {"logits_err": err, "ranks": ranks, "one_step_ms": one_ms,
+                    "one_params": _nbytes(whole),
+                    "params": cm.param_count(pspecs),
+                    "s": time.perf_counter() - t0}
+        del whole, one_state
 
 
 def merge_check(dev, *, batch: int, heads: int, kv_heads: int,

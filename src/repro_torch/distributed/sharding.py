@@ -168,9 +168,6 @@ def model_dims(mesh: Mesh, axes: PyTree, shapes: PyTree) -> PyTree:
     return cm.tree_map(dim, axes, is_leaf=_is_axes_leaf)
 
 
-_GAR_LEAVES = ("u_hat", "v_tilde", "perm_inv")
-
-
 _RECURRENT = ("rwkv", "mamba", "zamba_unit")
 
 
@@ -193,11 +190,9 @@ def deferred(cfg, path: str) -> Optional[str]:
     path of the model's spec) whole though ``model_dims`` splits it, or
     None where it runs it split: a block's token mixing that
     ``deferred_block`` names (every leaf of a recurrent block, MLA's
-    ``attn``), a zamba unit's shared attention, and the GAR form, whose
-    output permutation does not follow the head split."""
+    ``attn``, GAR leaves among them) and a zamba unit's shared
+    attention."""
     toks = path.split("/")
-    if toks[-1] in _GAR_LEAVES:
-        return "GAR form"
     if toks[0] == "shared_attn":
         return "zamba shared attention"
     if toks[0] == "segments":

@@ -48,6 +48,14 @@
 // order (no atomics), so two calls on the same inputs give the same bits.
 // m - r = 0 runs the first product and the copy; ragged T, n, r and m are
 // masked in the tile loads.
+//
+// The stage-2 entry (gar_tail_f32) launches the second stage alone on a z
+// it is given, (T, r) at row stride r, and writes tail = z @ u_hat^T (T,
+// m - r) in u_hat's row order: no permutation and no identity copy. A
+// tensor-parallel rank (models/tp.py) runs it where its stage 2 takes a z
+// that other ranks made whole (gathered columns or summed partials), or
+// its own columns of z against its columns of u_hat. z's rows take
+// 16-byte loads where r is a multiple of 4 and z lies on the 16-byte grid.
 #include "lowrank_core.cuh"
 
 using namespace lrc;
@@ -83,13 +91,16 @@ gar_stage1(const float* __restrict__ x, const float* __restrict__ v,
                   });
 }
 
-// SHIFT: u_hat's rows are off the 16-byte grid
-template <int BN, bool SHIFT>
+// SHIFT: u_hat's rows are off the 16-byte grid. TAIL: the stage-2 entry
+// on a given z (gar_tail_f32): the tail alone, written to y (T, mt) in
+// u_hat's row order, without the permutation and the identity copy; z's
+// row stride is ldz and b_vec says whether its rows allow 16-byte loads.
+template <int BN, bool SHIFT, bool TAIL>
 __global__ void __launch_bounds__(Cfg<BN>::NT, Cfg<BN>::MIN_BLOCKS)
 gar_stage2(const float* __restrict__ z, const float* __restrict__ u,
            const int* __restrict__ tail_col,
            const int64_t* __restrict__ perm_inv, float* __restrict__ y, int t,
-           int r, int mt, int ldz, int kchunk) {
+           int r, int mt, int ldz, int kchunk, int b_vec) {
   using C = Cfg<BN>;
   extern __shared__ __align__(16) float smem[];
   const int m = r + mt;
@@ -98,14 +109,23 @@ gar_stage2(const float* __restrict__ z, const float* __restrict__ u,
   if (m0 < mt) {                         // rows past mt: the copy only
     const int k0 = blockIdx.z * kchunk, k1 = min(r, k0 + kchunk);
     Acc<C> acc;
-    tile_product<C, true, SHIFT>(smem, u, r, mt, z, ldz, true, t, m0, n0, k0,
-                          k1, acc);
-    float* yo = y + (size_t)n0 * m;
-    reduce_store<C>(smem, acc, min(BM, mt - m0), min(BN, t - n0),
-                    [&](int i, int tt, float s) {
-                      yo[(size_t)tt * m + tail_col[m0 + i]] = s;
-                    });
+    tile_product<C, true, SHIFT>(smem, u, r, mt, z, ldz, b_vec, t, m0, n0,
+                                 k0, k1, acc);
+    if constexpr (TAIL) {
+      float* yo = y + (size_t)n0 * mt + m0;
+      reduce_store<C>(smem, acc, min(BM, mt - m0), min(BN, t - n0),
+                      [&](int i, int tt, float s) {
+                        yo[(size_t)tt * mt + i] = s;
+                      });
+    } else {
+      float* yo = y + (size_t)n0 * m;
+      reduce_store<C>(smem, acc, min(BM, mt - m0), min(BN, t - n0),
+                      [&](int i, int tt, float s) {
+                        yo[(size_t)tt * m + tail_col[m0 + i]] = s;
+                      });
+    }
   }
+  if constexpr (TAIL) return;
   griddep_wait();         // z complete (a no-op after tile_product's wait)
   // identity outputs: work item w = (token group of 8, column j)
   const int blocks = gridDim.x * gridDim.y * gridDim.z;
@@ -145,10 +165,25 @@ static int run(const float* x, const float* v, const float* u,
                   C::NT, smem1, gx, gy1, split1, stream, x, v, perm_inv,
                   scratch, tail_col, t, n, r, r + mt, ldz, kc1, b_vec);
   if (rc != 0) return rc;
-  return launch(shifted_rows(u, r) ? gar_stage2<BN, true>
-                                   : gar_stage2<BN, false>,
+  return launch(shifted_rows(u, r) ? gar_stage2<BN, true, false>
+                                   : gar_stage2<BN, false, false>,
                 C::NT, smem2, gx, gy2, split2, stream, (const float*)scratch,
-                u, (const int*)tail_col, perm_inv, y, t, r, mt, ldz, kc2);
+                u, (const int*)tail_col, perm_inv, y, t, r, mt, ldz, kc2, 1);
+}
+
+// The stage-2 entry: tail (t, mt) = z (t, r) @ u_hat^T, z given (a rank's
+// columns of z, or the whole z gathered or summed over the ranks).
+template <int BN>
+static int run_tail(const float* z, const float* u, float* tail, int t,
+                    int r, int mt, int gy, int split, int kc,
+                    cudaStream_t stream) {
+  using C = Cfg<BN>;
+  const int b_vec = r % 4 == 0 && grid_offset(z) == 0;
+  return launch(shifted_rows(u, r) ? gar_stage2<BN, true, true>
+                                   : gar_stage2<BN, false, true>,
+                C::NT, 4 * smem_floats<BN, true>(), (t + BN - 1) / BN, gy,
+                split, stream, z, u, (const int*)nullptr,
+                (const int64_t*)nullptr, tail, t, r, mt, r, kc, b_vec);
 }
 
 // scratch: t * ldz + mt floats (z, then tail_col as int32). The tiling
@@ -176,6 +211,29 @@ extern "C" int gar_matmul_f32(const float* x, const float* v_tilde,
     case 128:
       return run<128>(x, v_tilde, u_hat, perm_inv, y, scratch, t, n, r, mt,
                       gy1, split1, kc1, gy2, split2, kc2, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// tail = z @ u_hat^T for z (t, r) and u_hat (mt, r), both contiguous; the
+// tiling of the one launch from the wrapper (kernels/gar_matmul.py:
+// tail_tiling).
+extern "C" int gar_tail_f32(const float* z, const float* u_hat, float* tail,
+                            int t, int r, int mt, int bn, int gy, int split,
+                            int kc, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (bn) {
+    case 8:
+      return run_tail<8>(z, u_hat, tail, t, r, mt, gy, split, kc, s);
+    case 32:
+      return run_tail<32>(z, u_hat, tail, t, r, mt, gy, split, kc, s);
+    case 64:
+      return run_tail<64>(z, u_hat, tail, t, r, mt, gy, split, kc, s);
+    case 96:
+      return run_tail<96>(z, u_hat, tail, t, r, mt, gy, split, kc, s);
+    case 128:
+      return run_tail<128>(z, u_hat, tail, t, r, mt, gy, split, kc, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

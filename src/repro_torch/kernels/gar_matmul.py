@@ -10,6 +10,10 @@ the tensor cores in 3xTF32, tiled over every SM (``tiling``). Bound on the
 card: the bytes of ``v_tilde`` and ``u_hat`` at decode, the operations at
 a prefill chunk; see the source note. The plain version is
 ``ref.gar_matmul_ref`` followed by the same permutation (``ops``).
+
+``gar_tail`` is the stage-2 entry: ``tail = z @ u_hat^T`` from a z it is
+given, the second launch alone (a tensor-parallel rank's stage 2,
+``models/tp.py``); its plain version is ``ref.gar_tail_ref``.
 """
 from __future__ import annotations
 
@@ -22,9 +26,11 @@ import torch
 from repro_torch.kernels import build, tiles
 from repro_torch.kernels.lowrank_matmul import card_slots
 
-# CUDA launches since the last reset (plain int, read by chip_smoke.py to
-# prove the serving path went through the kernel): two a call
+# CUDA launches since the last reset (plain ints, read by chip_smoke.py to
+# prove the serving path went through the kernel): two a ``gar_matmul``
+# call, one a ``gar_tail`` call
 launches = 0
+tail_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +43,8 @@ def _lib(defines: Tuple[str, ...] = ()):
     lib = build.library("gar_matmul", defines)
     lib.gar_matmul_f32.argtypes = [_P] * 6 + [_I] * 11 + [_P]
     lib.gar_matmul_f32.restype = _I
+    lib.gar_tail_f32.argtypes = [_P] * 3 + [_I] * 7 + [_P]
+    lib.gar_tail_f32.restype = _I
     return lib
 
 
@@ -53,6 +61,15 @@ def tiling(t: int, n: int, r: int, m: int,
         tiles.stage(r, n, t, bn, slots=slots),
         tiles.stage(mt, r, t, bn, tiles.copy_blocks(t, m), slots),
         ldz, t * ldz + mt)
+
+
+@functools.lru_cache(maxsize=4096)
+def tail_tiling(t: int, r: int, mt: int,
+                slots: tiles.Slots = tiles.CLUSTER_SLOTS) -> tiles.Stage:
+    """The one launch of a ``gar_tail`` call on z (t, r) and u_hat (mt,
+    r)."""
+    bn = tiles.token_tile(t, [(mt, r)], slots)
+    return tiles.stage(mt, r, t, bn, slots=slots)
 
 
 def gar_matmul(x: torch.Tensor, v_tilde: torch.Tensor, u_hat: torch.Tensor,
@@ -96,3 +113,33 @@ def gar_matmul(x: torch.Tensor, v_tilde: torch.Tensor, u_hat: torch.Tensor,
     build.check(rc, "gar_matmul")
     launches += 2
     return y
+
+
+def gar_tail(z: torch.Tensor, u_hat: torch.Tensor) -> torch.Tensor:
+    """The stage-2 entry: z (T, r) and u_hat (m - r, r) float32, contiguous
+    on one CUDA device. Returns tail = z @ u_hat^T (T, m - r)."""
+    global tail_launches
+    if not (z.is_cuda and u_hat.is_cuda):
+        raise ValueError("gar_tail launches on CUDA tensors only")
+    if z.device != u_hat.device:
+        raise ValueError("gar_tail operands lie on different devices")
+    if not (z.dtype == u_hat.dtype == torch.float32):
+        raise TypeError(f"gar_tail takes float32, got {z.dtype}, "
+                        f"{u_hat.dtype}")
+    if z.dim() != 2 or u_hat.dim() != 2 or u_hat.shape[1] != z.shape[1]:
+        raise ValueError(f"gar_tail shapes: z {tuple(z.shape)}, u_hat "
+                         f"{tuple(u_hat.shape)}")
+    if not (z.is_contiguous() and u_hat.is_contiguous()):
+        raise ValueError("gar_tail takes contiguous tensors")
+    t, r = z.shape
+    mt = u_hat.shape[0]
+    tail = torch.empty((t, mt), dtype=z.dtype, device=z.device)
+    if t == 0 or mt == 0:
+        return tail
+    st = tail_tiling(t, r, mt, card_slots())
+    rc = _lib().gar_tail_f32(z.data_ptr(), u_hat.data_ptr(), tail.data_ptr(),
+                             t, r, mt, st.bn, st.rows, st.split, st.k_chunk,
+                             build.stream_ptr(z.device))
+    build.check(rc, "gar_tail")
+    tail_launches += 1
+    return tail

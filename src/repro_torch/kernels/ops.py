@@ -48,6 +48,20 @@ def _gar_plain(xf, v_tilde, u_hat, perm_inv):
     return torch.cat([z, tail], dim=-1)[:, perm_inv]
 
 
+def gar_tail(z: torch.Tensor, u_hat: torch.Tensor) -> torch.Tensor:
+    """GAR's second stage on a given z: ``z @ u_hat^T``, z: (..., r)."""
+    lead = z.shape[:-1]
+    zf = z.reshape(-1, z.shape[-1])
+    u_hat = u_hat.to(z.dtype)
+    if z.is_cuda:
+        TA.count_kernel("gar_tail", ref.gar_tail_ref, zf, u_hat)
+        tail = _gar.gar_tail(zf.contiguous(), u_hat.contiguous())
+        return tail.reshape(*lead, -1)
+    with TA.plain_kernel("gar_tail"):
+        tail = ref.gar_tail_ref(zf, u_hat)
+    return tail.reshape(*lead, -1)
+
+
 def lowrank_2d(x: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
                rank: Optional[int]) -> torch.Tensor:
     """``((x @ v) * [col < rank]) @ u^T`` of 2-d ``x``, outside autograd:

@@ -24,6 +24,11 @@ def gar_matmul_ref(x: torch.Tensor, v_tilde: torch.Tensor,
     return z, z @ u_hat.T
 
 
+def gar_tail_ref(z: torch.Tensor, u_hat: torch.Tensor) -> torch.Tensor:
+    """The GAR kernel's second stage on a given z: z @ u_hat^T."""
+    return z @ u_hat.T
+
+
 def lowrank_matmul_ref(x: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
                        rank: Optional[int] = None) -> torch.Tensor:
     """y = ((x @ v) * [col < rank]) @ u^T; ``rank`` None keeps every

@@ -14,14 +14,14 @@ held whole), and over 'model' each leaf of the parameters, the AdamW
 moments and the flexrank_kd teacher is cut as ``param_shardings`` places
 it (``sharding.rank_dims``): experts (``moe_apply_ep``, and at decode
 ``moe_apply`` over the rank's experts), heads, kv-heads, MLP columns,
-vocabulary and factor rank (``models/tp.py``); the attention stacks'
-decode caches hold this rank's k/v heads, or its rows of a sequence cut
-over 'model' or 'data' (``specs.cache_specs(mesh=)``). What the rank
-still holds whole is listed in the record under ``whole``: the leaves
-``sharding.deferred`` names (MLA's attention, the recurrent blocks, the
-GAR form) and the cache entries whose placement the rank does not
-execute (the recurrent and latent states, the sequence of zamba's shared
-attention). Parameters are bfloat16 (``specs.COMPUTE_DTYPE``), the AdamW
+vocabulary and factor rank (``models/tp.py``, the GAR form's ``v_tilde``
+and ``u_hat`` among them); the attention stacks' decode caches hold this
+rank's k/v heads, or its rows of a sequence cut over 'model' or 'data'
+(``specs.cache_specs(mesh=)``). What the rank still holds whole is
+listed in the record under ``whole``: the leaves ``sharding.deferred``
+names (MLA's attention, the recurrent blocks) and the cache entries
+whose placement the rank does not execute (the recurrent and latent
+states, the sequence of zamba's shared attention). Parameters are bfloat16 (``specs.COMPUTE_DTYPE``), the AdamW
 moments float32. The train step is ``specs.make_train_step``'s
 (``specs.step`` under ``remat_blocks()``; in ``flexrank_kd`` with the
 frozen dense teacher), the prefill and decode steps

@@ -20,7 +20,7 @@ each leaf's experts, heads, kv-heads, MLP columns, vocabulary or rank
 heads over 'model', or their sequence over 'model' (kv-heads that do
 not divide the axis) or over 'data' (a batch of one). Held whole on
 every 'model' rank: the leaves ``sharding.deferred`` names (MLA's
-attention, the recurrent blocks, the GAR form), their caches but for
+attention, the recurrent blocks), their caches but for
 the batch rows (MLA's latent cache, the recurrent states, zamba's shared
 attention), and ``fsdp=True``'s data-axis cut.
 """

@@ -150,6 +150,9 @@ def chunked_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_pos = q_positions.reshape(qs.shape[1], qs.shape[2])
     outs = []
     for c in range(qs.shape[1]):
+        # the last chunk's logits and probabilities go before this chunk's
+        # are built: one chunk's float32 logits live at a time
+        logits = probs = None
         logits = masked_logits(qs[:, c], k, q_positions=q_pos[c],
                                k_positions=k_positions, window=window,
                                softcap=softcap, causal=causal)

@@ -35,6 +35,27 @@ mask_i) u_i^T`` with the nested mask's columns offset by the rank's
 first column. In every case ``kernels.ops`` runs the low-rank kernel on
 the rank's shards, at the global ``rank`` of the nested mask.
 
+The GAR form ``y = [z, z u_hat^T][:, perm_inv]``, ``z = x v_tilde``
+(``_gar_linear``): ``param_shardings`` cuts ``v_tilde`` (n, r) by its
+input rows where the input side takes 'model' (row-parallel), else by
+its rank columns; ``u_hat`` (m - r, r) by its rows where the output side
+does (column-parallel), else by its rank columns; a dimension that does
+not divide leaves that leaf whole, whatever the other's cut. ``perm_inv``
+is never cut: it permutes all m outputs, not the rank's. Stage 1 on a
+rank gives its columns of z, a partial sum of all of z (an input cut by
+rows), or all of z; z is made whole where stage 2 needs it (a gather of
+columns, an all-reduce of partials) and stage 2 gives the tail's rows,
+a partial sum of the tail from the rank's columns of z, or the whole
+tail, which is made whole the same way. Then the permutation, and a
+column-parallel product keeps the rank's output columns (where they
+divide: its heads or MLP columns, as the dense layer's). Where both
+factors are cut by rank (``frontend_proj``) one fused call gives the
+rank's columns of z and a partial tail. No weight crosses the ranks,
+only z (T x r) and the tail (T x (m - r)); each stage runs on the GAR
+kernel's entries (``ops.gar_forward`` with no tail and the identity
+permutation for stage 1 alone, ``ops.gar_tail`` for stage 2 on a given
+z), with the collectives' backward for training.
+
 The attention (``models/attention.py``) runs each rank's own heads where
 its q and k/v columns are whole heads (and the GQA map holds on them);
 where the split falls inside a head (gpt2-small's 12 heads on 16 ranks,
@@ -46,6 +67,8 @@ shards' maxima, sums and label logits without gathering them.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -135,14 +158,9 @@ def _param_dtype(p: Dict[str, torch.Tensor]) -> torch.dtype:
 
 
 def _layout(p: Dict[str, torch.Tensor], whole: Sequence[int], n: int):
-    """How a product's leaf is cut over ``n`` ranks: (input cut, output
-    cut, v gathered, u gathered, both factors cut by rank)."""
+    """How a dense or factorized leaf is cut over ``n`` ranks: (input
+    cut, output cut, v gathered, u gathered, both factors cut by rank)."""
     n_in, n_out = whole[0], whole[1]
-    if "u_hat" in p:
-        # the GAR form is held whole (distributed.sharding.deferred)
-        is_part(p["v_tilde"].shape[-2], n_in, 1, "GAR v_tilde")
-        is_part(p["perm_inv"].shape[-1], n_out, 1, "GAR perm_inv")
-        return False, False, False, False, False
     if "w" in p:
         split_in = is_part(p["w"].shape[-2], n_in, n, "w rows")
         split_out = is_part(p["w"].shape[-1], n_out, n, "w columns")
@@ -162,6 +180,45 @@ def _layout(p: Dict[str, torch.Tensor], whole: Sequence[int], n: int):
     return split_in, split_out, gather_v, gather_u, rank_cut
 
 
+@dataclasses.dataclass(frozen=True)
+class _GarCut:
+    """How a GAR leaf is cut over the ranks (module note): ``v_tilde`` by
+    its input rows or its rank columns, ``u_hat`` by its output rows or
+    its rank columns. ``perm_inv`` is never cut."""
+    v_in: bool
+    v_rank: bool
+    u_out: bool
+    u_rank: bool
+
+    @property
+    def column(self) -> bool:
+        """The product's output side takes 'model' (heads, MLP): the
+        rank keeps its output columns where they divide."""
+        return self.u_out or (self.v_rank and not self.u_rank)
+
+
+def _gar_layout(p: Dict[str, torch.Tensor], whole: Sequence[int],
+                n: int) -> _GarCut:
+    """The cut of a GAR leaf from its shapes. ``whole``: (d_in, d_out),
+    and a third entry where neither side takes 'model' (both factors may
+    be cut by rank: ``frontend_proj``). There the whole rank is m less
+    u_hat's rows, which are never cut; elsewhere the larger of the two
+    factors' rank widths, as only one of them can be cut by rank."""
+    n_in, m = whole[0], whole[1]
+    is_part(p["perm_inv"].shape[-1], m, 1, "GAR perm_inv")
+    a, b = p["v_tilde"].shape[-1], p["u_hat"].shape[-1]
+    rows = p["u_hat"].shape[-2]
+    r = m - rows if len(whole) > 2 else max(a, b)
+    cut = _GarCut(v_in=is_part(p["v_tilde"].shape[-2], n_in, n,
+                               "GAR v_tilde rows"),
+                  v_rank=is_part(a, r, n, "GAR v_tilde rank"),
+                  u_out=is_part(rows, m - r, n, "GAR u_hat rows"),
+                  u_rank=is_part(b, r, n, "GAR u_hat rank"))
+    if (cut.v_in and cut.v_rank) or (cut.u_out and cut.u_rank):
+        raise ValueError("a GAR factor cut by two of its dimensions")
+    return cut
+
+
 def enter(x: torch.Tensor, products) -> Tuple[torch.Tensor, bool]:
     """``x`` as the input of ``products`` ((leaf, whole) pairs): through
     one ``reduce_grad`` where each of them computes a part of its output
@@ -169,7 +226,8 @@ def enter(x: torch.Tensor, products) -> Tuple[torch.Tensor, bool]:
     up), then ``(x, True)``; else ``(x, False)`` and each product takes
     its own."""
     group, n, _ = axis()
-    if group is None or x.shape[-1] != products[0][1][0]:
+    if group is None or x.shape[-1] != products[0][1][0] or any(
+            "u_hat" in p for p, _ in products):
         return x, False
     for p, whole in products:
         split_in, split_out, _, _, rank_cut = _layout(p, whole, n)
@@ -183,14 +241,17 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
            plain: Callable, entered: bool = False) -> torch.Tensor:
     """``common.linear`` of a leaf that may be this rank's part (module
     note). ``whole``: the product's (d_in, d_out), and for a factorized
-    pair whose both factors may be cut by rank, its whole rank third.
-    ``x`` may hold the whole input or this rank's columns of it;
-    ``entered``: it went through ``enter`` already. Returns the whole
-    output, or this rank's columns of it where the leaf is cut by its
-    output. ``plain(p, x, rank)`` is the one-device product."""
+    pair whose both factors may be cut by rank, its whole rank third (a
+    GAR leaf reads only that there is one: ``_gar_layout``). ``x`` may
+    hold the whole input or this rank's columns of it; ``entered``: it
+    went through ``enter`` already. Returns the whole output, or this
+    rank's columns of it where the leaf is cut by its output.
+    ``plain(p, x, rank)`` is the one-device product."""
     group, n, i = axis()
     if group is None:
         return plain(p, x, rank)
+    if "u_hat" in p:
+        return _gar_linear(p, x, whole, group, n, i)
     split_in, split_out, gather_v, gather_u, rank_cut = _layout(p, whole, n)
     x = _fit_input(x, whole[0], split_in, group, n)
     if (split_out or rank_cut) and not entered:
@@ -220,6 +281,67 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         y = plain(p, x, rank)
     return C.reduce_from(y, group) if split_in or rank_cut else y
+
+
+# ------------------------------------------------------------ GAR
+
+@functools.lru_cache(maxsize=256)
+def _identity(k: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(k, device=device)
+
+
+def _stage1(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """z = x @ v on the GAR kernel: its fused call with no tail and the
+    identity permutation."""
+    return ops.gar_forward(x, v, v.new_empty((0, v.shape[-1])),
+                           _identity(v.shape[-1], v.device))
+
+
+def _gar_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                whole: Sequence[int], group, n: int, i: int
+                ) -> torch.Tensor:
+    """``y = [z, z u_hat^T][:, perm_inv]``, ``z = x v_tilde``, on this
+    rank's parts of the GAR leaf (module note). Every product runs on the
+    GAR kernel's entries; only z and the tail cross the ranks. Returns
+    this rank's output columns where the product is column-parallel and
+    they divide, else the whole output."""
+    cut = _gar_layout(p, whole, n)
+    m = whole[1]
+    x = _fit_input(x, whole[0], cut.v_in, group, n)
+    v, u = p["v_tilde"].to(x.dtype), p["u_hat"].to(x.dtype)
+    perm = p["perm_inv"]
+    if not (cut.v_in or cut.v_rank or cut.u_out or cut.u_rank):
+        return ops.gar_forward(x, v, u, perm)
+    if cut.v_rank and cut.u_rank:
+        # rank-parallel: the rank's columns of z and a partial tail in one
+        # fused call
+        rl = v.shape[-1]
+        y = ops.gar_forward(C.reduce_grad(x, group), v, u,
+                            _identity(rl + u.shape[-2], v.device))
+        z = C.gather(y[..., :rl], -1, group)
+        tail = C.reduce_from(y[..., rl:], group)
+    else:
+        if cut.v_rank:
+            z = C.gather(_stage1(C.reduce_grad(x, group), v), -1, group)
+        elif cut.v_in:
+            z = C.reduce_from(_stage1(x, v), group)
+        else:
+            z = _stage1(x, v)
+        if cut.u_rank:
+            tail = C.reduce_from(ops.gar_tail(C.scatter(z, -1, group), u),
+                                 group)
+        elif cut.u_out:
+            tail = C.gather(ops.gar_tail(C.reduce_grad(z, group), u), -1,
+                            group)
+        else:
+            tail = ops.gar_tail(z, u)
+    w = torch.cat([z, tail], dim=-1)
+    if cut.column and m % n == 0:
+        # the output permutation does not follow the head split: the
+        # rank's output columns are picked from the whole [z, tail]
+        cols = m // n
+        return C.reduce_grad(w, group)[..., perm[i * cols:(i + 1) * cols]]
+    return w[..., perm]
 
 
 # ------------------------------------------------------------ heads
@@ -353,8 +475,11 @@ def require_whole(p, spec_of: Callable[[], Dict], what: str) -> None:
         elif "w" in node:
             got = [(tuple(node["w"].shape[-2:]), (n_in, n_out))]
         elif "u_hat" in node:
+            r = node["v_tilde"].shape[-1]
             got = [(node["v_tilde"].shape[-2], n_in),
-                   (node["perm_inv"].shape[-1], n_out)]
+                   (node["perm_inv"].shape[-1], n_out),
+                   (node["u_hat"].shape[-1], r),
+                   (node["u_hat"].shape[-2] + r, n_out)]
         else:
             got = [((node["v"].shape[-2], node["u"].shape[-2]),
                     (n_in, n_out)),

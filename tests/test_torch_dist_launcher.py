@@ -66,7 +66,8 @@ def _rehearse(tmp: Path, into: dict) -> None:
                 port_a=_free_port(), port_b=_free_port(), dir=str(d),
                 tol_loss=1e-4, tol_param=2e-3, leaf_share=1e-6,
                 tol_logits=2e-4, lowrank={"arch": "gpt2-small", "layers": 2},
-                decode={"prompt": 12, "cache": 32, "steps": 8})
+                decode={"prompt": 12, "cache": 32, "steps": 8},
+                gar={"seed": 0})
     try:
         into["result"] = dist_check.run_pair(spec, DEADLINE)
     except RuntimeError as e:
@@ -233,7 +234,9 @@ def test_chip_phase_21_rehearses_on_the_cpu(world):
     bytes; (c) gpt2-small's flexrank run at (1, 2) within its bounds, as
     many low-rank products on each rank as on one; (d) the greedy decode
     over the rank's part of the cache at (1, 2) and (2, 1) against one
-    rank, ``placed``'s bytes, the rows written where they fall."""
+    rank, ``placed``'s bytes, the rows written where they fall; (e) the
+    GAR decode at (1, 2) against one rank, each rank's GAR products on its
+    parts of the leaves."""
     assert "error" not in world["rehearsal"], world["rehearsal"]["error"]
     r = world["rehearsal"]["result"]
     assert len(r["a_losses"]) == 2
@@ -262,6 +265,13 @@ def test_chip_phase_21_rehearses_on_the_cpu(world):
     assert [x["rows"] for x in d["2x1"]["ranks"]] == [16, 4]
     assert all(2 * x["bytes"]["cache"] == d["2x1"]["one_cache"]
                for x in d["2x1"]["ranks"])
+    # (e): the GAR decode at (1, 2), each rank on its parts of the GAR
+    # leaves (their stage-2 products among them); no launches on the CPU
+    e = r["e"]
+    assert e["logits_err"] < 2e-4
+    for x in e["ranks"]:
+        assert len(x["step_ms"]) == 8 and x["tails"] and not x["foreign"]
+        assert x["bytes"]["params"] < e["one_params"]
 
 
 @pytest.mark.parametrize("window", [10 ** 9, 24])

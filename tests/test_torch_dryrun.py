@@ -413,7 +413,8 @@ def test_decode_cache_as_placed(arch, multi):
     ``meta``, and the same at a batch of one: the rank's cache
     (``cache_specs(mesh=)``) has the shape ``shard_shape`` gives under
     ``cache_shardings``, a cut sequence carries its axis and first row,
-    and the rank holds no leaf and no cache entry whole."""
+    and the rank holds no leaf and no cache entry whole, dense or in the
+    GAR form."""
     try:
         for shape in (s for s in shapes_for(arch) if s.kind == "decode"):
             for b in (shape.global_batch, 1):
@@ -439,8 +440,9 @@ def test_decode_cache_as_placed(arch, multi):
                         assert mine[rows] == mesh.index(seq) * want[-3]
                     else:
                         assert rows not in mine, (path, b)
-                assert DR.whole_on_rank(cfg, cell, mesh, "dense") == {
-                    "leaves": {}, "cache": {}}, b
+                for mode in ("dense", "gar"):
+                    assert DR.whole_on_rank(cfg, cell, mesh, mode) == {
+                        "leaves": {}, "cache": {}}, (b, mode)
     finally:
         D.shutdown_world()
 

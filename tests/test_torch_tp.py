@@ -792,11 +792,12 @@ def test_moe_over_a_ranks_experts_matches_whole(world, arch, var):
 
 @pytest.mark.parametrize("arch,mode", [("minicpm3-4b", "dense"),
                                        ("rwkv6-3b", "dense"),
-                                       ("gpt2-small", "gar")])
+                                       ("minicpm3-4b", "gar")])
 def test_split_leaf_the_rank_cannot_run_raises(arch, mode):
-    """``rank_dims`` holds MLA's attention, the recurrent blocks and the
-    GAR form whole; cut by ``model_dims`` instead, the rank program raises
-    where it meets such a leaf, on a fake world of two ranks."""
+    """``rank_dims`` holds MLA's attention and the recurrent blocks whole
+    (in the GAR form too: MLA's GAR leaves); cut by ``model_dims``
+    instead, the rank program raises where it meets such a leaf, on a
+    fake world of two ranks."""
     cfg = get_config(arch, smoke=True)
     pspecs, paxes = SP.model_param_specs(cfg, mode=mode)
     D.init_world("fake", device="cpu", rank=0, world_size=2)

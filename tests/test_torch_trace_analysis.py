@@ -13,7 +13,8 @@ rank's float32 gradients (and the clipping norm's scalar over 'model'),
 an MoE prefill's all-to-all bytes are ``moe_apply_ep``'s buffers, and two
 gloo ranks (``tests/test_torch_dist.py``'s harness) count the same ops and
 bytes as two fake ranks. Every count is exact: FLOPs, dots and bytes are
-integers.
+integers. And ``chunked_attend``'s high-water over three query chunks:
+one chunk's float32 logits live at a time.
 """
 import contextlib
 import math
@@ -168,6 +169,7 @@ def _kernel_cases():
     return {
         "gar_matmul": (ops._gar_plain, (rn(5, 12), rn(12, 4), rn(6, 4),
                                         torch.randperm(10, generator=g)), {}),
+        "gar_tail": (ref.gar_tail_ref, (rn(5, 4), rn(6, 4)), {}),
         "lowrank_matmul": (ref.lowrank_matmul_ref,
                            (rn(5, 12), rn(12, 6), rn(9, 6), 4), {}),
         "paged_attention": (ref.paged_attention_ref,
@@ -239,6 +241,33 @@ def test_memory_high_water_and_arguments():
     _, fig = TA.trace(step, arg)
     assert fig["bytes"] == {"argument": 4000, "output": 2000,
                             "temp": 16000, "peak": 20000}
+
+
+def _attend_temp(chunks: int) -> tuple:
+    """The temp high-water of ``chunked_attend`` over ``chunks`` query
+    chunks against 3 * ``Q_CHUNK`` keys on ``meta``, with one chunk's
+    float32 logits and output bytes."""
+    from repro_torch.models import attention as attn
+    b, hq, hkv, d, t = 2, 4, 2, 16, 3 * attn.Q_CHUNK
+    s = chunks * attn.Q_CHUNK
+    q = torch.empty(b, s, hq, d, device="meta")
+    k, v = (torch.empty(b, t, hkv, d, device="meta") for _ in range(2))
+    _, fig = TA.trace(attn.chunked_attend, q, k, v,
+                      q_positions=torch.arange(s, device="meta"),
+                      k_positions=torch.arange(t, device="meta"), window=t)
+    return (fig["bytes"]["temp"], b * hq * attn.Q_CHUNK * t * 4,
+            b * attn.Q_CHUNK * hq * d * 4)
+
+
+def test_chunked_attend_holds_one_chunk_of_logits():
+    """Three query chunks of ``chunked_attend`` hold no more than one
+    chunk does, but for the other two chunks' outputs (kept in the list,
+    then stacked): one chunk's float32 logits are live at a time. Were
+    the last chunk's logits and probabilities kept while the next
+    chunk's are built, the three would take two chunks' logits more."""
+    one, logits, out = _attend_temp(1)
+    three, _, _ = _attend_temp(3)
+    assert three - one <= 4 * out < logits
 
 
 # ------------------------------------------------------------ fake ranks

@@ -64,6 +64,16 @@ def variant(arch: str, name: str):
     return dataclasses.replace(cfg, moe=moe)
 
 
+def gar_moe_spec(cfg, budget: int):
+    """The GAR spec of the first MoE layer's FFN of ``cfg`` deployed at
+    ``budget`` (an index of its budgets), without the layers axis."""
+    spec = SP.model_param_specs(cfg, mode="gar", budget_index=budget)[0]
+    seg = next(i for i, s in enumerate(cfg.segments) if s.kind == "attn")
+    return cm.tree_map(lambda s: dataclasses.replace(
+        s, shape=s.shape[1:], axes=s.axes[1:]),
+        spec["segments"][seg]["mlp"], is_leaf=cm.is_spec)
+
+
 def tree_from(arrays, prefix: str, spec):
     """The tree of ``spec`` with each leaf ``arrays[prefix/path]``."""
     it = iter([torch.as_tensor(arrays[f"{prefix}/{path}"])
@@ -303,7 +313,9 @@ class Rank:
     def tp_decode(self, job):
         """A prompt through ``prefill`` into this rank's part of the decode
         cache (``specs.cache_specs(mesh=)``) on its part of every leaf,
-        then decode steps teacher-forced from ``tp/decode/<case>/tokens``:
+        then decode steps teacher-forced from ``tp/decode/<case>/tokens``
+        (the parameters of the job's ``mode``, dense by default, at its
+        ``budget`` index in ``gar`` mode):
         the logits (whole over the vocabulary), the caches gathered whole,
         and this rank's bytes of parameters and cache. A bfloat16 cache
         also gives the float32 value of each write before its rounding
@@ -312,7 +324,8 @@ class Rank:
         name, arch, var, _, b, dtype, prompt, steps, cache_len = job["case"]
         cfg = variant(arch, var)
         pre = f"tp/decode/{name}"
-        pspecs, paxes = SP.model_param_specs(cfg, mode="dense")
+        pspecs, paxes = SP.model_param_specs(
+            cfg, mode=job.get("mode", "dense"), budget_index=job.get("budget"))
         dims = D.rank_dims(cfg, mesh, paxes, pspecs)
         params = D.shard_tree(tree_from(self.inputs, f"{pre}/p", pspecs),
                               dims, mesh)
@@ -351,6 +364,68 @@ class Rank:
             sum(t.numel() * t.element_size() for t in cm.tree_leaves(tree)
                 if isinstance(t, torch.Tensor))
             for tree in (params, state)], np.int64)
+
+    def tp_gar_linear(self, job):
+        """The GAR ``common.linear`` on this rank's part of each leaf of
+        ``tp/gar/<case>`` (``perm_inv`` whole): the output (gathered where
+        it is this rank's columns), and the input's and both factors'
+        gradients of ``sum(y * ct)``, each factor's as this rank's part."""
+        mesh = self._tp_mesh(job)
+        group = mesh.group("model")
+        for case in job["cases"]:
+            pre = f"tp/gar/{case['name']}"
+            whole = tuple(case["whole"])
+            p = {k: D.shard_tree(torch.as_tensor(self.inputs[f"{pre}/p/{k}"]),
+                                 d, mesh).clone()
+                 for k, d in case["dims"].items()}
+            for k in ("v_tilde", "u_hat"):
+                p[k].requires_grad_(True)
+            x = torch.as_tensor(self.inputs[f"{pre}/x"]).clone()
+            if case["x_cut"]:
+                x = C.scatter(x, -1, group).detach()
+            x.requires_grad_(True)
+            with D.mesh_context(mesh):
+                y = cm.linear(p, x, whole=whole)
+                self.out[f"{pre}/cols"] = np.int64(y.shape[-1])
+                if y.shape[-1] != whole[1]:
+                    y = C.gather(y, -1, group)
+            torch.sum(y * torch.as_tensor(self.inputs[f"{pre}/ct"])).backward()
+            self.out[f"{pre}/y"] = y.detach().numpy()
+            self.out[f"{pre}/gx"] = x.grad.numpy()
+            for k in ("v_tilde", "u_hat"):
+                self.out[f"{pre}/g/{k}"] = p[k].grad.numpy()
+
+    def tp_gar_moe(self, job):
+        """``moe_apply`` of GAR expert leaves cut by E over this rank's
+        experts (``rank_dims``: the shared experts' GAR leaves cut as
+        placed), each case ``[arch, variant, budget index]``: the output,
+        aux, and the input's and every leaf's gradient (gathered whole)
+        of ``sum(y * ct) + aux``."""
+        mesh = self._tp_mesh(job)
+        for arch, var, budget in job["cases"]:
+            cfg = variant(arch, var)
+            pre = f"tp/garmoe/{arch}/{budget}"
+            spec = gar_moe_spec(cfg, budget)
+            dims = D.rank_dims(cfg, mesh, cm.axes_tree(spec), spec)
+            p = D.shard_tree(tree_from(self.inputs, f"{pre}/p", spec), dims,
+                             mesh)
+            p = cm.tree_map(lambda t: t.requires_grad_(t.is_floating_point()),
+                            p)
+            x = torch.as_tensor(self.inputs[f"{pre}/x"]).clone()
+            x.requires_grad_(True)
+            with D.mesh_context(mesh):
+                y, aux = tmoe.moe_apply(p, x, cfg)
+            (torch.sum(y * torch.as_tensor(self.inputs[f"{pre}/ct"]))
+             + aux).backward()
+            self.out[f"{pre}/y"] = y.detach().numpy()
+            self.out[f"{pre}/aux"] = aux.detach().numpy()
+            self.out[f"{pre}/gx"] = x.grad.numpy()
+            self.out[f"{pre}/held"] = np.int64(
+                p["experts"]["gate"]["v_tilde"].shape[0])
+            grads = cm.tree_map(
+                lambda t: t.grad if t.is_floating_point()
+                else torch.zeros(t.shape), p)
+            put_tree(self.out, f"{pre}/g", D.unshard_tree(grads, dims, mesh))
 
     def tp_moe_part(self, job):
         """``moe_apply_ep`` where the tokens do not divide the 'model' axis
